@@ -1,0 +1,83 @@
+// quant_pipeline for sm_90a: the fused EF -> quantize -> pack uplink.
+//
+// Replaces the Pallas kernel src/repro/kernels/compress_pipeline.py:112
+// quant_pipeline (body :68).  Per value:
+//
+//   corrected = msg + cache
+//   idx       = clip(floor((clip(corrected, vmin, vmax) - vmin) / delta + 0.5), 0, L)
+//   new_cache = corrected - (idx * delta + vmin)
+//
+// and the indices are packed at b = ceil(log2(L + 1)) bits in the wire's
+// transposed bit-plane layout (bitplanes.cuh).  The index never leaves
+// registers.  Slots past n pack as index 0 and write no cache, which is what
+// the JAX kernel's tail padding (msg = vmin, cache = 0) gives.
+//
+// Bit-exact with the plain version and with the Pallas kernel as XLA
+// compiles it: XLA turns the division by the constant delta into a product
+// with its float32 reciprocal and contracts each multiply and add into a
+// fused multiply-add, so
+//
+//   idx     = floor(fma(clip(corrected) - vmin, 1/delta, 0.5))
+//   decoded = fma(idx, delta, vmin)
+//
+// with delta the float32 rounding of (vmax - vmin) / L and 1/delta computed
+// in float32, both passed by the caller.  Each step is an explicitly rounded
+// intrinsic (__fadd_rn, __fsub_rn, __fmaf_rn), so nvcc can contract nothing
+// else.  No fast-math.
+//
+// Bound: bytes.  It reads 8 bytes and writes 4 bytes per value, plus 4*b
+// bytes per 32 values of words; a dozen float operations per value are far
+// below the card's rate.  At the main path's shape, (100, 100) values at
+// b = 4 in one tile, it moves about 136 KB, some 0.04 us at 3.35 TB/s, so a
+// launch is bound by launch latency.
+#include "bitplanes.cuh"
+
+using repro::GROUP;
+using repro::TILE_COLS;
+
+__global__ void quant_pipeline_kernel(const float* __restrict__ msg,
+                                      const float* __restrict__ cache,
+                                      uint32_t* __restrict__ words,
+                                      float* __restrict__ new_cache,
+                                      long long n, int bits, long long columns,
+                                      float levels, float vmin, float vmax,
+                                      float delta, float recip) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= columns) return;
+  const long long tile = t / TILE_COLS;
+  const int col = static_cast<int>(t % TILE_COLS);
+  uint32_t v[GROUP];
+#pragma unroll
+  for (int i = 0; i < GROUP; ++i) {
+    const long long idx = (tile * GROUP + i) * TILE_COLS + col;
+    uint32_t q = 0u;
+    if (idx < n) {
+      const float corrected = __fadd_rn(msg[idx], cache[idx]);
+      const float clipped = fminf(fmaxf(corrected, vmin), vmax);
+      float level = floorf(__fmaf_rn(__fsub_rn(clipped, vmin), recip, 0.5f));
+      level = fminf(fmaxf(level, 0.0f), levels);
+      const float decoded = __fmaf_rn(level, delta, vmin);
+      new_cache[idx] = __fsub_rn(corrected, decoded);
+      q = static_cast<uint32_t>(level);
+    }
+    v[i] = q;
+  }
+  repro::store_planes(v, bits, words, tile, col);
+}
+
+// msg, cache, new_cache: n float32; words: tiles * bits * 1024 uint32, all
+// written.  delta: the float32 rounding of (vmax - vmin) / levels; recip:
+// 1.0f / delta in float32.
+extern "C" int repro_quant_pipeline(const void* msg, const void* cache,
+                                    void* words, void* new_cache, int n,
+                                    int bits, int tiles, int levels, float vmin,
+                                    float vmax, float delta, float recip,
+                                    void* stream) {
+  quant_pipeline_kernel<<<repro::blocks_for(tiles), repro::THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(msg), static_cast<const float*>(cache),
+      static_cast<uint32_t*>(words), static_cast<float*>(new_cache), n, bits,
+      static_cast<long long>(tiles) * TILE_COLS, static_cast<float>(levels),
+      vmin, vmax, delta, recip);
+  return static_cast<int>(cudaGetLastError());
+}

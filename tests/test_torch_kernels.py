@@ -1,0 +1,203 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port runs each kernel's plain version (``repro_torch.kernels.ref``);
+the JAX kernels run in interpret mode, as the JAX package's own tests run
+them.  Inputs are made with numpy from a seed and handed to both.
+
+Tolerance: none.  Words are compared word for word, tile padding
+included, and new caches bit for bit.  XLA, compiling the Pallas kernel
+for the CPU, multiplies by the float32 reciprocal of Δ and contracts
+``x·(1/Δ) + 0.5`` and the decode ``idx·Δ + vmin`` into fused multiply-adds;
+the port rounds the same way (``level_index``, ``decode_levels``), so
+indices and new caches agree bit for bit.
+
+The CUDA kernels cannot run here; ``test_cuda_kernels_match_plain`` holds
+them against the plain versions on a machine with a card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.compression import quantize_decode as jax_quantize_decode
+from repro.kernels import compress_pipeline as jcp
+from repro.kernels import pack_bits as jpb
+from repro.kernels import ref as jref
+from repro_torch.core.compression import decode_levels, wire_index_bits
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import pack_bits as tpb
+
+PACK_CASES = [(70_001, 1), (70_001, 7), (10_000, 4)]
+QUANT_CASES = [(10, -1.0, 1.0), (10, -10.0, 10.0), (255, -1.0, 1.0),
+               (1023, -10.0, 10.0)]
+
+
+def _values(n, bits, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**bits, n, dtype=np.uint64).astype(np.uint32)
+
+
+def quant_inputs(n, levels, vmin, vmax, seed):
+    """msg/cache with exact half-level boundaries, their float neighbours,
+    out-of-range values and signed zeros at the front (cache ±0 there)."""
+    rng = np.random.default_rng(seed)
+    delta = (vmax - vmin) / levels
+    half = (vmin + (np.arange(levels) + 0.5) * delta).astype(np.float32)
+    special = np.concatenate([
+        half, np.nextafter(half, np.float32(np.inf)),
+        np.nextafter(half, np.float32(-np.inf)),
+        np.array([vmin, vmax, -0.0, 0.0, 3 * vmin, 3 * vmax, vmin - delta,
+                  vmax + delta], np.float32)])
+    msg = rng.uniform(1.25 * vmin, 1.25 * vmax, n).astype(np.float32)
+    cache = rng.uniform(-delta, delta, n).astype(np.float32)
+    k = min(n, special.size)
+    msg[:k] = special[:k]
+    cache[:k] = np.where(np.arange(k) % 2 == 0, np.float32(0.0), np.float32(-0.0))
+    return msg, cache
+
+
+def _np(t):
+    return t.numpy()
+
+
+@pytest.mark.parametrize("n,bits", PACK_CASES)
+def test_pack_unpack_match_pallas_word_for_word(n, bits):
+    vals = _values(n, bits, seed=bits)
+    words_t = ref.pack_bits_ref(torch.from_numpy(vals), bits)
+    words_j = np.asarray(jpb.pack_bits(jnp.asarray(vals), bits, interpret=True))
+    assert words_t.dtype == torch.uint32
+    np.testing.assert_array_equal(_np(words_t), words_j)
+    # tile padding packs as zero values
+    padded = tpb.n_tiles(n) * tpb.GROUP * tpb.R * tpb.LANES
+    assert not _np(ref.unpack_bits_ref(words_t, bits, padded))[n:].any()
+    # cross-decode: the port's words in JAX, JAX's words in the port
+    np.testing.assert_array_equal(
+        np.asarray(jpb.unpack_bits(jnp.asarray(_np(words_t)), bits, n,
+                                   interpret=True)), vals)
+    np.testing.assert_array_equal(
+        _np(ref.unpack_bits_ref(torch.from_numpy(words_j.copy()), bits, n)), vals)
+
+
+@pytest.mark.parametrize("bits", [17, 31, 32])
+def test_pack_full_widths_match_the_layout(bits):
+    """Wide words (bit 31 set, b = 32) against the layout written out in
+    numpy: bit j of value i of group (r, lane) at bit i of word j."""
+    n = 70_001
+    vals = _values(n, bits, seed=bits)
+    words = _np(ref.pack_bits_ref(torch.from_numpy(vals), bits))
+    tiles = tpb.n_tiles(n)
+    v = np.zeros(tiles * tpb.GROUP * tpb.R * tpb.LANES, np.uint64)
+    v[:n] = vals
+    v = v.reshape(tiles, tpb.GROUP, tpb.R, tpb.LANES)
+    expect = np.zeros((tiles, bits, tpb.R, tpb.LANES), np.uint64)
+    for j in range(bits):
+        for i in range(tpb.GROUP):
+            expect[:, j] |= ((v[:, i] >> np.uint64(j)) & np.uint64(1)) << np.uint64(i)
+    np.testing.assert_array_equal(words, expect.reshape(-1).astype(np.uint32))
+    np.testing.assert_array_equal(
+        _np(ref.unpack_bits_ref(torch.from_numpy(words), bits, n)), vals)
+
+
+@pytest.mark.parametrize("levels,vmin,vmax,n",
+                         [c + (10_000,) for c in QUANT_CASES]
+                         + [(10, -1.0, 1.0, 70_001), (1023, -10.0, 10.0, 70_001)])
+def test_quant_pipeline_matches_pallas(levels, vmin, vmax, n):
+    msg, cache = quant_inputs(n, levels, vmin, vmax, seed=levels + n)
+    words_t, newc_t = ref.quant_pipeline_ref(
+        torch.from_numpy(msg), torch.from_numpy(cache), levels=levels,
+        vmin=vmin, vmax=vmax)
+    words_j, newc_j = jcp.quant_pipeline(jnp.asarray(msg), jnp.asarray(cache),
+                                         levels=levels, vmin=vmin, vmax=vmax,
+                                         interpret=True)
+    np.testing.assert_array_equal(_np(words_t), np.asarray(words_j))
+    np.testing.assert_array_equal(_np(newc_t).view(np.int32),
+                                  np.asarray(newc_j).view(np.int32))
+    # the JAX package's plain reference, compiled, agrees as well
+    words_r, newc_r = jax.jit(lambda m, c: jref.quant_pipeline_ref(
+        m, c, levels=levels, vmin=vmin, vmax=vmax))(jnp.asarray(msg),
+                                                   jnp.asarray(cache))
+    np.testing.assert_array_equal(_np(words_t), np.asarray(words_r))
+    np.testing.assert_array_equal(_np(newc_t).view(np.int32),
+                                  np.asarray(newc_r).view(np.int32))
+
+
+@pytest.mark.parametrize("levels,vmin,vmax", QUANT_CASES)
+def test_quantize_ef_ref_matches_jax(levels, vmin, vmax):
+    msg, cache = quant_inputs(5_000, levels, vmin, vmax, seed=7)
+    wire_t, newc_t = ref.quantize_ef_ref(torch.from_numpy(msg),
+                                         torch.from_numpy(cache), levels=levels,
+                                         vmin=vmin, vmax=vmax)
+    wire_j, newc_j = jax.jit(lambda m, c: jref.quantize_ef_ref(
+        m, c, levels=levels, vmin=vmin, vmax=vmax))(jnp.asarray(msg),
+                                                   jnp.asarray(cache))
+    assert str(wire_t.dtype).split(".")[-1] == str(wire_j.dtype)
+    np.testing.assert_array_equal(_np(wire_t), np.asarray(wire_j))
+    np.testing.assert_array_equal(_np(newc_t).view(np.int32),
+                                  np.asarray(newc_j).view(np.int32))
+
+
+@pytest.mark.parametrize("levels,vmin,vmax", QUANT_CASES + [(1000, -10.0, 10.0)])
+def test_decode_levels_rounds_once_like_compiled_jax(levels, vmin, vmax):
+    idx = np.arange(levels + 1, dtype=np.uint32)
+    ours = _np(decode_levels(torch.from_numpy(idx.astype(np.int64)), levels,
+                             vmin, vmax))
+    theirs = np.asarray(jax.jit(lambda i: jax_quantize_decode(
+        i, levels, vmin, vmax))(jnp.asarray(idx)))
+    np.testing.assert_array_equal(ours.view(np.int32), theirs.view(np.int32))
+    # and it is the fused multiply-add, not a product rounded then a sum
+    fma = (idx.astype(np.float64) * np.float64(np.float32((vmax - vmin) / levels))
+           + np.float64(np.float32(vmin))).astype(np.float32)
+    np.testing.assert_array_equal(ours.view(np.int32), fma.view(np.int32))
+
+
+def test_cpu_dispatch_takes_the_plain_version_and_counts_no_launch():
+    vals = torch.from_numpy(_values(1_000, 4, seed=1))
+    before = ops.launch_counts()
+    words = ops.pack_bits(vals, 4)
+    np.testing.assert_array_equal(_np(words), _np(ref.pack_bits_ref(vals, 4)))
+    np.testing.assert_array_equal(_np(ops.unpack_bits(words, 4, 1_000)), _np(vals))
+    msg, cache = (torch.from_numpy(a) for a in quant_inputs(1_000, 10, -1.0, 1.0, 2))
+    w, c = ops.quant_pipeline(msg, cache, levels=10, vmin=-1.0, vmax=1.0)
+    w_r, c_r = ref.quant_pipeline_ref(msg, cache, levels=10, vmin=-1.0, vmax=1.0)
+    assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
+    assert torch.equal(c.view(torch.int32), c_r.view(torch.int32))
+    assert ops.launch_counts() == before
+
+
+def test_layout_constants_and_checks():
+    assert (tpb.LANES, tpb.GROUP, tpb.R) == (jpb.LANES, jpb.GROUP, jpb.R)
+    for n, b in [(0, 1), (1, 32), (100, 4), (10_000, 4), (70_001, 13)]:
+        assert tpb.logical_words(n, b) == jpb.logical_words(n, b)
+    assert tpb.n_tiles(0) == 1 and tpb.n_tiles(32_769) == 2
+    for bad in (0, 33):
+        with pytest.raises(ValueError):
+            tpb.pack_bits(torch.zeros(4, dtype=torch.int64), bad)
+    with pytest.raises(ValueError, match="whole number"):
+        tpb.unpack_bits(torch.zeros(100, dtype=torch.uint32), 4, 10)
+    with pytest.raises(ValueError, match="cannot unpack"):
+        tpb.unpack_bits(torch.zeros(4 * 1024, dtype=torch.uint32), 4, 40_000)
+    assert wire_index_bits(10) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version on the card: exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    from repro_torch.kernels.compress_pipeline import quant_pipeline
+    for n, bits in PACK_CASES:
+        vals = torch.from_numpy(_values(n, bits, seed=bits)).cuda()
+        words = tpb.pack_bits(vals, bits)
+        assert torch.equal(words.view(torch.int32),
+                           ref.pack_bits_ref(vals, bits).view(torch.int32))
+        assert torch.equal(tpb.unpack_bits(words, bits, n).view(torch.int32),
+                           vals.view(torch.int32))
+    for levels, vmin, vmax in QUANT_CASES:
+        msg, cache = (torch.from_numpy(a).cuda()
+                      for a in quant_inputs(70_001, levels, vmin, vmax, 3))
+        w, c = quant_pipeline(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
+        w_r, c_r = ref.quant_pipeline_ref(msg, cache, levels=levels, vmin=vmin,
+                                          vmax=vmax)
+        assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
+        assert torch.equal(c.view(torch.int32), c_r.view(torch.int32))
