@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -11,27 +11,45 @@ into ``build/``, then, each phase failing the run:
 1. prints the card's name and power limit (``nvidia-smi``) and the
    compiler's register counts;
 2. holds every kernel against its plain PyTorch version on the card, word
-   for word and bit for bit, at the main path's shapes, at a ragged shape
-   of several tiles and at 2**24 values, on inputs that include exact
-   half-level boundaries, out-of-range values and -0.0;
+   for word and bit for bit, at the paths' shapes, at a ragged shape of
+   several tiles and at 2**24 values: the quantizers on inputs with exact
+   half-level boundaries, out-of-range values and -0.0, the erasure mask
+   over p, seeds and segment lengths; and quantize_ef against the unpack
+   of quant_pipeline;
 3. runs paper Table 1's "quant L=10 ±1 / Algorithm 2 (EF)" arm of Fed-LT at
    paper size (N=100 agents, m=500, d=100, ε=50; N_e=10, γ=0.005, ρ=20;
    fused uplink) for 300 rounds, printing e_K every 50 rounds, and checks
    that e_K is finite and falls, that the kernels ran once per round, and
    that one round's uplink through the kernel equals its plain version;
 4. encodes one agent's uplink with the wire codec and decodes it back;
-5. times each kernel with CUDA events beside its bound and its plain
-   version, at the main path's shape and at 2**24 values.
+5. runs Fed-LTSat (paper Algorithm 3) through ``Experiment`` on the port's
+   simulator at the constellation example's size (walker-kiruna, N=100,
+   m=200, d=100, the same quantizer, fused uplink, cohort bytes) for 120
+   rounds, then the example's async dual-station and lossy-uplink runs,
+   checking e_K, the launches per round, and the first 10 sync rounds
+   against the same run on the CPU;
+6. runs the four canonical convergence scenarios on the card and holds
+   their final bytes_up against ``CONV_reference.json``; e_K must fall,
+   except in sync-mega-chaos, whose curve is held against the same
+   scenario run on the CPU from the same draw;
+7. drives the mega-1000 cohort uplink transport (``bench.sim_scale``):
+   the lossy chains on mega-1000-lossy, then the lossless ones on
+   mega-1000, each against the same chain through the plain versions;
+8. profiles a few rounds of phases 3 and 5 with ``torch.profiler``, and
+   times each kernel with CUDA events beside its bound and its plain
+   version, at the path's shape and at 2**24 values.
 
-The launch counts are zeroed just before phases 3 and 4 (the main path)
-and read just after.  Then it prints one JSON line with a record per
-kernel and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits with an error and prints no result.
+The launch counts are zeroed just before each main-path run (phases 3–4,
+each run of phase 5, each chain run of phase 7) and read just after.
+Then it prints one JSON line with a record per kernel and, last,
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
+error and prints no result.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +74,18 @@ QUANT_CONFIGS = ((10, -1.0, 1.0), (10, -10.0, 10.0), (255, -1.0, 1.0),
                  (255, -10.0, 10.0), (1023, -1.0, 1.0), (1023, -10.0, 10.0))
 ROUND_CHUNKS = (1, 49, 50, 50, 50, 50, 49, 1)     # 300 rounds, e_K at 1, 50, …
 TOL = "exact: words equal word for word, new caches equal bit for bit"
+# the constellation example (examples/satellite_constellation.py)
+SAT = dict(n_agents=100, m=200, dim=100)
+SAT_ROUNDS = 120
+# bench.sim_scale's path shapes: one satellite's update, and the words of
+# one cohort or satellite at 8 bits (one tile)
+UPDATE_N = 2048
+WORDS_N = 8 * 1024
+EF_CONFIGS = ((10, -1.0, 1.0), (10, -0.25, 0.25), (255, -1.0, 1.0),
+              (255, -0.25, 0.25), (1023, -1.0, 1.0), (1023, -0.25, 0.25))
+ERASE_PS = (0.0, 0.1, 0.25, 1.0)
+ERASE_SEEDS = (0, 7, 2**32 + 5)
+ERASE_SEGMENTS = (1, 32, 100)
 
 
 class SmokeFailure(RuntimeError):
@@ -73,6 +103,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
         return False
     return torch.equal(a.contiguous().view(torch.int32),
                        b.contiguous().view(torch.int32))
+
+
+def same_wire(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal uint8/uint16 level indices (uint16 read through int16)."""
+    from repro_torch.kernels.ref import as_int64
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        as_int64(a), as_int64(b))
 
 
 def int_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -126,7 +163,7 @@ def phase_kernels(rng) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.compress_pipeline import quant_pipeline
     from repro_torch.kernels.pack_bits import pack_bits, unpack_bits
-    err = {"pack_bits": 0.0, "unpack_bits": 0.0, "quant_pipeline": 0.0}
+    err = {name: 0.0 for name in SOURCES}
     for n in (AGENT_N,) + SIZES:
         for bits in BITS:
             hi = 2**bits
@@ -159,8 +196,69 @@ def phase_kernels(rng) -> dict:
                                         float((newc - newc_p).abs().max()))
         print(f"[kernels] quant_pipeline n={n} (L, vmin, vmax) in "
               f"{QUANT_CONFIGS}: {TOL}")
+    check_quantize_ef(rng, err)
+    check_erasure_mask(rng, err)
     torch.cuda.synchronize()
     return err
+
+
+def check_quantize_ef(rng, err: dict) -> None:
+    """quantize_ef against its plain version, and against the unpack of
+    quant_pipeline's words on the same inputs."""
+    from repro_torch.core.compression import wire_index_bits
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compress_pipeline import quant_pipeline
+    from repro_torch.kernels.pack_bits import unpack_bits
+    from repro_torch.kernels.quantize_ef import quantize_ef
+    for n in (UPDATE_N, 70_001, BIG_N):
+        for levels, vmin, vmax in EF_CONFIGS:
+            msg, cache = quant_inputs(n, levels, vmin, vmax, rng)
+            kw = dict(levels=levels, vmin=vmin, vmax=vmax)
+            wire, newc = quantize_ef(msg, cache, **kw)
+            wire_p, newc_p = ref.quantize_ef_ref(msg, cache, **kw)
+            check(same_wire(wire, wire_p) and same_bits(newc, newc_p),
+                  f"quantize_ef n={n} L={levels} ±{vmax} differs from its "
+                  "plain version")
+            err["quantize_ef"] = max(err["quantize_ef"], int_err(wire, wire_p),
+                                     float((newc - newc_p).abs().max()))
+            words, newc_q = quant_pipeline(msg, cache, **kw)
+            idx = unpack_bits(words, wire_index_bits(levels), n)
+            check(torch.equal(ref.as_int64(idx), ref.as_int64(wire))
+                  and same_bits(newc_q, newc),
+                  f"quantize_ef n={n} L={levels} ±{vmax} is not the unpack "
+                  "of quant_pipeline")
+        print(f"[kernels] quantize_ef n={n} (L, vmin, vmax) in {EF_CONFIGS}: "
+              f"{TOL}; wire == unpack_bits(quant_pipeline) and caches equal")
+
+
+def check_erasure_mask(rng, err: dict) -> None:
+    """erasure_mask against its plain version over p, seeds and segments."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.erasure_mask import erasure_mask
+    for n in (WORDS_N, 70_001, BIG_N):
+        words = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64)
+                                 .astype(np.uint32)).to(DEV)
+        for p in ERASE_PS:
+            for seed in ERASE_SEEDS:
+                for seg in ERASE_SEGMENTS:
+                    kw = dict(p=p, seed=seed, segment_words=seg)
+                    masked, keep = erasure_mask(words, **kw)
+                    masked_p, keep_p = ref.erasure_mask_ref(words, **kw)
+                    check(same_bits(masked, masked_p) and same_bits(keep, keep_p),
+                          f"erasure_mask n={n} {kw} differs from its plain "
+                          "version")
+                    err["erasure_mask"] = max(err["erasure_mask"],
+                                              int_err(masked, masked_p),
+                                              int_err(keep, keep_p))
+        print(f"[kernels] erasure_mask n={n} p in {ERASE_PS}, seeds "
+              f"{ERASE_SEEDS}, segment_words in {ERASE_SEGMENTS}: exact, "
+              "masked words and keep masks word for word")
+    two_d = torch.from_numpy(rng.integers(0, 2**32, (7, WORDS_N), dtype=np.uint64)
+                             .astype(np.uint32)).to(DEV)
+    masked, keep = erasure_mask(two_d, p=0.25, seed=7)
+    check(masked.shape == keep.shape == two_d.shape
+          and same_bits(masked, ref.erasure_mask_ref(two_d, p=0.25, seed=7)[0]),
+          "erasure_mask does not keep a 2-D shape")
 
 
 # -- phases 3 and 4: the main path -----------------------------------------
@@ -284,36 +382,269 @@ def check_small_against_cpu():
           f"{e[DEV]:.6e} vs CPU {e['cpu']:.6e} (rel {rel:.1e} < 1e-4)")
 
 
-def phase_profile(alg, data, state, rounds: int = 5) -> None:
-    """Where a round's time goes: torch.profiler over a few rounds, device
-    time summed by kernel, beside the wall time of the same rounds."""
+# -- phase 5: Fed-LTSat through Experiment on the port's simulator -----------
+
+def constellation_setup(device):
+    """The constellation example's problem and Fed-LTSat algorithm."""
+    from repro_torch.core.compression import UniformQuantizer
+    from repro_torch.core.error_feedback import EFChannel
+    from repro_torch.core.fedlt import FedLT
+    from repro_torch.data.logistic import generate, make_local_loss, solve_global
+    data, _ = generate(0, **SAT, device=device)
+    xbar = solve_global(data, eps=50.0)
+    quant = UniformQuantizer(levels=10, vmin=-1.0, vmax=1.0, clip=True)
+    alg = FedLT(loss=make_local_loss(eps=50.0, n_agents=SAT["n_agents"]),
+                n_epochs=10, gamma=0.005, rho=20.0, uplink=EFChannel(quant),
+                downlink=EFChannel(quant), fused_uplink=True)
+    return data, xbar, quant, alg
+
+
+def run_experiment(scenario, alg, quant, data, xbar, rounds, seed, *,
+                   device=None, log_every=20, trace=False, exp=None, **kw):
+    """``rounds`` rounds of ``exp`` (built here from ``scenario`` and
+    ``kw`` when not given) from the algorithm's initial state."""
+    from repro_torch.api import Experiment
+    from repro_torch.core.fedlt import optimality_error
+    if exp is None:
+        exp = Experiment.from_scenario(scenario, algorithm=alg, compressor=quant,
+                                       device=device or DEV, **kw)
+    st = exp.init(torch.zeros(SAT["dim"]), SAT["n_agents"])
+    return exp.run(st, data, rounds, seed, log_every=log_every, trace=trace,
+                   error_fn=lambda s: optimality_error(s.x, xbar))
+
+
+RUNS = (  # the example's three Fed-LTSat runs: (label, scenario, seed, options)
+    ("sync", "walker-kiruna", 2, dict(measure="cohort")),
+    ("async", "dual-station", 3, dict(mode="async", buffer_size=10,
+                                      staleness_alpha=0.5)),
+    ("lossy", "lossy-uplink", 4, dict(measure="cohort")),
+)
+
+
+def phase_constellation(launches: dict) -> dict:
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    data, xbar, quant, alg = constellation_setup(DEV)
+    torch.cuda.synchronize()
+    print(f"[constellation] set-up (data, x̄ by Newton) "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for label, scenario, seed, kw in RUNS:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_experiment(scenario, alg, quant, data, xbar, SAT_ROUNDS, seed,
+                             log_every=1 if label == "sync" else 20,
+                             trace=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        rounds = len(res.logs)
+        check(rounds == SAT_ROUNDS, f"{label}: {rounds} of {SAT_ROUNDS} rounds ran")
+        # one probe encode (pack_bits) per run for the message size, then one
+        # fused uplink (quant_pipeline + unpack_bits) per round
+        expect = dict.fromkeys(SOURCES, 0)
+        expect.update(quant_pipeline=rounds, unpack_bits=rounds, pack_bits=1)
+        check(counts == expect, f"{label}: launches {counts}, expected {expect}")
+        errs = [(lg.round, lg.error) for lg in res.logs if lg.error is not None]
+        check(all(math.isfinite(e) for _, e in errs), f"{label}: e_K not finite")
+        check(errs[-1][1] < errs[0][1], f"{label}: e_K did not fall: "
+              f"{errs[0]} -> {errs[-1]}")
+        stage = {}
+        for r in res.records:
+            if r.get("kind") == "stage":
+                stage[r["name"]] = stage.get(r["name"], 0.0) + r["dur_host"]
+        engine_s = stage.get("engine.run_round", stage.get("engine.run_async", 0.0))
+        last = res.logs[-1]
+        for k, e in errs:
+            if k % 20 == 0 or k == rounds - 1:
+                print(f"[constellation] {label} {scenario} round {k:3d}  "
+                      f"e_K = {e:.6e}")
+        print(f"[constellation] {label} {scenario}: {rounds} rounds in "
+              f"{wall:.3f} s ({1e3 * wall / rounds:.3f} ms per round wall; "
+              f"engine host {1e3 * engine_s / rounds:.3f} ms, alg.round "
+              f"{1e3 * stage.get('alg.round', 0.0) / rounds:.3f} ms per round); "
+              f"sim time {last.time:.1f} s, bytes_up {last.bytes_up:.0f}, "
+              f"lost {sum(lg.n_lost for lg in res.logs)}; launches {counts}")
+        out[label] = dict(res=res, wall_s=wall, engine_s=engine_s,
+                          alg_s=stage.get("alg.round", 0.0), counts=counts)
+    check_constellation_against_cpu(out["sync"]["res"], data, xbar, quant, alg)
+    return out
+
+
+def check_constellation_against_cpu(res_card, data, xbar, quant, alg,
+                                    rounds: int = 10) -> None:
+    """The sync run's first rounds again on the CPU, from the same data."""
+    from repro_torch.core.pytree import tree_map
+    res_cpu = run_experiment("walker-kiruna", alg, quant,
+                             tree_map(lambda t: t.cpu(), data), xbar.cpu(),
+                             rounds, 2, device="cpu", log_every=1,
+                             measure="cohort")
+    worst = 0.0
+    for a, b in zip(res_card.logs[:rounds], res_cpu.logs):
+        for f in ("round", "time", "bytes_up", "n_active", "n_lost"):
+            check(getattr(a, f) == getattr(b, f), f"round {a.round}: {f} on the "
+                  f"card {getattr(a, f)} vs CPU {getattr(b, f)}")
+        rel = abs(a.error - b.error) / abs(b.error)
+        worst = max(worst, rel)
+        # matmul summation order differs between CPU and card
+        check(rel < 1e-4, f"round {a.round}: e_K on the card {a.error} vs CPU "
+              f"{b.error}")
+    print(f"[constellation] first {rounds} sync rounds on the CPU: time, "
+          f"bytes_up, n_active, n_lost equal; e_K within rel {worst:.1e} < 1e-4")
+
+
+# -- phase 6: the canonical convergence scenarios ----------------------------
+
+def phase_canonical() -> dict:
+    from repro_torch.obs.report import CANONICAL, extract_series, run_canonical
+    reference = json.loads((ROOT / "CONV_reference.json").read_text())
+    out = {}
+    for name in CANONICAL:
+        t0 = time.perf_counter()
+        series = extract_series(run_canonical(name, device=DEV))
+        wall = time.perf_counter() - t0
+        e_k = series["e_K"]["values"]
+        got = series["bytes_up"]["values"][-1]
+        want = reference["scenarios"][name]["bytes_up"]
+        check(abs(got - want) <= 0.01 * want, f"{name}: bytes_up {got} vs "
+              f"reference {want} (±1%)")
+        check(all(math.isfinite(e) for e in e_k), f"{name}: e_K not finite")
+        if name == "sync-mega-chaos":
+            # 8 quorum-closed rounds barely move e_K, and on some draws it
+            # ends above its start, the JAX package's too
+            # (tests/test_torch_canonical.py): hold it against the CPU
+            check_canonical_against_cpu(name, e_k)
+        else:
+            check(e_k[-1] < e_k[0], f"{name}: e_K did not fall: {e_k[0]} -> "
+                  f"{e_k[-1]}")
+        print(f"[canonical] {name}: {len(e_k)} rounds in {wall:.2f} s, e_K "
+              f"{e_k[0]:.6e} -> {e_k[-1]:.6e} (min {min(e_k):.6e}; port's own "
+              f"draws), bytes_up "
+              f"{got:.0f} == reference {want:.0f} within ±1%")
+        out[name] = dict(bytes_up=got, e_first=e_k[0], e_last=e_k[-1])
+    return out
+
+
+def check_canonical_against_cpu(name: str, e_card) -> None:
+    """The card's e_K curve against the port on the CPU, on the card's draw
+    (the same problem ``run_canonical`` draws on the card, copied over)."""
+    from repro_torch.data.logistic import generate, solve_global
+    from repro_torch.obs.report import CANONICAL, CANONICAL_SEED, extract_series
+    from repro_torch.obs.report import run_canonical
+    cfg = CANONICAL[name]
+    data, _ = generate(CANONICAL_SEED, n_agents=cfg["n_agents"], m=cfg["m"],
+                       dim=cfg["dim"], device=DEV)
+    x_star = solve_global(data, eps=50.0).cpu()
+    data = {k: v.cpu() for k, v in data.items()}
+    e_cpu = extract_series(run_canonical(name, problem=(data, x_star),
+                                         device="cpu"))["e_K"]["values"]
+    check(len(e_cpu) == len(e_card), f"{name}: {len(e_card)} e_K samples on "
+          f"the card, {len(e_cpu)} on the CPU")
+    # matmul summation order differs between CPU and card
+    rel = max(abs(a - b) / abs(b) for a, b in zip(e_card, e_cpu))
+    check(rel < 1e-4, f"{name}: e_K on the card {e_card} vs CPU {e_cpu}")
+    print(f"[canonical] {name}: e_K on the card equals the CPU run of the same "
+          f"draw within rel {rel:.1e} < 1e-4 (CPU {e_cpu[0]:.6e} -> "
+          f"{e_cpu[-1]:.6e})")
+
+
+# -- phase 7: the mega-1000 cohort uplink transport --------------------------
+
+def phase_transport(launches: dict):
+    """Returns the runs' numbers and a callable that drives both lossy
+    chains once more over the lossy trajectory (for the profile)."""
+    from repro_torch.bench import sim_scale
+    from repro_torch.kernels import ops
+    out = {}
+    for fn in (sim_scale.lossy_round, sim_scale.round_pipeline):
+        lossy = fn is sim_scale.lossy_round
+        ops.reset_launch_counts()
+        r = fn(1000, rounds=3, seed=0, device=DEV)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        p, c, d = r["passes"], r["cohorts"], r["deliveries"]
+        expect = dict.fromkeys(SOURCES, 0)
+        expect.update(quant_pipeline=p * c, quantize_ef=p * d, pack_bits=p * d,
+                      erasure_mask=p * (c + d) if lossy else 0)
+        check(counts == expect, f"{r['scenario']}: launches {counts}, expected "
+              f"{expect} ({p} passes of {c} cohorts, {d} deliveries)")
+        if lossy:
+            check(r["lost"] > 0, "mega-1000-lossy lost no update")
+            chains = (("fused", lambda k, r=r: sim_scale.lossy_fused(
+                          r["vals"], r["results"], r["p_loss"], r["seed"], kern=k)),
+                      ("unfused", lambda k, r=r: sim_scale.lossy_unfused(
+                          r["vals"], r["results"], r["p_loss"], r["seed"], kern=k)))
+        else:
+            chains = (("fused", lambda k: sim_scale.uplink_fused(
+                          r["vals"], r["results"], kern=k)),
+                      ("unfused", lambda k: sim_scale.uplink_unfused(
+                          r["vals"], r["results"], kern=k)))
+        for label, chain in chains:
+            check(same_bits(r[f"words_{label}"], chain(sim_scale.PLAIN)),
+                  f"{r['scenario']}: the {label} chain's last words differ "
+                  "from the same chain through the plain versions")
+        checked, bad = sim_scale.decoded_agree(r["vals"], r["results"])
+        check(checked == d and bad == 0, f"{r['scenario']}: fused and unfused "
+              f"indices differ for {bad} of {checked} satellites")
+        ratio = r["uplink_ms_unfused"] / r["uplink_ms_fused"]
+        print(f"[transport] {r['scenario']}: {r['rounds']} rounds, {d} "
+              f"deliveries in {c} cohorts, {r.get('lost', 0)} lost; engine "
+              f"{r['engine_ms_per_round']:.4f} ms per round (host); uplink "
+              f"chain per round (CUDA events, {p} passes, least of the timed): "
+              f"unfused {r['uplink_ms_unfused']:.4f} ms, fused "
+              f"{r['uplink_ms_fused']:.4f} ms, ratio {ratio:.3f}; launches "
+              f"{counts}; both chains == plain versions; {checked} satellites' "
+              "fused indices == unfused wire")
+        if lossy:
+            print(f"[transport] {r['scenario']}: engine lossless "
+                  f"{r['engine_ms_per_round_lossless']:.4f} ms per round, "
+                  f"channel overhead {r['channel_overhead']:.3f}x, "
+                  f"retransmissions {r['retransmissions']}")
+            replay = [chain for _, chain in chains]
+        out[r["scenario"]] = {k: v for k, v in r.items()
+                              if k not in ("results", "vals", "words_fused",
+                                           "words_unfused")}
+    return out, lambda: [chain(ops) for chain in replay]
+
+
+def phase_profile(run, rounds: int, tag: str) -> None:
+    """Where a round's time goes: torch.profiler over ``run()``, which drives
+    ``rounds`` rounds; device time summed by kernel, beside the wall time
+    of the same rounds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        alg.run(state, data, rounds)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / rounds
+    # device kernels only: the dispatchers' record_function ranges
+    # ("repro.kernels.<name>") also carry device time, which would count
+    # their kernels twice
     device = [e for e in prof.key_averages() if e.self_device_time_total > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+              and e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("repro.kernels.")]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / rounds
     launches = sum(e.count for e in device) / rounds
-    print(f"[profile] {rounds} rounds under torch.profiler: wall {wall_ms:.3f} ms "
-          f"per round, device busy {busy_ms:.3f} ms per round "
+    print(f"[profile] {tag}: {rounds} rounds under torch.profiler: wall "
+          f"{wall_ms:.3f} ms per round, device busy {busy_ms:.3f} ms per round "
           f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per round")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/round "
               f"{e.count / rounds:6.0f}x/round "
               f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:70]}")
-    ours = {f"{name}_kernel": name for name in SOURCES}
     for e in device:
-        name = ours.get(e.key.split("(")[0].split()[-1])
+        name = next((n for n in SOURCES
+                     if re.search(rf"\b{n}_kernel\b", e.key)), None)
         if name:
-            print(f"[profile] {name}: {e.self_device_time_total / e.count:.2f} us "
-                  f"of device time per launch, {e.count / rounds:.0f}x/round")
+            print(f"[profile] {tag}: {name}: {e.self_device_time_total / e.count:.2f}"
+                  f" us of device time per launch, {e.count / rounds:.0f}x/round")
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phase 8: kernel times -----------------------------------------------------
 
 def time_ms(fn, iters: int, warmup: int = 10) -> float:
     """Mean time per call from CUDA events around ``iters`` back-to-back
@@ -366,21 +697,48 @@ def phase_times(rng) -> dict:
                 plain = lambda: ref.quant_pipeline_ref(msg, cache, levels=10,
                                                        vmin=-1.0, vmax=1.0)
                 nbytes, ops = 12 * n + word_bytes, 12 * n + bit_ops
-            plain_ms = time_ms(plain, iters)
-            ms = time_ms(kern, iters)
-            ms2 = time_ms(kern, iters)
-            plain_ms2 = time_ms(plain, iters)
-            b_ms, b_by = bound(nbytes, ops)
-            rec = {"n": n, "bits": bits, "ms": min(ms, ms2),
-                   "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b_ms,
-                   "bound_by": b_by, "bytes": nbytes, "ops": ops,
-                   "ms_runs": [ms, ms2], "plain_ms_runs": [plain_ms, plain_ms2]}
-            out.setdefault(name, []).append(rec)
-            print(f"[times] {name:15s} n={n:9d} b={bits}: kernel {rec['ms']:.5f} ms "
-                  f"(runs {ms:.5f}, {ms2:.5f}), plain {rec['plain_ms']:.5f} ms, "
-                  f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops); "
-                  "library: none, no single PyTorch call computes it")
+            out.setdefault(name, []).append(
+                time_record(name, n, bits, kern, plain, iters, nbytes, ops))
+    # the transport's kernels at its shapes: one satellite's update (2,048
+    # values, L=255 → uint8) and one tile of 8-bit words (8,192 words)
+    from repro_torch.kernels.erasure_mask import erasure_mask
+    from repro_torch.kernels.quantize_ef import quantize_ef
+    for n in (UPDATE_N, BIG_N):
+        msg, cache = quant_inputs(n, 255, -1.0, 1.0, rng)
+        out.setdefault("quantize_ef", []).append(time_record(
+            "quantize_ef", n, 8,
+            lambda: quantize_ef(msg, cache, levels=255, vmin=-1.0, vmax=1.0),
+            lambda: ref.quantize_ef_ref(msg, cache, levels=255, vmin=-1.0,
+                                        vmax=1.0),
+            200 if n < BIG_N else 20, 13 * n, 12 * n))
+    for n in (WORDS_N, BIG_N):
+        words = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64)
+                                 .astype(np.uint32)).to(DEV)
+        out.setdefault("erasure_mask", []).append(time_record(
+            "erasure_mask", n, 32,
+            lambda: erasure_mask(words, p=0.1, seed=0),
+            lambda: ref.erasure_mask_ref(words, p=0.1, seed=0),
+            200 if n < BIG_N else 20, 12 * n, 20 * n))
     return out
+
+
+def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain), least of each, beside the bound for ``nbytes`` and ``ops``."""
+    plain_ms = time_ms(plain, iters)
+    ms = time_ms(kern, iters)
+    ms2 = time_ms(kern, iters)
+    plain_ms2 = time_ms(plain, iters)
+    b_ms, b_by = bound(nbytes, ops)
+    rec = {"n": n, "bits": bits, "ms": min(ms, ms2),
+           "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "ops": ops,
+           "ms_runs": [ms, ms2], "plain_ms_runs": [plain_ms, plain_ms2]}
+    print(f"[times] {name:15s} n={n:9d} b={bits}: kernel {rec['ms']:.5f} ms "
+          f"(runs {ms:.5f}, {ms2:.5f}), plain {rec['plain_ms']:.5f} ms, "
+          f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops); "
+          "library: none, no single PyTorch call computes it")
+    return rec
 
 
 SOURCES = {
@@ -390,6 +748,10 @@ SOURCES = {
                     "src/repro/kernels/pack_bits.py:107"),
     "quant_pipeline": ("src/repro_torch/kernels/csrc/quant_pipeline.cu",
                        "src/repro/kernels/compress_pipeline.py:112"),
+    "quantize_ef": ("src/repro_torch/kernels/csrc/quantize_ef.cu",
+                    "src/repro/kernels/quantize_ef.py:39"),
+    "erasure_mask": ("src/repro_torch/kernels/csrc/erasure_mask.cu",
+                     "src/repro/kernels/erasure_mask.py:77"),
 }
 
 
@@ -407,17 +769,35 @@ def main() -> int:
     phase_build()
     errors = phase_kernels(rng)
 
-    ops.reset_launch_counts()            # the main path: phases 3 and 4
+    ops.reset_launch_counts()            # the first main path: phases 3 and 4
     alg, data, state, before = phase_fedlt()
     phase_wire(state)
     launches = ops.launch_counts()
-    print(f"[main path] launches: {launches}")
-    check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the path never "
-          f"launched: {launches}")
+    print(f"[main path] Fed-LT launches: {launches}")
+    check(all(launches[k] > 0 for k in ("pack_bits", "unpack_bits",
+                                        "quant_pipeline")),
+          f"a kernel of the Fed-LT path never launched: {launches}")
 
     check_captured_round(state, before)
     check_small_against_cpu()
-    phase_profile(alg, data, state)
+    phase_constellation(launches)        # counts zeroed before each run
+    phase_canonical()
+    _, lossy_chains = phase_transport(launches)   # counts zeroed per chain run
+    print(f"[main path] launches over every main-path run: {launches}")
+    check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
+          f"launched: {launches}")
+
+    phase_profile(lambda: alg.run(state, data, 5), 5, "Fed-LT")
+    from repro_torch.api import Experiment
+    c_data, c_xbar, c_quant, c_alg = constellation_setup(DEV)
+    c_exp = Experiment.from_scenario("walker-kiruna", algorithm=c_alg,
+                                     compressor=c_quant, measure="cohort",
+                                     device=DEV)
+    run_experiment(None, c_alg, c_quant, c_data, c_xbar, 5, 2, exp=c_exp)  # plan
+    phase_profile(lambda: run_experiment(None, c_alg, c_quant, c_data, c_xbar,
+                                         5, 2, exp=c_exp),
+                  5, "Fed-LTSat walker-kiruna")
+    phase_profile(lossy_chains, 3, "mega-1000-lossy chains, fused + unfused")
     times = phase_times(rng)
 
     kernels = []

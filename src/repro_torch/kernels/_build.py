@@ -30,11 +30,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("pack_bits.cu", "quant_pipeline.cu")
+SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 #: kernel name -> (source, C entry point, argument types without the stream)
 KERNELS = {
     # vals, words, n, bits, tiles
@@ -45,6 +45,12 @@ KERNELS = {
     # delta, 1/delta
     "quant_pipeline": ("quant_pipeline.cu", "repro_quant_pipeline",
                        (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F)),
+    # msg, cache, wire, new_cache, n, levels, vmin, vmax, delta, 1/delta
+    "quantize_ef": ("quantize_ef.cu", "repro_quantize_ef",
+                    (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F)),
+    # words, masked, keep, n, segment_words, seed_lo, seed_hi, threshold
+    "erasure_mask": ("erasure_mask.cu", "repro_erasure_mask",
+                     (_P, _P, _P, _I, _U, _U, _U, _U)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

@@ -17,8 +17,7 @@
 // a group sit in registers while their planes are built.
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace repro {
 
@@ -26,7 +25,6 @@ constexpr int GROUP = 32;
 constexpr int R = 8;
 constexpr int LANES = 128;
 constexpr int TILE_COLS = R * LANES;          // 1024 columns per tile
-constexpr int THREADS = 256;                  // threads per block
 
 // Word j of a group: bit j of each of its 32 values.  j < 32, and every
 // shift is of a uint32_t by less than 32, so 1u << 31 and b = 32 are safe.
@@ -50,7 +48,3 @@ inline unsigned blocks_for(int tiles) {
 }
 
 }  // namespace repro
-
-extern "C" const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

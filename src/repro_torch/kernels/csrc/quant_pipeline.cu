@@ -12,18 +12,8 @@
 // registers.  Slots past n pack as index 0 and write no cache, which is what
 // the JAX kernel's tail padding (msg = vmin, cache = 0) gives.
 //
-// Bit-exact with the plain version and with the Pallas kernel as XLA
-// compiles it: XLA turns the division by the constant delta into a product
-// with its float32 reciprocal and contracts each multiply and add into a
-// fused multiply-add, so
-//
-//   idx     = floor(fma(clip(corrected) - vmin, 1/delta, 0.5))
-//   decoded = fma(idx, delta, vmin)
-//
-// with delta the float32 rounding of (vmax - vmin) / L and 1/delta computed
-// in float32, both passed by the caller.  Each step is an explicitly rounded
-// intrinsic (__fadd_rn, __fsub_rn, __fmaf_rn), so nvcc can contract nothing
-// else.  No fast-math.
+// Rounding: repro::level_index and repro::decode_level (quant_levels.cuh),
+// bit-exact with the Pallas kernel as XLA compiles it.
 //
 // Bound: bytes.  It reads 8 bytes and writes 4 bytes per value, plus 4*b
 // bytes per 32 values of words; a dozen float operations per value are far
@@ -31,6 +21,7 @@
 // b = 4 in one tile, it moves about 136 KB, some 0.04 us at 3.35 TB/s, so a
 // launch is bound by launch latency.
 #include "bitplanes.cuh"
+#include "quant_levels.cuh"
 
 using repro::GROUP;
 using repro::TILE_COLS;
@@ -53,10 +44,8 @@ __global__ void quant_pipeline_kernel(const float* __restrict__ msg,
     uint32_t q = 0u;
     if (idx < n) {
       const float corrected = __fadd_rn(msg[idx], cache[idx]);
-      const float clipped = fminf(fmaxf(corrected, vmin), vmax);
-      float level = floorf(__fmaf_rn(__fsub_rn(clipped, vmin), recip, 0.5f));
-      level = fminf(fmaxf(level, 0.0f), levels);
-      const float decoded = __fmaf_rn(level, delta, vmin);
+      const float level = repro::level_index(corrected, levels, vmin, vmax, recip);
+      const float decoded = repro::decode_level(level, delta, vmin);
       new_cache[idx] = __fsub_rn(corrected, decoded);
       q = static_cast<uint32_t>(level);
     }

@@ -1,31 +1,50 @@
 """Dispatchers for the port's kernels.
 
-Each runs under ``torch.profiler.record_function("repro.kernels.<name>")``
-so it shows up named in a profiler trace, and goes to the CUDA kernel for
-a tensor on the card and to the plain version for a tensor on the CPU.
-The kernels count their own launches (:data:`._build.launches`); read
-them with :func:`launch_counts` and zero them with
-:func:`reset_launch_counts`.
+Each goes to the CUDA kernel for a tensor on the card and to the plain
+version for a tensor on the CPU, and runs under
+``torch.profiler.record_function("repro.kernels.<name>")`` so it shows
+up named in a profiler trace.  With an active :mod:`repro_torch.obs`
+tracer each call also records a host-side ``kernel`` record and a
+``kernel.<name>`` phase, as the JAX package's dispatchers do; disabled,
+that costs one module attribute read and a ``None`` check.  The kernels
+count their own launches (:data:`._build.launches`); read them with
+:func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 """
 from __future__ import annotations
 
 import functools
+import time
 
 from torch.profiler import record_function
 
+from ..obs.trace import active as _obs_active
 from . import _build
 from .compress_pipeline import quant_pipeline as _quant_pipeline
+from .erasure_mask import erasure_mask as _erasure_mask
 from .pack_bits import pack_bits as _pack_bits
 from .pack_bits import unpack_bits as _unpack_bits
+from .quantize_ef import quantize_ef as _quantize_ef
 
 
 def _annotated(fn):
-    label = f"repro.kernels.{fn.__name__}"
+    name = fn.__name__
+    label = f"repro.kernels.{name}"
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        trc = _obs_active()
+        if trc is None:
+            with record_function(label):
+                return fn(*args, **kwargs)
         with record_function(label):
-            return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            dur = time.perf_counter() - t0
+        trc.raw({"kind": "kernel", "name": name,
+                 "t_host": t0 - trc._t0_host, "dur_host": dur})
+        trc.prof.add("kernel." + name, dur)
+        trc.metrics.counter("kernel_dispatches").add(1.0, name=name)
+        return out
 
     return wrapper
 
@@ -46,6 +65,18 @@ def unpack_bits(words, bits: int, n: int):
 def quant_pipeline(msg, cache, *, levels=255, vmin=-1.0, vmax=1.0):
     """Fused quantize→EF→pack sweep: (msg, cache) → (wire words, new cache)."""
     return _quant_pipeline(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
+
+
+@_annotated
+def quantize_ef(msg, cache, *, levels=255, vmin=-0.25, vmax=0.25):
+    """Fused quantize + EF: (msg, cache) → (uint8/uint16 wire, new cache)."""
+    return _quantize_ef(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
+
+
+@_annotated
+def erasure_mask(words, *, p: float, seed: int = 0, segment_words: int = 32):
+    """Counter-hash segment erasure over packed words → (masked, keep)."""
+    return _erasure_mask(words, p=p, seed=seed, segment_words=segment_words)
 
 
 def launch_counts() -> dict:

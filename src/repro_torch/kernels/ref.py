@@ -20,9 +20,12 @@ _MASK32 = 0xFFFFFFFF
 
 
 def as_int64(t: torch.Tensor) -> torch.Tensor:
-    """Integer tensor (uint32 included) as int64 with the same values."""
+    """Integer tensor (uint32 and uint16 included) as int64 with the same
+    values, read through a signed view of the same width."""
     if t.dtype == torch.uint32:
         return t.view(torch.int32).to(torch.int64) & _MASK32
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).to(torch.int64) & 0xFFFF
     return t.to(torch.int64)
 
 
@@ -52,8 +55,17 @@ def quantize_ef_ref(msg, cache, *, levels: int, vmin: float, vmax: float):
     Returns (wire, new_cache).
     """
     idx, new_cache = _quantize_ef(msg, cache, levels, vmin, vmax)
-    dtype = torch.uint8 if levels <= 255 else torch.uint16
-    return idx.to(torch.int32).to(dtype), new_cache
+    idx = idx.to(torch.int32)
+    if levels <= 255:
+        return idx.to(torch.uint8), new_cache
+    # uint16 through an int16 view: no uint16 cast kernel is needed
+    idx = torch.where(idx >= 2**15, idx - 2**16, idx).to(torch.int16)
+    return idx.view(torch.uint16), new_cache
+
+
+def wire_dtype(levels: int) -> torch.dtype:
+    """Level-index dtype of :func:`quantize_ef_ref`'s wire."""
+    return torch.uint8 if levels <= 255 else torch.uint16
 
 
 def pack_bits_ref(x, bits: int):
@@ -98,3 +110,58 @@ def quant_pipeline_ref(msg, cache, *, levels: int, vmin: float, vmax: float):
     idx, new_cache = _quantize_ef(msg, cache, levels, vmin, vmax)
     words = pack_bits_ref(idx.to(torch.int64), wire_index_bits(levels))
     return words, new_cache
+
+
+_GOLD = 0x9E3779B9          # 2**32/φ: decorrelates consecutive counters
+
+
+def drop_threshold(p: float) -> int:
+    """uint32 threshold: a segment is erased iff its hash < threshold."""
+    return min(max(int(round(float(p) * 4294967296.0)), 0), 4294967295)
+
+
+def _mul32(x, c: int):
+    """``x·c mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit ``c``.
+
+    The full product can pass 2**63, so ``c`` goes in as two 16-bit
+    halves: ``x·c_lo < 2**48`` and ``x·c_hi < 2**48``, and only the low
+    16 bits of the high half's product survive the shift by 16.
+    """
+    hi, lo = c >> 16, c & 0xFFFF
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _fmix32(x):
+    """murmur3 fmix32 finalizer on int64 values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _segment_hash64(idx64, seed: int):
+    h = (_mul32(idx64 & _MASK32, _GOLD) + (seed & _MASK32)) & _MASK32
+    return _fmix32(_fmix32(h) ^ ((seed >> 32) & _MASK32))
+
+
+def segment_hash(idx, seed: int):
+    """Counter hash of segment indices ``idx`` (any integer tensor, taken
+    modulo 2**32) under ``seed``, as a uint32 tensor."""
+    return to_uint32(_segment_hash64(as_int64(idx), seed))
+
+
+def erasure_mask_ref(words, *, p: float, seed: int = 0,
+                     segment_words: int = 32):
+    """Plain version of :func:`repro_torch.kernels.erasure_mask.erasure_mask`:
+    the same counter hash of each word's segment index (flat index taken
+    modulo 2**32, as the Pallas kernel's uint32 iota) and the same
+    threshold; returns ``(masked, keep)`` uint32 in ``words``' shape."""
+    if segment_words < 1:
+        raise ValueError(f"segment_words must be >= 1, got {segment_words}")
+    flat = as_int64(words.reshape(-1)) & _MASK32
+    seg = (torch.arange(flat.numel(), dtype=torch.int64, device=flat.device)
+           & _MASK32) // segment_words
+    keep = (_segment_hash64(seg, seed) >= drop_threshold(p)).to(torch.int64)
+    return (to_uint32(flat * keep).reshape(words.shape),
+            to_uint32(keep).reshape(words.shape))

@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import convert, resolve_device
+from repro_torch import api, convert, resolve_device
+from repro_torch.bench import sim_scale
 from repro_torch.data import logistic
+from repro_torch.obs import report
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -35,7 +37,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15     # every module of the port
+    assert int(out.stdout.strip()) >= 49     # every module of the port
+    for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench"):
+        assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped
 
 
 def _imported_modules(path: Path):
@@ -58,7 +62,12 @@ def test_no_jax_or_repro_import(path):
     lambda: resolve_device(),
     lambda: logistic.generate(0, n_agents=2, m=4, dim=3),
     lambda: convert.data_from_numpy({"a": np.zeros(3, np.float32)}),
-], ids=["resolve_device", "generate", "data_from_numpy"])
+    lambda: api.Experiment("walker-kiruna", algorithm=None),
+    lambda: report.run_canonical("sync-lossless"),
+    lambda: sim_scale.lossy_round(20, rounds=1),
+    lambda: sim_scale.round_pipeline(20, rounds=1),
+], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
+        "run_canonical", "lossy_round", "round_pipeline"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -23,10 +23,12 @@ import torch
 from repro.core.compression import quantize_decode as jax_quantize_decode
 from repro.kernels import compress_pipeline as jcp
 from repro.kernels import pack_bits as jpb
+from repro.kernels import quantize_ef as jqe
 from repro.kernels import ref as jref
 from repro_torch.core.compression import decode_levels, wire_index_bits
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pack_bits as tpb
+from repro_torch.kernels import quantize_ef as tqe
 
 PACK_CASES = [(70_001, 1), (70_001, 7), (10_000, 4)]
 QUANT_CASES = [(10, -1.0, 1.0), (10, -10.0, 10.0), (255, -1.0, 1.0),
@@ -137,6 +139,51 @@ def test_quantize_ef_ref_matches_jax(levels, vmin, vmax):
                                   np.asarray(newc_j).view(np.int32))
 
 
+QEF_CASES = [(10, -1.0, 1.0), (10, -0.25, 0.25), (255, -1.0, 1.0),
+             (255, -0.25, 0.25), (1023, -1.0, 1.0), (1023, -0.25, 0.25)]
+
+
+@pytest.mark.parametrize("levels,vmin,vmax", QEF_CASES)
+def test_quantize_ef_matches_pallas(levels, vmin, vmax):
+    """The port's quantize_ef (plain version on the CPU) against the Pallas
+    kernel, compiled by ``jax.jit`` in interpret mode: uint8 wire for
+    L ≤ 255, uint16 above, bit for bit with the new cache."""
+    msg, cache = quant_inputs(70_001, levels, vmin, vmax, seed=levels + 5)
+    wire_t, newc_t = ops.quantize_ef(torch.from_numpy(msg), torch.from_numpy(cache),
+                                     levels=levels, vmin=vmin, vmax=vmax)
+    wire_j, newc_j = jqe.quantize_ef(jnp.asarray(msg), jnp.asarray(cache),
+                                     levels=levels, vmin=vmin, vmax=vmax,
+                                     interpret=True)
+    assert wire_t.dtype == (torch.uint8 if levels <= 255 else torch.uint16)
+    assert str(wire_t.dtype).split(".")[-1] == str(wire_j.dtype)
+    np.testing.assert_array_equal(_np(wire_t), np.asarray(wire_j))
+    np.testing.assert_array_equal(_np(newc_t).view(np.int32),
+                                  np.asarray(newc_j).view(np.int32))
+    assert wire_t.shape == newc_t.shape == (70_001,)
+
+
+@pytest.mark.parametrize("levels,vmin,vmax", QEF_CASES)
+def test_quantize_ef_is_unpacked_quant_pipeline(levels, vmin, vmax):
+    """unpack_bits(quant_pipeline(m, c)) is quantize_ef(m, c)'s wire, and the
+    two new caches are bit-equal (2-D, as a cohort's stacked uplink)."""
+    msg, cache = (torch.from_numpy(a).reshape(7, -1) for a in
+                  quant_inputs(7 * 2_048, levels, vmin, vmax, seed=levels))
+    wire, newc = ops.quantize_ef(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
+    words, newc_p = ops.quant_pipeline(msg, cache, levels=levels, vmin=vmin,
+                                       vmax=vmax)
+    idx = ops.unpack_bits(words, wire_index_bits(levels), msg.numel())
+    np.testing.assert_array_equal(_np(idx).reshape(7, -1), _np(wire).astype(np.uint32))
+    np.testing.assert_array_equal(_np(newc).view(np.int32), _np(newc_p).view(np.int32))
+    assert wire.shape == (7, 2_048)
+
+
+def test_quantize_ef_checks():
+    with pytest.raises(TypeError):
+        tqe.quantize_ef(torch.zeros(4, dtype=torch.float64, device="meta"),
+                        torch.zeros(4, dtype=torch.float64, device="meta"))
+    assert ref.wire_dtype(255) == torch.uint8 and ref.wire_dtype(256) == torch.uint16
+
+
 @pytest.mark.parametrize("levels,vmin,vmax", QUANT_CASES + [(1000, -10.0, 10.0)])
 def test_decode_levels_rounds_once_like_compiled_jax(levels, vmin, vmax):
     idx = np.arange(levels + 1, dtype=np.uint32)
@@ -200,4 +247,20 @@ def test_cuda_kernels_match_plain():
         w_r, c_r = ref.quant_pipeline_ref(msg, cache, levels=levels, vmin=vmin,
                                           vmax=vmax)
         assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
+        assert torch.equal(c.view(torch.int32), c_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_ef_matches_plain():
+    """The CUDA quantize_ef against its plain version on the card: exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    for levels, vmin, vmax in QEF_CASES:
+        msg, cache = (torch.from_numpy(a).cuda()
+                      for a in quant_inputs(70_001, levels, vmin, vmax, 3))
+        w, c = tqe.quantize_ef(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
+        w_r, c_r = ref.quantize_ef_ref(msg, cache, levels=levels, vmin=vmin,
+                                       vmax=vmax)
+        as_signed = lambda t: t.view(torch.int16) if t.dtype == torch.uint16 else t
+        assert w.dtype == w_r.dtype and torch.equal(as_signed(w), as_signed(w_r))
         assert torch.equal(c.view(torch.int32), c_r.view(torch.int32))
