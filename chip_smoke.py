@@ -14,8 +14,14 @@ into ``build/``, then, each phase failing the run:
    for word and bit for bit, at the paths' shapes, at a ragged shape of
    several tiles and at 2**24 values: the quantizers on inputs with exact
    half-level boundaries, out-of-range values and -0.0, the erasure mask
-   over p, seeds and segment lengths; and quantize_ef against the unpack
-   of quant_pipeline;
+   over p, seeds and segment lengths; quantize_ef against the unpack of
+   quant_pipeline; sign_pipeline at 100, 70,001 and 2**24 values with
+   exact zeros and -0.0 (words equal, scale rtol 1e-6, new cache atol
+   1e-6); and flash_attention over S in {128, 257, 4353}, D in {64, 120,
+   128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64, 4096},
+   softcap in {None, 30} and aligned or offset positions, in float32
+   (2e-5) and bf16 (one bf16 rounding of the output: 2**-7 |plain| +
+   1e-4);
 3. runs paper Table 1's "quant L=10 ±1 / Algorithm 2 (EF)" arm of Fed-LT at
    paper size (N=100 agents, m=500, d=100, ε=50; N_e=10, γ=0.005, ρ=20;
    fused uplink) for 300 rounds, printing e_K every 50 rounds, and checks
@@ -35,13 +41,30 @@ into ``build/``, then, each phase failing the run:
 7. drives the mega-1000 cohort uplink transport (``bench.sim_scale``):
    the lossy chains on mega-1000-lossy, then the lossless ones on
    mega-1000, each against the same chain through the plain versions;
-8. profiles a few rounds of phases 3 and 5 with ``torch.profiler``, and
-   times each kernel with CUDA events beside its bound and its plain
-   version, at the path's shape and at 2**24 values.
+8. runs sign_pipeline through its entry point, ops.sign_pipeline, on the
+   Fed-LT run's last uplink (no path of the JAX package calls it);
+9. serves h2o-danube-3-4b at full width in bf16 (random weights from a
+   seeded generator): prefill of 4 prompts x 8192 tokens, then 32 greedy
+   decode steps, checking finite logits and 24 flash_attention launches
+   per prefill and none in decode; then the same model at depth 2 in
+   float32, prefill of 1 x 5000 tokens and 4 decode steps through the
+   kernel (backend "chunked", 2 launches per prefill) and the plain
+   attention (backend "xla", none), whose logits must agree within
+   relative L2 error 1e-4;
+10. profiles a few rounds of phases 3 and 5, the sign entry point and the
+    serving steps with ``torch.profiler``, and times each kernel with CUDA
+    events beside its bound, its plain version and, for flash_attention,
+    PyTorch's scaled_dot_product_attention, at the path's shape and, for
+    the uplink kernels, at 2**24 values; flash_attention's output at the
+    path's shape is held against its plain version, one batch row at a
+    time, and decode's device time is attributed to the ops that launch
+    it and their input shapes.
 
 The launch counts are zeroed just before each main-path run (phases 3–4,
-each run of phase 5, each chain run of phase 7) and read just after.
-Then it prints one JSON line with a record per kernel and, last,
+each run of phase 5, each chain run of phase 7, phase 8, and the timed
+prefill and the decode steps of phase 9) and read just after.  Then it
+prints the card's name and power limit again, one JSON line with a
+record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
 """
@@ -65,6 +88,7 @@ DEV = "cuda"
 PAPER = dict(n_agents=100, m=500, dim=100)   # benchmarks/common.py PAPER, ε=50
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
 MAIN_N = 100 * 100            # the fused uplink: (N, d) = (100, 100)
 AGENT_N = 100                 # one agent's uplink, d = 100
 BIG_N = 2**24
@@ -86,6 +110,20 @@ EF_CONFIGS = ((10, -1.0, 1.0), (10, -0.25, 0.25), (255, -1.0, 1.0),
 ERASE_PS = (0.0, 0.1, 0.25, 1.0)
 ERASE_SEEDS = (0, 7, 2**32 + 5)
 ERASE_SEGMENTS = (1, 32, 100)
+# flash_attention checks: (rtol, atol) for |kernel - plain| <= atol + rtol
+# |plain|.  Both sides sum in float32 and round to the output's type once,
+# so in bf16 they differ by at most one rounding: one ulp, <= 2**-7 |plain|
+FLASH_S = (128, 257, 4353)
+FLASH_D = (64, 120, 128)
+FLASH_HEADS = ((4, 4), (32, 8))
+FLASH_WINDOWS = (None, 64, 4096)
+FLASH_CAPS = (None, 30.0)
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2**-7, 1e-4)}
+SIGN_SIZES = (100, 70_001, BIG_N)
+# serving h2o-danube-3-4b (configs/catalog.py) at full width
+SERVE_ARCH = "h2o-danube-3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8192, 32
+CHECK_PROMPT, CHECK_STEPS, CHECK_REL_L2 = 5000, 4, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -198,6 +236,8 @@ def phase_kernels(rng) -> dict:
               f"{QUANT_CONFIGS}: {TOL}")
     check_quantize_ef(rng, err)
     check_erasure_mask(rng, err)
+    check_sign_pipeline(rng, err)
+    check_flash_attention(err)
     torch.cuda.synchronize()
     return err
 
@@ -259,6 +299,105 @@ def check_erasure_mask(rng, err: dict) -> None:
     check(masked.shape == keep.shape == two_d.shape
           and same_bits(masked, ref.erasure_mask_ref(two_d, p=0.25, seed=7)[0]),
           "erasure_mask does not keep a 2-D shape")
+
+
+def sign_inputs(n: int, rng):
+    """msg/cache with exact zeros, -0.0 and values that cancel to 0 at the
+    front (cache +-0 there, so msg + cache keeps them)."""
+    msg = rng.standard_normal(n).astype(np.float32)
+    cache = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    special_m = np.array([0.0, -0.0, 0.0, -0.0, 1.5, -1.5], np.float32)
+    special_c = np.array([0.0, 0.0, -0.0, -0.0, -1.5, 1.5], np.float32)
+    k = min(n, special_m.size)
+    msg[:k], cache[:k] = special_m[:k], special_c[:k]
+    return torch.from_numpy(msg).to(DEV), torch.from_numpy(cache).to(DEV)
+
+
+def check_sign_pair(msg, cache, what: str) -> float:
+    """sign_pipeline against its plain version: words equal, scale within
+    rtol 1e-6, new cache within atol 1e-6; returns the largest difference."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compress_pipeline import sign_pipeline
+    words, scale, newc = sign_pipeline(msg, cache)
+    words_p, scale_p, newc_p = ref.sign_pipeline_ref(msg, cache)
+    s, s_p = float(scale), float(scale_p)
+    cache_err = float((newc - newc_p).abs().max())
+    check(same_bits(words, words_p), f"sign_pipeline {what}: words differ from "
+          "its plain version")
+    check(abs(s - s_p) <= 1e-6 * abs(s_p), f"sign_pipeline {what}: scale {s} vs "
+          f"{s_p}")
+    check(cache_err <= 1e-6, f"sign_pipeline {what}: new cache off by {cache_err}")
+    return max(int_err(words, words_p), abs(s - s_p), cache_err)
+
+
+def check_sign_pipeline(rng, err: dict) -> None:
+    for n in SIGN_SIZES:
+        msg, cache = sign_inputs(n, rng)
+        err["sign_pipeline"] = max(err["sign_pipeline"],
+                                   check_sign_pair(msg, cache, f"n={n}"))
+        print(f"[kernels] sign_pipeline n={n} (with 0, -0.0 and cancelling "
+              "values): words == plain version word for word, scale within "
+              "rtol 1e-6, new cache within atol 1e-6")
+
+
+def flash_case(s: int, d: int, h: int, hkv: int, offset: bool, dtype, gen):
+    """q, k, v and positions: aligned (q_pos = k_pos = arange(S)), or the
+    last third of the keys as queries with both ranges shifted by 100."""
+    b = 1 if s > 1000 else 2
+    sq = (s + 2) // 3 if offset else s
+    q = torch.randn((b, sq, h, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(dtype)
+    k_pos = torch.arange(s, dtype=torch.int32, device=DEV) + (100 if offset else 0)
+    return q, k, v, k_pos[s - sq:], k_pos
+
+
+def flash_check(out, plain, what: str) -> float:
+    """Fail unless ``out`` is within FLASH_TOL of ``plain``; max_abs_err."""
+    rtol, atol = FLASH_TOL[plain.dtype]
+    out, plain = out.float(), plain.float()
+    e = float((out - plain).abs().max())
+    check(torch.allclose(out, plain, rtol=rtol, atol=atol),
+          f"flash_attention {what}: max_abs_err {e}, over atol {atol} + rtol "
+          f"{rtol} |plain|")
+    return e
+
+
+def check_flash_attention(err: dict) -> None:
+    """flash_attention against its plain version over every case; one line
+    per (dtype, S, D, H/Hkv) with the max_abs_err of each of its cases."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    worst = {}
+    for dtype, tol in FLASH_TOL.items():
+        for s in FLASH_S:
+            for d in FLASH_D:
+                for h, hkv in FLASH_HEADS:
+                    errs = []
+                    for window in FLASH_WINDOWS:
+                        for cap in FLASH_CAPS:
+                            for offset in (False, True):
+                                q, k, v, qp, kp = flash_case(s, d, h, hkv, offset,
+                                                             dtype, gen)
+                                kw = dict(causal=True, window=window, softcap=cap)
+                                out = flash_attention(q, k, v, qp, kp, **kw)
+                                plain = ref.flash_attention_ref(q, k, v, qp, kp,
+                                                                **kw)
+                                errs.append(flash_check(
+                                    out, plain, f"{dtype} S={s} D={d} H={h}/{hkv} "
+                                    f"window={window} softcap={cap} offset={offset}"))
+                    worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+                    print(f"[kernels] flash_attention {str(dtype)[6:]} S={s} D={d} "
+                          f"H={h}/{hkv}: max_abs_err per (window, softcap, "
+                          f"offset) in {FLASH_WINDOWS}x{FLASH_CAPS}x(no, yes): "
+                          + " ".join(f"{e:.1e}" for e in errs)
+                          + f" (within {tol[1]} + {tol[0]:.4g} |plain|)")
+    err["flash_attention"] = max(worst.values())
+    err["flash_attention_f32"] = worst[torch.float32]
+    print(f"[kernels] flash_attention: within tolerance of its plain version in "
+          f"all cases; max_abs_err float32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}")
 
 
 # -- phases 3 and 4: the main path -----------------------------------------
@@ -380,6 +519,161 @@ def check_small_against_cpu():
     check(rel < 1e-4, f"small run: e_K on the card {e[DEV]} vs CPU {e['cpu']}")
     print(f"[fedlt] small run (N=8, 20 rounds, partial participation): e_K card "
           f"{e[DEV]:.6e} vs CPU {e['cpu']:.6e} (rel {rel:.1e} < 1e-4)")
+
+
+def phase_sign_entry(state, before) -> dict:
+    """sign_pipeline through its entry point, ``ops.sign_pipeline``, on the
+    Fed-LT run's last uplink message and cache (no path of the JAX package
+    calls it; ``EFChannel.fusable()`` admits only the uniform quantizer).
+    Returns the launch counts of that call."""
+    from repro_torch.kernels import ops
+    z_next, c_up = state.z, before.c_up
+    ops.reset_launch_counts()
+    words, scale, newc = ops.sign_pipeline(z_next, c_up)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["sign_pipeline"] == 1 and sum(counts.values()) == 1,
+          f"ops.sign_pipeline launched {counts}")
+    e = check_sign_pair(z_next, c_up, f"on the Fed-LT uplink {tuple(z_next.shape)}")
+    check(math.isfinite(float(scale)) and newc.shape == z_next.shape,
+          "sign_pipeline: scale not finite or cache misshapen")
+    print(f"[sign] ops.sign_pipeline on round {state.k}'s uplink "
+          f"{tuple(z_next.shape)}: {words.numel()} words, scale {float(scale):.6e}; "
+          f"== plain version (max diff {e:.1e}); launches {counts}")
+    return counts
+
+
+# -- phase 9: serving h2o-danube-3-4b -----------------------------------------
+
+def serve_config(**changes):
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get(SERVE_ARCH), **changes)
+
+
+def sync_ms(fn):
+    """Host clock around ``fn()`` ending in a synchronize: (result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_serve(launches: dict) -> dict:
+    """Prefill of 4 x 8192 tokens and 32 greedy decode steps of
+    h2o-danube-3-4b at full width in bf16, on random weights."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = serve_config()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params, init_ms = sync_ms(lambda: init_params(cfg, generator=gen, device=DEV))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=DEV)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    warm = sync_ms(lambda: prefill(params, {"tokens": prompts}))
+    warm_ms = warm[1]
+    del warm                             # its cache is not held through the timed run
+    ops.reset_launch_counts()
+    (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, {"tokens": prompts}))
+    counts_p = ops.launch_counts()
+    n_attn = cfg.n_layers
+    check(counts_p["flash_attention"] == n_attn and sum(counts_p.values()) == n_attn,
+          f"prefill launched {counts_p}, expected {n_attn} flash_attention")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {logits.shape}")
+    check(cache["length"] == SERVE_PROMPT, "prefill cache length")
+
+    def run_decode():
+        nonlocal logits, cache
+        out = []
+        for _ in range(SERVE_STEPS):
+            tok = logits.argmax(-1, keepdim=True)
+            out.append(tok)
+            logits, cache = decode(params, cache, tok)
+        return torch.cat(out, dim=1)
+
+    ops.reset_launch_counts()
+    generated, decode_ms = sync_ms(run_decode)
+    counts_d = ops.launch_counts()
+    check(sum(counts_d.values()) == 0, f"decode launched {counts_d}; it runs the "
+          "plain one-token attention")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(cache["length"] == SERVE_PROMPT + SERVE_STEPS, "decode cache length")
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts_p.items():
+        launches[k] += v
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    out = dict(params=n_params, init_ms=init_ms, warm_prefill_ms=warm_ms,
+               prefill_ms=prefill_ms, prefill_tok_s=tokens / prefill_ms * 1e3,
+               decode_ms_per_step=decode_ms / SERVE_STEPS,
+               decode_tok_s=SERVE_BATCH * SERVE_STEPS / decode_ms * 1e3,
+               peak_bytes=peak, flash_launches=counts_p["flash_attention"])
+    print(f"[serve] {SERVE_ARCH}: {n_params} parameters (bf16) drawn on the card "
+          f"in {init_ms:.1f} ms; prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: "
+          f"{prefill_ms:.1f} ms ({out['prefill_tok_s']:.0f} tokens/s; first "
+          f"prefill {warm_ms:.1f} ms), {counts_p['flash_attention']} flash_attention "
+          f"launches; {SERVE_STEPS} greedy decode steps: {out['decode_ms_per_step']:.3f}"
+          f" ms per step ({out['decode_tok_s']:.1f} tokens/s), no kernel launch; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); logits "
+          f"finite; sample {generated[0, :8].tolist()} (host clock around work "
+          "ending in a synchronize)")
+    return out, (params, cfg, prompts)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def check_serve_f32() -> float:
+    """The same model, full width, depth 2, float32: prefill of 1 x 5000
+    tokens (past the 4096 window, not a multiple of the kernel's tile) and
+    4 decode steps, through the kernel and through the plain attention."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = serve_config(n_layers=2, scan_repeats=2, dtype="float32")
+    expect = {"chunked": cfg.n_layers, "xla": 0}       # flash launches per prefill
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    params = init_params(cfg, generator=gen, device=DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT), generator=gen,
+                           device=DEV)
+    runs = {}
+    for backend in ("chunked", "xla"):
+        ops.reset_launch_counts()
+        logits, cache = make_prefill_step(cfg, backend)(params, {"tokens": prompt})
+        counts = ops.launch_counts()
+        check(counts["flash_attention"] == expect[backend]
+              and sum(counts.values()) == expect[backend],
+              f"depth-2 prefill, backend {backend}: launched {counts}, expected "
+              f"{expect[backend]} flash_attention")
+        runs[backend] = [logits]
+        runs[backend + "_cache"] = cache
+    worst = rel_l2(runs["chunked"][0], runs["xla"][0])
+    ops.reset_launch_counts()
+    for _ in range(CHECK_STEPS):
+        tok = runs["chunked"][-1].argmax(-1, keepdim=True)
+        for backend in ("chunked", "xla"):
+            logits, runs[backend + "_cache"] = make_decode_step(cfg, backend)(
+                params, runs[backend + "_cache"], tok)
+            runs[backend].append(logits)
+        worst = max(worst, rel_l2(runs["chunked"][-1], runs["xla"][-1]))
+    check(sum(ops.launch_counts().values()) == 0, "depth-2 decode launched "
+          f"{ops.launch_counts()}; it runs the plain one-token attention")
+    check(all(bool(torch.isfinite(x).all()) for x in runs["chunked"]),
+          "depth-2 float32 logits not finite")
+    check(worst <= CHECK_REL_L2, f"depth-2 float32: kernel vs plain attention "
+          f"logits rel L2 {worst} > {CHECK_REL_L2}")
+    print(f"[serve] {SERVE_ARCH} at full width, depth 2, float32: prefill 1 x "
+          f"{CHECK_PROMPT} + {CHECK_STEPS} decode steps, backend chunked (kernel, "
+          f"{expect['chunked']} launches per prefill) vs xla (plain, none): "
+          f"logits rel L2 error {worst:.3e} <= {CHECK_REL_L2}")
+    return worst
 
 
 # -- phase 5: Fed-LTSat through Experiment on the port's simulator -----------
@@ -610,10 +904,10 @@ def phase_transport(launches: dict):
     return out, lambda: [chain(ops) for chain in replay]
 
 
-def phase_profile(run, rounds: int, tag: str) -> None:
+def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> None:
     """Where a round's time goes: torch.profiler over ``run()``, which drives
-    ``rounds`` rounds; device time summed by kernel, beside the wall time
-    of the same rounds."""
+    ``rounds`` rounds (or steps: ``unit``); device time summed by kernel,
+    beside the wall time of the same rounds."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -629,22 +923,67 @@ def phase_profile(run, rounds: int, tag: str) -> None:
               and not e.key.startswith("repro.kernels.")]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / rounds
     launches = sum(e.count for e in device) / rounds
-    print(f"[profile] {tag}: {rounds} rounds under torch.profiler: wall "
-          f"{wall_ms:.3f} ms per round, device busy {busy_ms:.3f} ms per round "
-          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per round")
+    print(f"[profile] {tag}: {rounds} {unit}s under torch.profiler: wall "
+          f"{wall_ms:.3f} ms per {unit}, device busy {busy_ms:.3f} ms per {unit} "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per {unit}")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/round "
-              f"{e.count / rounds:6.0f}x/round "
+        print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/{unit} "
+              f"{e.count / rounds:6.0f}x/{unit} "
               f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:70]}")
     for e in device:
         name = next((n for n in SOURCES
                      if re.search(rf"\b{n}_kernel\b", e.key)), None)
         if name:
             print(f"[profile] {tag}: {name}: {e.self_device_time_total / e.count:.2f}"
-                  f" us of device time per launch, {e.count / rounds:.0f}x/round")
+                  f" us of device time per launch, {e.count / rounds:.0f}x/{unit}")
 
 
-# -- phase 8: kernel times -----------------------------------------------------
+def profile_serve(params, cfg, prompts) -> None:
+    """Where a serving step's time goes: one prefill, then 8 decode steps."""
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, {"tokens": prompts})
+
+    def run_decode():
+        for _ in range(8):
+            tok = state["logits"].argmax(-1, keepdim=True)
+            state["logits"], state["cache"] = decode(params, state["cache"], tok)
+
+    phase_profile(run_prefill, 1, f"serve {SERVE_ARCH} prefill "
+                  f"{SERVE_BATCH}x{SERVE_PROMPT}", unit="prefill")
+    phase_profile(run_decode, 8, f"serve {SERVE_ARCH} decode B={SERVE_BATCH}",
+                  unit="step")
+    attribute_device_time(run_decode, 8, f"serve {SERVE_ARCH} decode "
+                          f"B={SERVE_BATCH}", unit="step")
+
+
+def attribute_device_time(run, steps: int, tag: str, unit: str) -> None:
+    """Device time of ``run()`` by the PyTorch op that launched each kernel
+    and that op's input shapes, which name the tensors it moved
+    (torch.profiler with ``record_shapes``; a run of its own)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0
+            and not e.key.startswith("repro.kernels.")]
+    total = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    print(f"[profile] {tag}: device time by launching op and its input shapes "
+          f"({total:.3f} ms/{unit} attributed):")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.4f} ms/{unit} "
+              f"{e.count / steps:6.0f}x/{unit}  {e.key[:20]:20s} "
+              f"{str(e.input_shapes)[:110]}")
+
+
+# -- phase 10: kernel times -----------------------------------------------------
 
 def time_ms(fn, iters: int, warmup: int = 10) -> float:
     """Mean time per call from CUDA events around ``iters`` back-to-back
@@ -662,9 +1001,9 @@ def time_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -719,7 +1058,91 @@ def phase_times(rng) -> dict:
             lambda: erasure_mask(words, p=0.1, seed=0),
             lambda: ref.erasure_mask_ref(words, p=0.1, seed=0),
             200 if n < BIG_N else 20, 12 * n, 20 * n))
+    # sign_pipeline at the Fed-LT uplink's shape (100 x 100) and at 2**24:
+    # reads 8 B and writes 4 B per value and one word per 32 values
+    from repro_torch.kernels.compress_pipeline import sign_pipeline
+    for n in (MAIN_N, BIG_N):
+        msg, cache = sign_inputs(n, rng)
+        out.setdefault("sign_pipeline", []).append(time_record(
+            "sign_pipeline", n, 1, lambda: sign_pipeline(msg, cache),
+            lambda: ref.sign_pipeline_ref(msg, cache),
+            200 if n < BIG_N else 20, 12.125 * n, 8 * n))
+    out["flash_attention"] = [time_flash()]
     return out
+
+
+def time_flash() -> dict:
+    """flash_attention at the serving path's shape (danube3 prefill: B=4,
+    S=8192, H=32, Hkv=8, D=120, W=4096, bf16), beside its bound, the plain
+    version (at B=1: at B=4 its float32 scores alone would take 34 GB) and
+    PyTorch's scaled_dot_product_attention on the same inputs (boolean
+    window mask, enable_gqa; timed only, the port never calls it).  Each
+    is the least of two runs timed in turns with CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = serve_config()
+    b, s, h, hkv, d, w = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.sliding_window)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    q = torch.randn((b, s, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)
+    mask = ref.attention_mask(pos, pos, causal=True, window=w)
+    pairs = int(mask.sum())                    # this run's visible pairs
+    flops = 4 * d * pairs * b * h              # q.k and p.v, 2 flops per MAC
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v read, out written
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    kern = lambda: flash_attention(q, k, v, window=w)
+    kern1 = lambda: flash_attention(q[:1], k[:1], v[:1], window=w)
+    plain1 = lambda: ref.flash_attention_ref(q[:1], k[:1], v[:1], pos, pos,
+                                             causal=True, window=w)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    fns = {"plain": plain1, "kern1": kern1, "kern": kern, "sdpa": sdpa}
+    runs = {name: [] for name in fns}
+    for order in (("plain", "kern1", "kern", "sdpa"), ("sdpa", "kern", "kern1", "plain")):
+        for name in order:
+            runs[name].append(time_ms(fns[name], iters=2, warmup=1))
+    kern_runs, sdpa_runs = runs["kern"], runs["sdpa"]
+    out = kern()                     # the path's shape, held row by row
+    path_errs = [flash_check(out[i:i + 1], ref.flash_attention_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], pos, pos, causal=True, window=w),
+        f"at the path's shape B={b} S={s} H={h}/{hkv} D={d} W={w} bf16, row {i}")
+        for i in range(b)]
+    del out
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sdpa()                           # which device kernel SDPA runs
+        torch.cuda.synchronize()
+    sdpa_kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
+                           and e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: -e.self_device_time_total)
+    library_kernel = sdpa_kernels[0].key[:90] if sdpa_kernels else "not seen"
+    rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "bfloat16",
+           "ms": min(kern_runs), "ms_runs": kern_runs,
+           "ms_b1": min(runs["kern1"]), "plain_ms": min(runs["plain"]),
+           "plain_ms_runs": runs["plain"], "plain_at": "B=1",
+           "library_ms": min(sdpa_runs), "library_ms_runs": sdpa_runs,
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "library_kernel": library_kernel,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "pairs_per_head": pairs, "max_abs_err_path": max(path_errs)}
+    print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} bf16: "
+          f"kernel {rec['ms']:.3f} ms (runs {kern_runs[0]:.3f}, {kern_runs[1]:.3f}; "
+          f"at B=1 {rec['ms_b1']:.3f}), plain at B=1 {rec['plain_ms']:.3f} ms, "
+          f"scaled_dot_product_attention {rec['library_ms']:.3f} ms (runs "
+          f"{sdpa_runs[0]:.3f}, {sdpa_runs[1]:.3f}); bound {b_ms:.4f} ms by {b_by} "
+          f"({flops:.4e} flops over {pairs} visible pairs per (b, h) at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); "
+          f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s achieved; SDPA's longest device "
+          f"kernel: {library_kernel}; output within {FLASH_TOL[torch.bfloat16][1]} + "
+          f"{FLASH_TOL[torch.bfloat16][0]:.4g} |plain| of the plain version in every "
+          f"batch row, max_abs_err per row "
+          + " ".join(f"{e:.3e}" for e in path_errs))
+    return rec
 
 
 def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
@@ -730,7 +1153,7 @@ def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
     ms2 = time_ms(kern, iters)
     plain_ms2 = time_ms(plain, iters)
     b_ms, b_by = bound(nbytes, ops)
-    rec = {"n": n, "bits": bits, "ms": min(ms, ms2),
+    rec = {"n": n, "bits": bits, "ms": min(ms, ms2), "library_ms": None,
            "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b_ms,
            "bound_by": b_by, "bytes": nbytes, "ops": ops,
            "ms_runs": [ms, ms2], "plain_ms_runs": [plain_ms, plain_ms2]}
@@ -752,6 +1175,10 @@ SOURCES = {
                     "src/repro/kernels/quantize_ef.py:39"),
     "erasure_mask": ("src/repro_torch/kernels/csrc/erasure_mask.cu",
                      "src/repro/kernels/erasure_mask.py:77"),
+    "sign_pipeline": ("src/repro_torch/kernels/csrc/sign_pipeline.cu",
+                      "src/repro/kernels/compress_pipeline.py:152"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87"),
 }
 
 
@@ -766,7 +1193,7 @@ def main() -> int:
     repro_torch.set_float32_precision()
     rng = np.random.default_rng(0)
     t_start = time.perf_counter()
-    phase_build()
+    smi = phase_build()
     errors = phase_kernels(rng)
 
     ops.reset_launch_counts()            # the first main path: phases 3 and 4
@@ -783,6 +1210,9 @@ def main() -> int:
     phase_constellation(launches)        # counts zeroed before each run
     phase_canonical()
     _, lossy_chains = phase_transport(launches)   # counts zeroed per chain run
+    for k, v in phase_sign_entry(state, before).items():   # zeroed before
+        launches[k] += v
+    serve, (params, cfg, prompts) = phase_serve(launches)  # zeroed per step
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
@@ -798,20 +1228,40 @@ def main() -> int:
                                          5, 2, exp=c_exp),
                   5, "Fed-LTSat walker-kiruna")
     phase_profile(lossy_chains, 3, "mega-1000-lossy chains, fused + unfused")
+    phase_profile(lambda: [ops.sign_pipeline(state.z, before.c_up) for _ in range(10)],
+                  10, "ops.sign_pipeline on the Fed-LT uplink", unit="call")
+    profile_serve(params, cfg, prompts)
+    del params, prompts
+    torch.cuda.empty_cache()
+    serve["f32_rel_l2"] = check_serve_f32()
+    torch.cuda.empty_cache()
     times = phase_times(rng)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        main_rec, big_rec = times[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errors[name],
-            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": None, "n": main_rec["n"], "bits": main_rec["bits"],
-            "at_2p24": {k: big_rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                "bound_by")}})
+        main_rec = times[name][0]
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errors[name], "ms": main_rec["ms"],
+               "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+               "bound_by": main_rec["bound_by"],
+               "library_ms": main_rec["library_ms"]}
+        if name == "flash_attention":
+            rec.update({k: main_rec[k] for k in (
+                "shape", "window", "dtype", "ms_b1", "plain_at", "library",
+                "library_kernel", "flops", "bytes")})
+            rec["max_abs_err_f32"] = errors["flash_attention_f32"]
+            rec["max_abs_err_path"] = main_rec["max_abs_err_path"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_path"])
+        else:
+            big_rec = times[name][1]
+            rec.update(n=main_rec["n"], bits=main_rec["bits"],
+                       at_2p24={k: big_rec[k] for k in ("ms", "plain_ms",
+                                                        "bound_ms", "bound_by")})
+        kernels.append(rec)
+    print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(smi)                          # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

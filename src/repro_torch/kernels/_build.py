@@ -30,11 +30,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu")
+SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu",
+           "sign_pipeline.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 #: kernel name -> (source, C entry point, argument types without the stream)
 KERNELS = {
     # vals, words, n, bits, tiles
@@ -51,6 +53,13 @@ KERNELS = {
     # words, masked, keep, n, segment_words, seed_lo, seed_hi, threshold
     "erasure_mask": ("erasure_mask.cu", "repro_erasure_mask",
                      (_P, _P, _P, _I, _U, _U, _U, _U)),
+    # msg, cache, scale, words, new_cache, n, tiles
+    "sign_pipeline": ("sign_pipeline.cu", "repro_sign_pipeline",
+                      (_P, _P, _P, _P, _P, _I, _I)),
+    # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
+    # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, bf16
+    "flash_attention": ("flash_attention.cu", "repro_flash_attention",
+                        (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

@@ -1,8 +1,8 @@
-"""Fused error-feedback → quantize → bit-pack uplink.
+"""Fused error-feedback → compress → bit-pack uplinks.
 
-Counterpart of ``repro.kernels.compress_pipeline.quant_pipeline``: one
-sweep reads ``msg`` and ``cache`` and writes the packed wire words and the
-new cache,
+Counterpart of ``repro.kernels.compress_pipeline``.  ``quant_pipeline``:
+one sweep reads ``msg`` and ``cache`` and writes the packed wire words and
+the new cache,
 
     corrected = msg + cache
     idx       = clip(floor((clip(corrected) − vmin)/Δ + 0.5), 0, L)
@@ -13,8 +13,20 @@ with the tile layout of :mod:`.pack_bits`, so the words equal
 ``pack_bits(quantize_encode(msg + cache))`` word for word.  Slots past the
 data pack as index 0 (the JAX kernel pads msg with vmin and cache with 0).
 
+``sign_pipeline``: the 1-bit scaled sign (ScaledSign, sign(0) := +1),
+
+    corrected = msg + cache
+    scale     = mean |corrected|      (a torch reduction before the launch)
+    words     = pack(corrected >= 0)  at b = 1
+    new_cache = corrected − (±scale)
+
+with slots past the data packed as bit 0 (the JAX kernel pads msg with −1
+and cache with 0).  No path of the JAX package calls it: its entry point
+is ``ops.sign_pipeline``, and the port's is the same.
+
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor on
-the card goes to the CUDA kernel in ``csrc/quant_pipeline.cu``.
+the card goes to the CUDA kernel in ``csrc/quant_pipeline.cu`` or
+``csrc/sign_pipeline.cu``.
 """
 from __future__ import annotations
 
@@ -24,10 +36,18 @@ from ..core.compression import quant_constants, wire_index_bits
 from . import _build, ref
 from .pack_bits import LANES, R, _TILE_VALS, check_cuda_size, n_tiles
 
-__all__ = ["quant_pipeline", "pipeline_tile_values"]
+__all__ = ["quant_pipeline", "sign_pipeline", "pipeline_tile_values"]
 
 #: values per kernel tile (same tile as pack_bits: (32·R, 128) = 32768)
 pipeline_tile_values = _TILE_VALS
+
+
+def _check_pair(name: str, msg, cache) -> None:
+    if msg.dtype != torch.float32 or cache.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 msg and cache, got "
+                        f"{msg.dtype} and {cache.dtype}")
+    if msg.shape != cache.shape or cache.device != msg.device:
+        raise ValueError("msg and cache must have one shape and one device")
 
 
 def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
@@ -41,11 +61,7 @@ def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
     if msg.device.type == "cpu":
         return ref.quant_pipeline_ref(msg, cache, levels=levels, vmin=vmin,
                                       vmax=vmax)
-    if msg.dtype != torch.float32 or cache.dtype != torch.float32:
-        raise TypeError(f"quant_pipeline takes float32 msg and cache, got "
-                        f"{msg.dtype} and {cache.dtype}")
-    if msg.shape != cache.shape or cache.device != msg.device:
-        raise ValueError("msg and cache must have one shape and one device")
+    _check_pair("quant_pipeline", msg, cache)
     if levels >= 2**31:
         raise ValueError(f"levels={levels} exceeds the kernel's int range")
     msg, cache = msg.contiguous(), cache.contiguous()
@@ -59,3 +75,27 @@ def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
     _build.launch("quant_pipeline", msg, cache, words, new_cache, n, bits,
                   tiles, levels, vmin, vmax, delta, recip)
     return words, new_cache
+
+
+def sign_pipeline(msg, cache):
+    """Fused scaled sign + EF + 1-bit pack: (msg, cache) → (words, scale,
+    new cache).
+
+    ``words`` is a flat uint32 tensor of ``tiles·R·LANES`` words, ``scale``
+    a float32 scalar tensor, ``new_cache`` in the shape and dtype of msg.
+    """
+    if msg.device.type == "cpu":
+        return ref.sign_pipeline_ref(msg, cache)
+    _check_pair("sign_pipeline", msg, cache)
+    msg, cache = msg.contiguous(), cache.contiguous()
+    n = msg.numel()
+    if n == 0:
+        raise ValueError("sign_pipeline needs at least one value (its scale "
+                         "is a mean)")
+    check_cuda_size(n)
+    tiles = n_tiles(n)
+    scale = (msg + cache).abs_().mean()
+    words = torch.empty(tiles * R * LANES, dtype=torch.uint32, device=msg.device)
+    new_cache = torch.empty_like(msg)
+    _build.launch("sign_pipeline", msg, cache, scale, words, new_cache, n, tiles)
+    return words, scale, new_cache

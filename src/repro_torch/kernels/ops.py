@@ -20,7 +20,9 @@ from torch.profiler import record_function
 from ..obs.trace import active as _obs_active
 from . import _build
 from .compress_pipeline import quant_pipeline as _quant_pipeline
+from .compress_pipeline import sign_pipeline as _sign_pipeline
 from .erasure_mask import erasure_mask as _erasure_mask
+from .flash_attention import flash_attention as _flash_attention
 from .pack_bits import pack_bits as _pack_bits
 from .pack_bits import unpack_bits as _unpack_bits
 from .quantize_ef import quantize_ef as _quantize_ef
@@ -68,6 +70,12 @@ def quant_pipeline(msg, cache, *, levels=255, vmin=-1.0, vmax=1.0):
 
 
 @_annotated
+def sign_pipeline(msg, cache):
+    """Fused scaled-sign→EF→1-bit-pack sweep → (words, scale, new cache)."""
+    return _sign_pipeline(msg, cache)
+
+
+@_annotated
 def quantize_ef(msg, cache, *, levels=255, vmin=-0.25, vmax=0.25):
     """Fused quantize + EF: (msg, cache) → (uint8/uint16 wire, new cache)."""
     return _quantize_ef(msg, cache, levels=levels, vmin=vmin, vmax=vmax)
@@ -77,6 +85,15 @@ def quantize_ef(msg, cache, *, levels=255, vmin=-0.25, vmax=0.25):
 def erasure_mask(words, *, p: float, seed: int = 0, segment_words: int = 32):
     """Counter-hash segment erasure over packed words → (masked, keep)."""
     return _erasure_mask(words, p=p, seed=seed, segment_words=segment_words)
+
+
+@_annotated
+def attention(q, k, v, *, causal=True, window=None, softcap=None, q_pos=None,
+              k_pos=None):
+    """(B, S, H, D) attention over k/v (B, S, Hkv, D), H % Hkv == 0;
+    positions default to ``arange`` (the Pallas kernel's function)."""
+    return _flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                            window=window, softcap=softcap)
 
 
 def launch_counts() -> dict:

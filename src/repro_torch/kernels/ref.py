@@ -11,6 +11,8 @@ arithmetic or cast kernel is needed on either device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.compression import decode_levels, level_index, wire_index_bits
@@ -112,6 +114,26 @@ def quant_pipeline_ref(msg, cache, *, levels: int, vmin: float, vmax: float):
     return words, new_cache
 
 
+def sign_pipeline_ref(msg, cache):
+    """Plain version of
+    :func:`repro_torch.kernels.compress_pipeline.sign_pipeline`:
+
+        corrected = msg + cache
+        scale     = mean |corrected|            (float32)
+        bit       = corrected >= 0              (0 and -0.0 give 1)
+        new_cache = corrected − (±scale)
+        words     = pack_bits_ref(bit, 1)
+
+    Returns (words, scale, new_cache).
+    """
+    corrected = msg.to(torch.float32) + cache.to(torch.float32)
+    scale = corrected.abs().mean()
+    bit = corrected >= 0.0
+    decoded = torch.where(bit, scale, -scale)
+    new_cache = (corrected - decoded).to(msg.dtype)
+    return pack_bits_ref(bit.to(torch.int64), 1), scale, new_cache
+
+
 _GOLD = 0x9E3779B9          # 2**32/φ: decorrelates consecutive counters
 
 
@@ -165,3 +187,44 @@ def erasure_mask_ref(words, *, p: float, seed: int = 0,
     keep = (_segment_hash64(seg, seed) >= drop_threshold(p)).to(torch.int64)
     return (to_uint32(flat * keep).reshape(words.shape),
             to_uint32(keep).reshape(words.shape))
+
+
+#: score of a masked (query, key) pair: finite, so a row whose first tiles
+#: hold only masked keys never computes exp(−inf − (−inf))
+NEG_INF = -1e30
+
+
+def attention_mask(q_pos, k_pos, *, causal: bool, window=None):
+    """(Sq, Sk) bool: key j is visible to query i."""
+    ok = torch.ones((q_pos.numel(), k_pos.numel()), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return ok
+
+
+def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                        window=None, softcap=None):
+    """Plain version of
+    :func:`repro_torch.kernels.flash_attention.flash_attention`.
+
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) with H % Hkv == 0; head h reads KV
+    head ``h // (H // Hkv)``.  q, k and v are taken to float32 first, as
+    the Pallas kernel does (``flash_attention.py:55-56, :73``): scores
+    ``q·k/√D`` in float32, ``cap·tanh(s/cap)``, masked pairs set to −1e30,
+    softmax, P·V in float32, and the output cast to ``q.dtype`` once.
+    """
+    n_rep = q.shape[2] // k.shape[2]
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / math.sqrt(q.shape[-1]))
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap).mul_(softcap)
+    ok = attention_mask(q_pos, k_pos, causal=causal, window=window)
+    scores.masked_fill_(~ok, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)

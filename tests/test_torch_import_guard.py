@@ -12,7 +12,9 @@ import torch
 
 from repro_torch import api, convert, resolve_device
 from repro_torch.bench import sim_scale
+from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.data import logistic
+from repro_torch.models import transformer
 from repro_torch.obs import report
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,8 +39,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 49     # every module of the port
-    for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench"):
+    assert int(out.stdout.strip()) >= 69     # every module of the port
+    for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
+                "models", "configs", "launch"):
         assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped
 
 
@@ -66,8 +69,12 @@ def test_no_jax_or_repro_import(path):
     lambda: report.run_canonical("sync-lossless"),
     lambda: sim_scale.lossy_round(20, rounds=1),
     lambda: sim_scale.round_pipeline(20, rounds=1),
+    lambda: transformer.init_params(smoke_variant(ARCHS["h2o-danube-3-4b"])),
+    lambda: transformer.init_cache(smoke_variant(ARCHS["h2o-danube-3-4b"]), 1, 8),
+    lambda: convert.model_params_from_jax({"w": np.zeros(3, np.float32)}),
 ], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
-        "run_canonical", "lossy_round", "round_pipeline"])
+        "run_canonical", "lossy_round", "round_pipeline", "init_params",
+        "init_cache", "model_params_from_jax"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

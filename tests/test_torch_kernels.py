@@ -11,8 +11,13 @@ for the CPU, multiplies by the float32 reciprocal of Δ and contracts
 the port rounds the same way (``level_index``, ``decode_levels``), so
 indices and new caches agree bit for bit.
 
-The CUDA kernels cannot run here; ``test_cuda_kernels_match_plain`` holds
-them against the plain versions on a machine with a card.
+Attention is float arithmetic summed in another order, so the port's
+plain ``flash_attention`` is held within 2e-5 (rtol and atol) of the
+Pallas kernel, and the sign scale, a mean, within rtol 1e-6 (its new cache
+within atol 1e-6); the sign words are compared word for word.
+
+The CUDA kernels cannot run here; the ``cuda``-marked tests hold them
+against the plain versions on a machine with a card.
 """
 import jax
 import jax.numpy as jnp
@@ -22,10 +27,13 @@ import torch
 
 from repro.core.compression import quantize_decode as jax_quantize_decode
 from repro.kernels import compress_pipeline as jcp
+from repro.kernels import flash_attention as jfa
 from repro.kernels import pack_bits as jpb
 from repro.kernels import quantize_ef as jqe
 from repro.kernels import ref as jref
 from repro_torch.core.compression import decode_levels, wire_index_bits
+from repro_torch.kernels import compress_pipeline as tcp
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pack_bits as tpb
 from repro_torch.kernels import quantize_ef as tqe
@@ -264,3 +272,152 @@ def test_cuda_quantize_ef_matches_plain():
         as_signed = lambda t: t.view(torch.int16) if t.dtype == torch.uint16 else t
         assert w.dtype == w_r.dtype and torch.equal(as_signed(w), as_signed(w_r))
         assert torch.equal(c.view(torch.int32), c_r.view(torch.int32))
+
+
+# -- sign_pipeline ------------------------------------------------------------
+
+def sign_inputs(n, seed):
+    """msg/cache with exact zeros and signed zeros at the front (cache ±0
+    there, so msg + cache keeps them) and values that cancel to 0."""
+    rng = np.random.default_rng(seed)
+    msg = rng.standard_normal(n).astype(np.float32)
+    cache = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    special = np.array([0.0, -0.0, 0.0, -0.0, 1.5, -1.5], np.float32)
+    k = min(n, special.size)
+    msg[:k] = special[:k]
+    cache[:k] = np.array([0.0, 0.0, -0.0, -0.0, -1.5, 1.5], np.float32)[:k]
+    return msg, cache
+
+
+@pytest.mark.parametrize("n", [100, 70_001])
+def test_sign_pipeline_matches_pallas(n):
+    msg, cache = sign_inputs(n, seed=n)
+    words_t, scale_t, newc_t = ops.sign_pipeline(torch.from_numpy(msg),
+                                                 torch.from_numpy(cache))
+    words_j, scale_j, newc_j = jcp.sign_pipeline(jnp.asarray(msg), jnp.asarray(cache),
+                                                 interpret=True)
+    assert words_t.dtype == torch.uint32 and words_t.shape == (tpb.n_tiles(n) * 1024,)
+    np.testing.assert_array_equal(_np(words_t), np.asarray(words_j))
+    assert scale_t.dtype == torch.float32 and scale_t.dim() == 0
+    np.testing.assert_allclose(float(scale_t), float(scale_j), rtol=1e-6)
+    np.testing.assert_allclose(_np(newc_t), np.asarray(newc_j), rtol=0, atol=1e-6)
+    # bit 1 for 0 and -0.0, and the words decode to the signs
+    bits = _np(ref.unpack_bits_ref(words_t, 1, n))
+    np.testing.assert_array_equal(bits, (msg + cache >= 0).astype(np.uint32))
+    assert bits[:4].all()
+
+
+def test_sign_pipeline_2d_and_checks():
+    msg, cache = (torch.from_numpy(a).reshape(7, -1) for a in sign_inputs(7 * 300, 3))
+    words, scale, newc = ops.sign_pipeline(msg, cache)
+    w_r, s_r, c_r = ref.sign_pipeline_ref(msg.reshape(-1), cache.reshape(-1))
+    assert newc.shape == (7, 300)
+    assert torch.equal(words.view(torch.int32), w_r.view(torch.int32))
+    assert torch.equal(newc.reshape(-1), c_r) and torch.equal(scale, s_r)
+    with pytest.raises(TypeError):
+        tcp.sign_pipeline(torch.zeros(4, dtype=torch.float64, device="meta"),
+                          torch.zeros(4, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError):
+        tcp.sign_pipeline(torch.zeros(4, device="meta"), torch.zeros(5, device="meta"))
+
+
+# -- flash_attention ----------------------------------------------------------
+
+FLASH_CASES = [(s, d, w, c) for s in (128, 257) for d in (64, 120)
+               for w, c in ((None, None), (64, 30.0))]
+
+
+@pytest.mark.parametrize("s,d,window,softcap", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(s, d, window, softcap):
+    """The port's plain version against the Pallas kernel (interpret mode,
+    equal heads: it takes GQA expanded by the caller), within 2e-5."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (rng.standard_normal((2, s, 3, d)).astype(np.float32) for _ in range(3))
+    theirs = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 causal=True, window=window, softcap=softcap,
+                                 interpret=True)
+    ours = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), window=window, softcap=softcap)
+    np.testing.assert_allclose(_np(ours), np.asarray(theirs), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_gqa_reads_kv_head_h_over_n_rep():
+    """Head h reads KV head h // (H // Hkv): the same as the Pallas kernel
+    on K/V expanded by the JAX model's _repeat_kv."""
+    from repro.models.attention import _repeat_kv
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((1, 130, 8, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 130, 2, 64)).astype(np.float32) for _ in range(2))
+    theirs = jfa.flash_attention(jnp.asarray(q), _repeat_kv(jnp.asarray(k), 4),
+                                 _repeat_kv(jnp.asarray(v), 4), window=50,
+                                 interpret=True)
+    ours = ops.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                         window=50)
+    np.testing.assert_allclose(_np(ours), np.asarray(theirs), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_non_causal_and_checks():
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, 2, 16)).astype(np.float32))
+               for _ in range(3))
+    ours = tfa.flash_attention(q, k, v, causal=False)
+    full = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0, dim=-1)
+    np.testing.assert_allclose(_np(ours), _np(torch.einsum("bhqk,bkhd->bqhd", full, v)),
+                               rtol=2e-5, atol=2e-5)
+    meta = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device="meta")
+    with pytest.raises(TypeError):
+        tfa.flash_attention(meta(1, 8, 2, 16, dt=torch.float16),
+                            meta(1, 8, 2, 16, dt=torch.float16),
+                            meta(1, 8, 2, 16, dt=torch.float16))
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(meta(1, 8, 2, 160), meta(1, 8, 2, 160), meta(1, 8, 2, 160))
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(meta(1, 8, 3, 16), meta(1, 8, 2, 16), meta(1, 8, 2, 16))
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="positions"):
+        tfa.flash_attention(q, k, v, q_pos=torch.arange(3))
+
+
+def test_cpu_dispatch_of_the_new_kernels_counts_no_launch():
+    before = ops.launch_counts()
+    assert before.keys() >= {"sign_pipeline", "flash_attention"}
+    msg, cache = (torch.from_numpy(a) for a in sign_inputs(1_000, 4))
+    ops.sign_pipeline(msg, cache)
+    q = torch.zeros(1, 8, 2, 16)
+    ops.attention(q, q, q)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_cuda_sign_pipeline_matches_plain():
+    """The CUDA sign_pipeline against its plain version on the card: words
+    and new caches bit for bit (one scale reduction on the card for both)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    for n in (100, 70_001):
+        msg, cache = (torch.from_numpy(a).cuda() for a in sign_inputs(n, n))
+        w, s, c = tcp.sign_pipeline(msg, cache)
+        w_r, s_r, c_r = ref.sign_pipeline_ref(msg, cache)
+        assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
+        assert torch.equal(s, s_r) and torch.equal(c.view(torch.int32), c_r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_flash_attention_matches_plain(dtype, tol):
+    """The CUDA flash_attention against its plain version on the card, GQA,
+    window, softcap and a query range after its keys: float32 within 2e-5,
+    bf16 within 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for s, d, window, softcap in FLASH_CASES:
+        q, k, v = (torch.randn((2, s, h, d), generator=gen, device="cuda").to(dtype)
+                   for h in (8, 2, 2))
+        qp = torch.arange(s, device="cuda") + 7
+        out = tfa.flash_attention(q[:, s // 2:], k, v, qp[s // 2:], qp,
+                                  window=window, softcap=softcap)
+        plain = ref.flash_attention_ref(q[:, s // 2:], k, v, qp[s // 2:].int(),
+                                        qp.int(), window=window, softcap=softcap)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
