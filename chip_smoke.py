@@ -20,8 +20,14 @@ into ``build/``, then, each phase failing the run:
    1e-6); and flash_attention over S in {128, 257, 4353}, D in {64, 120,
    128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64, 4096},
    softcap in {None, 30} and aligned or offset positions, in float32
-   (2e-5) and bf16 (one bf16 rounding of the output: 2**-7 |plain| +
-   1e-4);
+   (2e-5, on the float32 route's kernel, flash_attention.cu) and bf16 (one
+   bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the sm90 kernel,
+   flash_attention_sm90.cu), each call's route read from the launch
+   counts; plus bf16 cases off the grid: a ring cache's positions
+   (rotated, empty slots at 2**30), a q view with a sliced start and one
+   whose base is off TMA's 16-byte alignment (copied first), head dims
+   100, 32 and 16, 70 keys, a one-token prompt, and two without the causal
+   mask;
 3. runs paper Table 1's "quant L=10 ±1 / Algorithm 2 (EF)" arm of Fed-LT at
    paper size (N=100 agents, m=500, d=100, ε=50; N_e=10, γ=0.005, ρ=20;
    fused uplink) for 300 rounds, printing e_K every 50 rounds, and checks
@@ -45,24 +51,29 @@ into ``build/``, then, each phase failing the run:
    Fed-LT run's last uplink (no path of the JAX package calls it);
 9. serves h2o-danube-3-4b at full width in bf16 (random weights from a
    seeded generator): prefill of 4 prompts x 8192 tokens, then 32 greedy
-   decode steps, checking finite logits and 24 flash_attention launches
-   per prefill and none in decode; then the same model at depth 2 in
-   float32, prefill of 1 x 5000 tokens and 4 decode steps through the
-   kernel (backend "chunked", 2 launches per prefill) and the plain
+   decode steps, checking finite logits and 24 flash_attention_sm90
+   launches per prefill (the bf16 route), no other, and none in decode;
+   then the same model at depth 2 in float32, prefill of 1 x 5000 tokens
+   and 4 decode steps through the kernel (backend "chunked", 2
+   flash_attention launches per prefill: the float32 route) and the plain
    attention (backend "xla", none), whose logits must agree within
    relative L2 error 1e-4;
 10. profiles a few rounds of phases 3 and 5, the sign entry point and the
     serving steps with ``torch.profiler``, and times each kernel with CUDA
-    events beside its bound, its plain version and, for flash_attention,
-    PyTorch's scaled_dot_product_attention, at the path's shape and, for
-    the uplink kernels, at 2**24 values; flash_attention's output at the
+    events beside its bound, its plain version and, for the two attention
+    kernels, PyTorch's scaled_dot_product_attention, at the path's shape
+    and, for the uplink kernels, at 2**24 values (flash_attention_sm90 at
+    the serving prefill's shape, beside the float32 route's kernel run in
+    bf16 through its launcher for timing only; flash_attention at the
+    depth-2 float32 prefill's); flash_attention_sm90's output at the
     path's shape is held against its plain version, one batch row at a
     time, and decode's device time is attributed to the ops that launch
     it and their input shapes.
 
 The launch counts are zeroed just before each main-path run (phases 3–4,
 each run of phase 5, each chain run of phase 7, phase 8, and the timed
-prefill and the decode steps of phase 9) and read just after.  Then it
+prefill, the decode steps and the depth-2 float32 prefills of phase 9)
+and read just after.  Then it
 prints the card's name and power limit again, one JSON line with a
 record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
@@ -119,6 +130,7 @@ FLASH_HEADS = ((4, 4), (32, 8))
 FLASH_WINDOWS = (None, 64, 4096)
 FLASH_CAPS = (None, 30.0)
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2**-7, 1e-4)}
+RING_SLOTS = 4096             # a ring cache of the serving window's size
 SIGN_SIZES = (100, 70_001, BIG_N)
 # serving h2o-danube-3-4b (configs/catalog.py) at full width
 SERVE_ARCH = "h2o-danube-3-4b"
@@ -363,14 +375,29 @@ def flash_check(out, plain, what: str) -> float:
     return e
 
 
+def flash_route_call(fa, q, k, v, qp, kp, **kw):
+    """flash_attention(...) with the launch it made: (out, kernel name)."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fa.flash_attention(q, k, v, qp, kp, **kw)
+    after = ops.launch_counts()
+    made = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    check(len(made) == 1 and list(made.values()) == [1],
+          f"flash_attention {q.dtype} made launches {made}, expected one")
+    return out, next(iter(made), None)
+
+
 def check_flash_attention(err: dict) -> None:
-    """flash_attention against its plain version over every case; one line
-    per (dtype, S, D, H/Hkv) with the max_abs_err of each of its cases."""
+    """flash_attention against its plain version over every case, each on
+    the route its dtype takes (float32: flash_attention.cu; bf16:
+    flash_attention_sm90.cu), read from the launch counts; one line per
+    (dtype, S, D, H/Hkv) with the max_abs_err of each of its cases."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=DEV).manual_seed(1)
     worst = {}
     for dtype, tol in FLASH_TOL.items():
+        want = fa.route(dtype, DEV)
         for s in FLASH_S:
             for d in FLASH_D:
                 for h, hkv in FLASH_HEADS:
@@ -381,23 +408,117 @@ def check_flash_attention(err: dict) -> None:
                                 q, k, v, qp, kp = flash_case(s, d, h, hkv, offset,
                                                              dtype, gen)
                                 kw = dict(causal=True, window=window, softcap=cap)
-                                out = flash_attention(q, k, v, qp, kp, **kw)
+                                out, took = flash_route_call(fa, q, k, v, qp, kp, **kw)
+                                what = (f"{dtype} S={s} D={d} H={h}/{hkv} window={window} "
+                                        f"softcap={cap} offset={offset}")
+                                check(took == want, f"flash_attention {what} ran {took}, "
+                                      f"expected {want}")
                                 plain = ref.flash_attention_ref(q, k, v, qp, kp,
                                                                 **kw)
-                                errs.append(flash_check(
-                                    out, plain, f"{dtype} S={s} D={d} H={h}/{hkv} "
-                                    f"window={window} softcap={cap} offset={offset}"))
-                    worst[dtype] = max(worst.get(dtype, 0.0), *errs)
-                    print(f"[kernels] flash_attention {str(dtype)[6:]} S={s} D={d} "
+                                errs.append(flash_check(out, plain, what))
+                    worst[want] = max(worst.get(want, 0.0), *errs)
+                    print(f"[kernels] {want} ({str(dtype)[6:]}) S={s} D={d} "
                           f"H={h}/{hkv}: max_abs_err per (window, softcap, "
                           f"offset) in {FLASH_WINDOWS}x{FLASH_CAPS}x(no, yes): "
                           + " ".join(f"{e:.1e}" for e in errs)
                           + f" (within {tol[1]} + {tol[0]:.4g} |plain|)")
-    err["flash_attention"] = max(worst.values())
-    err["flash_attention_f32"] = worst[torch.float32]
+    worst["flash_attention_sm90"] = max(worst["flash_attention_sm90"],
+                                        *check_flash_layouts(fa, ref, gen))
+    for name, e in check_flash_no_key(fa, ref, gen).items():
+        worst[name] = max(worst[name], e)
+    err.update(worst)
     print(f"[kernels] flash_attention: within tolerance of its plain version in "
-          f"all cases; max_abs_err float32 {worst[torch.float32]:.3e}, bf16 "
-          f"{worst[torch.bfloat16]:.3e}")
+          f"all cases; max_abs_err float32 (flash_attention) "
+          f"{worst['flash_attention']:.3e}, bf16 (flash_attention_sm90) "
+          f"{worst['flash_attention_sm90']:.3e}")
+
+
+def check_flash_no_key(fa, ref, gen) -> dict:
+    """Keys at positions 192.., queries at 0..384, on both routes: rows
+    0..191 see no key, so query tile 0 visits no key tile and the next
+    one masks some of its rows whole.  Such rows take the sentinel's
+    answer, the mean of V.  {route: max_abs_err}."""
+    errs = {}
+    ahead = torch.arange(192, 192 + 385, dtype=torch.int32, device=DEV)
+    for dtype in FLASH_TOL:
+        q, k, v, qp, _ = flash_case(385, 120, 32, 8, False, dtype, gen)
+        for window in (None, 64):
+            kw = dict(causal=True, window=window, softcap=None)
+            out, took = flash_route_call(fa, q, k, v, qp, ahead, **kw)
+            check(took == fa.route(dtype, DEV), f"keys-ahead case {dtype} ran {took}")
+            e = flash_check(out, ref.flash_attention_ref(q, k, v, qp, ahead, **kw),
+                            f"{dtype} keys ahead of the queries window={window}")
+            errs[took] = max(errs.get(took, 0.0), e)
+    print(f"[kernels] flash_attention, keys ahead of the queries (S=385, rows "
+          f"0..191 see no key; window None/64), on both routes: max_abs_err "
+          + " ".join(f"{n} {e:.1e}" for n, e in errs.items()))
+    return errs
+
+
+def check_flash_layouts(fa, ref, gen) -> list:
+    """bf16 cases on the sm90 kernel beyond the grid: a ring cache's
+    positions (k_pos a rotated arange with empty slots at 2**30, as
+    cache.pos holds them), a q view with a sliced start, a q view whose
+    base is 2 bytes off 16 (TMA cannot read it: the wrapper copies it
+    first), and odd head dims and lengths."""
+    dtype, errs = torch.bfloat16, []
+    h, hkv, d, s_max = 32, 8, 120, RING_SLOTS
+    end = s_max + 904
+    pos = torch.arange(end - s_max, end, device=DEV)
+    ring = torch.empty(s_max, dtype=torch.int64, device=DEV)
+    ring[pos % s_max] = pos
+    ring[torch.randperm(s_max, generator=gen, device=DEV)[:7]] = 2**30
+    ring = ring.int()
+    q = torch.randn((2, 257, h, d), generator=gen, device=DEV).to(dtype)
+    k, v = (torch.randn((2, s_max, hkv, d), generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    qp = torch.arange(end - 257, end, dtype=torch.int32, device=DEV)
+    for window in (None, 4096):
+        kw = dict(causal=True, window=window, softcap=None)
+        out, took = flash_route_call(fa, q, k, v, qp, ring, **kw)
+        check(took == "flash_attention_sm90", f"ring case ran {took}")
+        errs.append(flash_check(out, ref.flash_attention_ref(q, k, v, qp, ring, **kw),
+                                f"ring positions window={window}"))
+    s = FLASH_S[-1]
+    q = torch.randn((1, s, h, d), generator=gen, device=DEV).to(dtype)
+    k, v = (torch.randn((1, s, hkv, d), generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    flat = torch.empty(1 + q.numel(), dtype=dtype, device=DEV)
+    odd = flat[1:].view(q.shape)
+    odd.copy_(q)
+    kp = torch.arange(s, dtype=torch.int32, device=DEV)
+    copied = []
+    for what, qv in (("sliced start q[:, s//3:]", q[:, s // 3:]),
+                     ("base off 16 bytes", odd[:, s // 3:])):
+        copied.append(fa.tma_layout(qv)[0].data_ptr() != qv.data_ptr())
+        kw = dict(causal=True, window=4096, softcap=None)
+        out, took = flash_route_call(fa, qv, k, v, kp[s // 3:], kp, **kw)
+        check(took == "flash_attention_sm90", f"{what} ran {took}")
+        errs.append(flash_check(out, ref.flash_attention_ref(qv, k, v, kp[s // 3:], kp,
+                                                              **kw), what))
+    check(copied == [False, True], f"TMA layout copies {copied}: expected the "
+          "sliced view read in place and the misaligned one copied")
+    # head dims off the grid (D = 100 is zero-padded to 104 by a copy; D <
+    # 64 takes one 64-column TMA box past D), one key tile short of full,
+    # a one-token prompt, and no causal mask (with and without a window)
+    for n, d, h, hkv, window, cap, causal in (
+            (300, 100, 4, 2, 50, None, True), (300, 32, 4, 2, 50, None, True),
+            (200, 16, 4, 4, None, 30.0, True), (70, 64, 2, 1, None, None, True),
+            (1, 64, 2, 1, None, None, True), (300, 64, 4, 2, None, None, False),
+            (300, 120, 4, 2, 100, None, False)):
+        q, k, v, qp, kp = flash_case(n, d, h, hkv, False, dtype, gen)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, took = flash_route_call(fa, q, k, v, qp, kp, **kw)
+        check(took == "flash_attention_sm90", f"S={n} D={d} ran {took}")
+        errs.append(flash_check(out, ref.flash_attention_ref(q, k, v, qp, kp, **kw),
+                                f"S={n} D={d} H={h}/{hkv} window={window} softcap={cap} "
+                                f"causal={causal}"))
+    print(f"[kernels] flash_attention_sm90 bf16: ring positions ({s_max} slots, 7 "
+          f"empty at 2**30, window None/4096), S={s}: q[:, s//3:] read in place, a q "
+          "view 2 bytes off 16 copied first; (S, D) in (300, 100), (300, 32), (200, "
+          "16), (70, 64), (1, 64), and (300, 64), (300, 120) not causal: max_abs_err "
+          + " ".join(f"{e:.1e}" for e in errs))
+    return errs
 
 
 # -- phases 3 and 4: the main path -----------------------------------------
@@ -582,8 +703,9 @@ def phase_serve(launches: dict) -> dict:
     (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, {"tokens": prompts}))
     counts_p = ops.launch_counts()
     n_attn = cfg.n_layers
-    check(counts_p["flash_attention"] == n_attn and sum(counts_p.values()) == n_attn,
-          f"prefill launched {counts_p}, expected {n_attn} flash_attention")
+    check(counts_p["flash_attention_sm90"] == n_attn and sum(counts_p.values()) == n_attn,
+          f"prefill launched {counts_p}, expected {n_attn} flash_attention_sm90 "
+          "(the bf16 route) and no other kernel")
     check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     check(logits.shape == (SERVE_BATCH, cfg.vocab_size), f"logits {logits.shape}")
     check(cache["length"] == SERVE_PROMPT, "prefill cache length")
@@ -612,12 +734,12 @@ def phase_serve(launches: dict) -> dict:
                prefill_ms=prefill_ms, prefill_tok_s=tokens / prefill_ms * 1e3,
                decode_ms_per_step=decode_ms / SERVE_STEPS,
                decode_tok_s=SERVE_BATCH * SERVE_STEPS / decode_ms * 1e3,
-               peak_bytes=peak, flash_launches=counts_p["flash_attention"])
+               peak_bytes=peak, flash_launches=counts_p["flash_attention_sm90"])
     print(f"[serve] {SERVE_ARCH}: {n_params} parameters (bf16) drawn on the card "
           f"in {init_ms:.1f} ms; prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: "
           f"{prefill_ms:.1f} ms ({out['prefill_tok_s']:.0f} tokens/s; first "
-          f"prefill {warm_ms:.1f} ms), {counts_p['flash_attention']} flash_attention "
-          f"launches; {SERVE_STEPS} greedy decode steps: {out['decode_ms_per_step']:.3f}"
+          f"prefill {warm_ms:.1f} ms), {counts_p['flash_attention_sm90']} "
+          f"flash_attention_sm90 launches; {SERVE_STEPS} greedy decode steps: {out['decode_ms_per_step']:.3f}"
           f" ms per step ({out['decode_tok_s']:.1f} tokens/s), no kernel launch; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); logits "
           f"finite; sample {generated[0, :8].tolist()} (host clock around work "
@@ -630,10 +752,12 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def check_serve_f32() -> float:
+def check_serve_f32(launches: dict) -> float:
     """The same model, full width, depth 2, float32: prefill of 1 x 5000
     tokens (past the 4096 window, not a multiple of the kernel's tile) and
-    4 decode steps, through the kernel and through the plain attention."""
+    4 decode steps, through the kernel (the float32 route,
+    flash_attention.cu) and through the plain attention; the kernel
+    prefill's launches are added to ``launches``."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
     from repro_torch.models.transformer import init_params
@@ -648,6 +772,9 @@ def check_serve_f32() -> float:
         ops.reset_launch_counts()
         logits, cache = make_prefill_step(cfg, backend)(params, {"tokens": prompt})
         counts = ops.launch_counts()
+        if backend == "chunked":
+            for k, v in counts.items():
+                launches[k] += v
         check(counts["flash_attention"] == expect[backend]
               and sum(counts.values()) == expect[backend],
               f"depth-2 prefill, backend {backend}: launched {counts}, expected "
@@ -1067,81 +1194,189 @@ def phase_times(rng) -> dict:
             "sign_pipeline", n, 1, lambda: sign_pipeline(msg, cache),
             lambda: ref.sign_pipeline_ref(msg, cache),
             200 if n < BIG_N else 20, 12.125 * n, 8 * n))
-    out["flash_attention"] = [time_flash()]
+    out["flash_attention_sm90"] = [time_flash_sm90()]
+    out["flash_attention"] = [time_flash_f32()]
     return out
 
 
-def time_flash() -> dict:
-    """flash_attention at the serving path's shape (danube3 prefill: B=4,
-    S=8192, H=32, Hkv=8, D=120, W=4096, bf16), beside its bound, the plain
-    version (at B=1: at B=4 its float32 scores alone would take 34 GB) and
-    PyTorch's scaled_dot_product_attention on the same inputs (boolean
-    window mask, enable_gqa; timed only, the port never calls it).  Each
-    is the least of two runs timed in turns with CUDA events."""
+def host_ms_per_call(fn, calls: int) -> float:
+    """Host clock per call of ``calls`` calls enqueued back to back, with
+    no synchronize between them: what the wrapper costs the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def kernel_device_us(fn, name: str):
+    """Device µs of one ``fn()`` spent in kernel ``name`` (torch.profiler);
+    None, said so, when three profiles in a row record no device kernel
+    of that name (the profiler on that machine has once come back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if e.device_type ==
+                torch.autograd.DeviceType.CUDA and re.search(rf"\b{name}_kernel\b", e.key)]
+        if hits:
+            check(len(hits) == 1, f"profile of {name}: kernels {[e.key[:60] for e in hits]}")
+            return hits[0].self_device_time_total / hits[0].count
+    print(f"[times] {name}: the profiler recorded no device kernel of that name in "
+          "three tries; device time not measured")
+    return None
+
+
+def library_kernel_name(fn) -> str:
+    """The longest device kernel of one ``fn()``: which kernel a library
+    call runs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
+                 and e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: -e.self_device_time_total)
+    return ks[0].key[:90] if ks else "not seen"
+
+
+def attention_inputs(b, s, h, hkv, d, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(dtype)
+    return q, k, v, torch.arange(s, dtype=torch.int32, device=DEV)
+
+
+def time_turns(fns: dict, iters: dict) -> dict:
+    """Each of ``fns`` timed twice with CUDA events over ``iters[name]``
+    calls, in turns forward then backward: {name: [ms, ms]}."""
+    runs = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            runs[name].append(time_ms(fns[name], iters=iters[name], warmup=1))
+    return runs
+
+
+def time_flash_sm90() -> dict:
+    """flash_attention's bf16 route (flash_attention_sm90) at the serving
+    path's shape (danube3 prefill: B=4, S=8192, H=32, Hkv=8, D=120, W=4096),
+    beside its bound, the plain version (at B=1: at B=4 its float32 scores
+    alone would take 34 GB), PyTorch's scaled_dot_product_attention on the
+    same inputs (boolean window mask, enable_gqa; timed only, the port never
+    calls it) and the float32 route's kernel run on the same bf16 inputs
+    through its launcher ``_launch_simt`` (timing only; flash_attention
+    never sends bf16 there).  Each is the least of two runs
+    timed in turns with CUDA events."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     cfg = serve_config()
     b, s, h, hkv, d, w = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.sliding_window)
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    q = torch.randn((b, s, h, d), generator=gen, device=DEV).to(torch.bfloat16)
-    k = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
-    v = torch.randn((b, s, hkv, d), generator=gen, device=DEV).to(torch.bfloat16)
-    pos = torch.arange(s, dtype=torch.int32, device=DEV)
+    q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.bfloat16, 2)
     mask = ref.attention_mask(pos, pos, causal=True, window=w)
     pairs = int(mask.sum())                    # this run's visible pairs
     flops = 4 * d * pairs * b * h              # q.k and p.v, 2 flops per MAC
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v read, out written
     b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
-    kern = lambda: flash_attention(q, k, v, window=w)
-    kern1 = lambda: flash_attention(q[:1], k[:1], v[:1], window=w)
-    plain1 = lambda: ref.flash_attention_ref(q[:1], k[:1], v[:1], pos, pos,
-                                             causal=True, window=w)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
-    fns = {"plain": plain1, "kern1": kern1, "kern": kern, "sdpa": sdpa}
-    runs = {name: [] for name in fns}
-    for order in (("plain", "kern1", "kern", "sdpa"), ("sdpa", "kern", "kern1", "plain")):
-        for name in order:
-            runs[name].append(time_ms(fns[name], iters=2, warmup=1))
-    kern_runs, sdpa_runs = runs["kern"], runs["sdpa"]
-    out = kern()                     # the path's shape, held row by row
+    simt_out = torch.empty_like(q)
+    fns = {"plain": lambda: ref.flash_attention_ref(q[:1], k[:1], v[:1], pos, pos,
+                                                    causal=True, window=w),
+           "kern1": lambda: fa.flash_attention(q[:1], k[:1], v[:1], window=w),
+           "kern": lambda: fa.flash_attention(q, k, v, window=w),
+           "simt": lambda: fa._launch_simt(q, k, v, simt_out, pos, pos, True, w, None),
+           "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)}
+    runs = time_turns(fns, dict(plain=2, kern1=10, kern=10, simt=2, sdpa=10))
+    ms = min(runs["kern"])
+    host_ms = host_ms_per_call(fns["kern"], 10)
+    out = fns["kern"]()                  # the path's shape, held row by row
     path_errs = [flash_check(out[i:i + 1], ref.flash_attention_ref(
         q[i:i + 1], k[i:i + 1], v[i:i + 1], pos, pos, causal=True, window=w),
         f"at the path's shape B={b} S={s} H={h}/{hkv} D={d} W={w} bf16, row {i}")
         for i in range(b)]
     del out
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sdpa()                           # which device kernel SDPA runs
-        torch.cuda.synchronize()
-    sdpa_kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
-                           and e.device_type == torch.autograd.DeviceType.CUDA),
-                          key=lambda e: -e.self_device_time_total)
-    library_kernel = sdpa_kernels[0].key[:90] if sdpa_kernels else "not seen"
     rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "bfloat16",
-           "ms": min(kern_runs), "ms_runs": kern_runs,
-           "ms_b1": min(runs["kern1"]), "plain_ms": min(runs["plain"]),
-           "plain_ms_runs": runs["plain"], "plain_at": "B=1",
-           "library_ms": min(sdpa_runs), "library_ms_runs": sdpa_runs,
+           "ms": ms, "ms_runs": runs["kern"], "ms_b1": min(runs["kern1"]),
+           "plain_ms": min(runs["plain"]), "plain_ms_runs": runs["plain"],
+           "plain_at": "B=1", "library_ms": min(runs["sdpa"]),
+           "library_ms_runs": runs["sdpa"],
            "library": "torch.nn.functional.scaled_dot_product_attention",
-           "library_kernel": library_kernel,
+           "library_kernel": library_kernel_name(fns["sdpa"]),
+           "simt_bf16_ms": min(runs["simt"]), "simt_bf16_ms_runs": runs["simt"],
+           "device_us": kernel_device_us(fns["kern"], "flash_attention_sm90"),
+           "host_ms": host_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
            "pairs_per_head": pairs, "max_abs_err_path": max(path_errs)}
-    print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} bf16: "
-          f"kernel {rec['ms']:.3f} ms (runs {kern_runs[0]:.3f}, {kern_runs[1]:.3f}; "
-          f"at B=1 {rec['ms_b1']:.3f}), plain at B=1 {rec['plain_ms']:.3f} ms, "
-          f"scaled_dot_product_attention {rec['library_ms']:.3f} ms (runs "
-          f"{sdpa_runs[0]:.3f}, {sdpa_runs[1]:.3f}); bound {b_ms:.4f} ms by {b_by} "
-          f"({flops:.4e} flops over {pairs} visible pairs per (b, h) at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); "
-          f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s achieved; SDPA's longest device "
-          f"kernel: {library_kernel}; output within {FLASH_TOL[torch.bfloat16][1]} + "
+    print(f"[times] flash_attention_sm90 B={b} S={s} H={h}/{hkv} D={d} W={w} bf16: "
+          f"kernel {ms:.3f} ms (runs {runs['kern'][0]:.3f}, {runs['kern'][1]:.3f}; "
+          f"device {rec['device_us']} us; at B=1 {rec['ms_b1']:.3f}; host time per "
+          f"call {host_ms:.3f} ms), "
+          f"{rec['tflops']:.1f} TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound "
+          f"{b_ms:.4f} ms by {b_by} ({flops:.4e} flops over {pairs} visible pairs per "
+          f"(b, h) at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); the float32 "
+          f"route's kernel on the same bf16 inputs {rec['simt_bf16_ms']:.3f} ms (runs "
+          f"{runs['simt'][0]:.3f}, {runs['simt'][1]:.3f}); plain at B=1 "
+          f"{rec['plain_ms']:.3f} ms; scaled_dot_product_attention "
+          f"{rec['library_ms']:.3f} ms (runs {runs['sdpa'][0]:.3f}, "
+          f"{runs['sdpa'][1]:.3f}; longest device kernel: {rec['library_kernel']}); "
+          f"output within {FLASH_TOL[torch.bfloat16][1]} + "
           f"{FLASH_TOL[torch.bfloat16][0]:.4g} |plain| of the plain version in every "
-          f"batch row, max_abs_err per row "
-          + " ".join(f"{e:.3e}" for e in path_errs))
+          f"batch row, max_abs_err per row " + " ".join(f"{e:.3e}" for e in path_errs))
+    return rec
+
+
+def time_flash_f32() -> dict:
+    """flash_attention's float32 route (flash_attention.cu) at the depth-2
+    float32 prefill's shape (B=1, S=5000, H=32, Hkv=8, D=120, W=4096),
+    beside its bound (float32 operations at 67 TFLOP/s: its inputs are
+    float32), the plain version and scaled_dot_product_attention in
+    float32 on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    cfg = serve_config()
+    b, s, h, hkv, d, w = (1, CHECK_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.sliding_window)
+    q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.float32, 3)
+    mask = ref.attention_mask(pos, pos, causal=True, window=w)
+    pairs = int(mask.sum())
+    flops = 4 * d * pairs * b * h
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, flops, FP32_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fns = {"plain": lambda: ref.flash_attention_ref(q, k, v, pos, pos, causal=True,
+                                                    window=w),
+           "kern": lambda: fa.flash_attention(q, k, v, window=w),
+           "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)}
+    runs = time_turns(fns, dict(plain=3, kern=5, sdpa=3))
+    ms = min(runs["kern"])
+    rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "float32", "ms": ms,
+           "ms_runs": runs["kern"], "plain_ms": min(runs["plain"]),
+           "plain_ms_runs": runs["plain"], "plain_at": f"B={b}",
+           "library_ms": min(runs["sdpa"]), "library_ms_runs": runs["sdpa"],
+           "library": "torch.nn.functional.scaled_dot_product_attention",
+           "library_kernel": library_kernel_name(fns["sdpa"]),
+           "device_us": kernel_device_us(fns["kern"], "flash_attention"),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs}
+    print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} float32: "
+          f"kernel {ms:.3f} ms (runs {runs['kern'][0]:.3f}, {runs['kern'][1]:.3f}; "
+          f"device {rec['device_us']} us), {rec['tflops']:.2f} TFLOP/s, "
+          f"{100 * rec['bound_share']:.1f}% of the bound {b_ms:.4f} ms by {b_by} "
+          f"({flops:.4e} flops at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32; "
+          f"{nbytes} B); plain {rec['plain_ms']:.3f} ms; scaled_dot_product_attention "
+          f"float32 {rec['library_ms']:.3f} ms (longest device kernel: "
+          f"{rec['library_kernel']})")
     return rec
 
 
@@ -1179,6 +1414,8 @@ SOURCES = {
                       "src/repro/kernels/compress_pipeline.py:152"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:87"),
+    "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention.py:87"),
 }
 
 
@@ -1213,9 +1450,6 @@ def main() -> int:
     for k, v in phase_sign_entry(state, before).items():   # zeroed before
         launches[k] += v
     serve, (params, cfg, prompts) = phase_serve(launches)  # zeroed per step
-    print(f"[main path] launches over every main-path run: {launches}")
-    check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
-          f"launched: {launches}")
 
     phase_profile(lambda: alg.run(state, data, 5), 5, "Fed-LT")
     from repro_torch.api import Experiment
@@ -1233,8 +1467,11 @@ def main() -> int:
     profile_serve(params, cfg, prompts)
     del params, prompts
     torch.cuda.empty_cache()
-    serve["f32_rel_l2"] = check_serve_f32()
+    serve["f32_rel_l2"] = check_serve_f32(launches)      # zeroed per prefill
     torch.cuda.empty_cache()
+    print(f"[main path] launches over every main-path run: {launches}")
+    check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
+          f"launched: {launches}")
     times = phase_times(rng)
 
     kernels = []
@@ -1246,13 +1483,11 @@ def main() -> int:
                "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
                "bound_by": main_rec["bound_by"],
                "library_ms": main_rec["library_ms"]}
-        if name == "flash_attention":
-            rec.update({k: main_rec[k] for k in (
-                "shape", "window", "dtype", "ms_b1", "plain_at", "library",
-                "library_kernel", "flops", "bytes")})
-            rec["max_abs_err_f32"] = errors["flash_attention_f32"]
-            rec["max_abs_err_path"] = main_rec["max_abs_err_path"]
-            rec["max_abs_err"] = max(rec["max_abs_err"], rec["max_abs_err_path"])
+        if name.startswith("flash_attention"):
+            rec.update({k: v for k, v in main_rec.items() if k not in rec and not
+                        k.endswith("_runs")})
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     main_rec.get("max_abs_err_path", 0.0))
         else:
             big_rec = times[name][1]
             rec.update(n=main_rec["n"], bits=main_rec["bits"],

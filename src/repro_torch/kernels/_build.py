@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu",
-           "sign_pipeline.cu", "flash_attention.cu")
+           "sign_pipeline.cu", "flash_attention.cu", "flash_attention_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -60,6 +60,10 @@ KERNELS = {
     # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, bf16
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I)),
+    # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
+    # B, H, Hkv, Sq, Sk, D, padded D, causal, window, scale, softcap
+    "flash_attention_sm90": ("flash_attention_sm90.cu", "repro_flash_attention_sm90",
+                             (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

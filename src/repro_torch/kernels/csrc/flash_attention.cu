@@ -15,10 +15,16 @@
 // the (B, S, H, D) views of x @ wq need no transpose.  float32 and bf16
 // inputs; both are taken to float32 on load, as the Pallas kernel upcasts.
 //
-// Design (simple first; rule 2 of the port redesigns it): one block of 256
-// threads per (query tile of 64 rows, b*h).  The block keeps Q^T in shared
-// memory as float32 and walks the key tiles of 64 in increasing order,
-// staging K^T and V in shared memory.  A 16 x 16 thread grid computes the
+// It now serves flash_attention's float32 route only: bf16 goes to
+// csrc/flash_attention_sm90.cu (wgmma has no float32 inputs, and TF32
+// would not hold the float32 check's 2e-5).  Its bf16 instantiation stays
+// for timing beside that kernel: chip_smoke.py calls it through its
+// launcher, flash_attention.py _launch_simt.
+//
+// Design (simple first): one block of 256 threads per (query tile of 64
+// rows, b*h).  The block keeps Q^T in shared memory as float32 and walks
+// the key tiles of 64 in increasing order, staging K^T and V in shared
+// memory.  A 16 x 16 thread grid computes the
 // 64 x 64 scores, 4 x 4 per thread, keeps the running max m and sum l of
 // its 4 rows in registers (reduced over the 16 threads of a row with warp
 // shuffles) and accumulates 4 rows x D/16 columns of the output, all in
@@ -31,19 +37,18 @@
 // Band skipping: a key tile is skipped only when every one of its pairs
 // with the query tile's position range [q_lo, q_hi] is masked (k_pos >
 // q_hi when causal, k_pos <= q_lo - window with a window), decided by the
-// whole block with __syncthreads_or.  For a sliding-window layer this keeps
-// the work at O(S * W).  Query tiles are taken in reverse so the longest
-// causal rows start first.
+// whole block with __syncthreads_or.  For a sliding-window layer this
+// keeps the work at O(S * W).  A row that sees no key at all (its tiles
+// all skipped or masked) gets what the sentinel gives it, the mean of V
+// over the Sk keys, read from global memory in the epilogue.  Query tiles
+// are taken in reverse so the longest causal rows start first.
 //
-// Bound: operations.  At the serving path's shape (danube3 prefill, B = 4,
-// S = 8192, H = 32, Hkv = 8, D = 120, W = 4096, bf16) the visited band holds
-// 25.2 M query-key pairs per (b, h), 4 * D flops each: 1.55 TFLOP per
-// launch, 1.57 ms at the card's 989 TFLOP/s bf16 dense tensor-core rate,
-// against 0.19 ms for the 629 MB of q, k, v and out at 3.35 TB/s.  This
-// kernel runs the products on the float32 pipes from shared memory (one
-// shared load for every two or so fused multiply-adds), so it is bound by
-// shared-memory bandwidth, tens of times above that bound; the wgmma/TMA design that
-// reaches for the tensor-core rate is the next step (ROADMAP Queue 2).
+// Bound: operations, on the float32 pipes (67 TFLOP/s): at the depth-2
+// float32 prefill's shape (B = 1, S = 5000, H = 32, Hkv = 8, D = 120,
+// W = 4096) the band holds 12.1 M visible pairs per (b, h), 4 * D flops
+// each: 1.86e11 flops, 2.77 ms.  This kernel runs the products from
+// shared memory (one shared load for every two or so fused multiply-adds),
+// so it is bound by shared-memory bandwidth, above that bound.
 #include "common.cuh"
 
 #include <climits>
@@ -244,6 +249,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                  // before the next tile overwrites K^T, V
   }
 
+  // -- a row that sees no key: every score is the sentinel, so its softmax
+  //    is uniform over the Sk keys and its output the mean of V ----------
+  bool none[4], any_none = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    none[i] = q_ok[i] && m[i] == NEG_INF;
+    any_none = any_none || none[i];
+  }
+  float mean[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mean[j] = 0.f;
+  if (any_none) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = tx + 16 * j;
+      if (d >= D) continue;
+      float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      int kk = 0;
+      for (; kk + 8 <= Sk; kk += 8) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part[e] += load_f(vb + (kk + e) * vs.s + d);
+      }
+      for (; kk < Sk; ++kk) part[0] += load_f(vb + kk * vs.s + d);
+      mean[j] = ((part[0] + part[1]) + (part[2] + part[3]) +
+                 ((part[4] + part[5]) + (part[6] + part[7]))) / static_cast<float>(Sk);
+    }
+  }
+
   // -- out = acc / max(l, 1e-30), (B, Sq, H, D) contiguous -----------------
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -254,7 +287,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) store_f(orow + d, acc[i][j] / denom);
+      if (d < D) store_f(orow + d, none[i] ? mean[j] : acc[i][j] / denom);
     }
   }
 }

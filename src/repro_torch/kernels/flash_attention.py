@@ -12,24 +12,119 @@ q is (B, Sq, H, D), k and v are (B, Sk, Hkv, D) with H % Hkv == 0, and head
 h reads KV head ``h // (H // Hkv)``.  ``q_pos`` (Sq,) and ``k_pos`` (Sk,)
 default to ``arange``, which gives exactly the Pallas kernel's function.
 The Pallas kernel takes q, k and v to float32 before its products, and so
-do the CUDA kernel and the plain version; the JAX model's chunked backend
+do the CUDA kernels and the plain version; the JAX model's chunked backend
 instead rounds bf16 scores before taking them to float32.
 
-A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor on
-the card goes to the CUDA kernel in ``csrc/flash_attention.cu`` (float32
-or bf16, D ≤ 128), which reads q, k and v through their strides.
+The route is chosen by the tensors' device and dtype (:func:`route`), and
+nothing falls back from one route to another:
+
+* on the CPU, the plain version in :mod:`.ref`;
+* float32 on the card, ``csrc/flash_attention.cu`` (launch name
+  ``flash_attention``), which reads q, k and v through their strides;
+* bf16 on the card, ``csrc/flash_attention_sm90.cu`` (launch name
+  ``flash_attention_sm90``): TMA and ``wgmma``, with P·V in two bf16 terms
+  so that it keeps float32 accuracy.  It reads q, k and v through TMA
+  tensor maps, which need 16-byte aligned bases, strides of whole 16 bytes
+  and D a multiple of 8; an input that breaks this is first copied into a
+  layout that keeps it (:func:`tma_layout`).  Each block decides which
+  key tiles its query tile visits from the tiles' ranges of positions;
+  :func:`tile_plan` is the CPU copy of that rule.  It takes Sk ≤ 2**23.
+
+Both kernels take D ≤ 128.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "route", "tile_plan", "tma_layout"]
 
 MAX_HEAD_DIM = 128
+#: query rows and keys per tile of ``csrc/flash_attention_sm90.cu`` (BQ, BK)
+BLOCK_Q = BLOCK_K = 128
+#: most keys the sm90 kernel takes: its plan, a byte per key tile, is in
+#: shared memory
+MAX_SM90_KEYS = 2**23
+#: :func:`tile_plan`'s entries: no pair visible, some visible, all visible
+SKIP, MASKED, FULL = 0, 1, 2
+
+
+def route(dtype: torch.dtype, device) -> str:
+    """What a call with q, k, v of ``dtype`` on ``device`` runs: ``"plain"``
+    or the launch name of its kernel.  Raises for a dtype no kernel takes."""
+    if torch.device(device).type == "cpu":
+        return "plain"
+    if dtype == torch.float32:
+        return "flash_attention"
+    if dtype == torch.bfloat16:
+        return "flash_attention_sm90"
+    raise TypeError(f"flash_attention takes float32 or bfloat16 on the card, "
+                    f"got {dtype}")
+
+
+def _tile_ranges(pos: torch.Tensor, block: int):
+    """(min, max) of ``pos`` over each tile of ``block`` entries (int64)."""
+    n_tiles = -(-pos.numel() // block)
+    pad = n_tiles * block - pos.numel()
+    p = pos.to(torch.int64)
+    lo = F.pad(p, (0, pad), value=2**62).view(n_tiles, block).amin(1)
+    hi = F.pad(p, (0, pad), value=-2**62).view(n_tiles, block).amax(1)
+    return lo, hi
+
+
+def tile_plan(q_pos, k_pos, *, causal: bool, window=None) -> torch.Tensor:
+    """(ceil(Sq/BLOCK_Q), ceil(Sk/BLOCK_K)) int8: for each query tile and
+    key tile, SKIP when no (query, key) pair of the two can be visible,
+    FULL when every pair is visible and the key tile lies inside Sk, else
+    MASKED.  Decided from the tiles' ranges of positions, not from their
+    indices, so any positions stay right (a ring cache's rotated ones, its
+    empty slots at 2**30); for runs of consecutive positions no tile with a
+    visible pair is MASKED needlessly and none without one is visited.
+
+    The CPU copy of the rule that ``csrc/flash_attention_sm90.cu`` applies
+    in each block (``tile_kind``), held against the dense mask by the
+    tests; no route calls it."""
+    qlo, qhi = _tile_ranges(q_pos, BLOCK_Q)
+    klo, khi = _tile_ranges(k_pos, BLOCK_K)
+    n_kt = klo.numel()
+    inside = torch.arange(1, n_kt + 1, device=k_pos.device) * BLOCK_K <= k_pos.numel()
+    some = torch.ones((qlo.numel(), n_kt), dtype=torch.bool, device=k_pos.device)
+    every = some & inside[None, :]
+    if causal:
+        some &= klo[None, :] <= qhi[:, None]
+        every &= khi[None, :] <= qlo[:, None]
+    if window is not None:
+        some &= khi[None, :] > qlo[:, None] - window
+        every &= klo[None, :] > qhi[:, None] - window
+    return (some.to(torch.int8) + every.to(torch.int8)).contiguous()
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0
+            and all(s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
+def tma_layout(t: torch.Tensor):
+    """(tensor, element strides of (B, S, H)) of a (B, S, H, D) bf16 tensor
+    as the sm90 kernel's TMA reads it: ``t`` itself when its base is
+    16-byte aligned, its strides whole multiples of 16 bytes and D a
+    multiple of 8, else a fresh contiguous copy (zero-padded to such a D).
+    The stride of a dimension of size 1 is never read; it is given as the
+    contiguous one, which TMA takes."""
+    d = t.shape[-1]
+    if d % 8:
+        t = F.pad(t, (0, 8 - d % 8))
+    elif not _tma_ready(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+    b, s, h, dp = t.shape
+    dense = (s * h * dp, h * dp, dp)
+    strides = tuple(st if n > 1 else c for st, n, c in zip(t.stride()[:3], t.shape[:3],
+                                                            dense))
+    return t, strides
 
 
 def _positions(pos, n: int, device) -> torch.Tensor:
@@ -62,10 +157,10 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    name = route(q.dtype, q.device)
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if d > MAX_HEAD_DIM:
@@ -75,10 +170,24 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
+    if name == "flash_attention":
+        _launch_simt(q, k, v, out, q_pos, k_pos, causal, window, softcap)
+        return out
+    if sk > MAX_SM90_KEYS:
+        raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
+    (q, q_st), (k, k_st), (v, v_st) = (tma_layout(t) for t in (q, k, v))
+    _build.launch("flash_attention_sm90", q, k, v, out, q_pos, k_pos,
+                  *q_st, *k_st, *v_st, b, h, hkv, sq, sk, d, q.shape[-1],
+                  int(causal), window or 0, 1.0 / math.sqrt(d),
+                  float(softcap or 0.0))
+    return out
+
+
+def _launch_simt(q, k, v, out, q_pos, k_pos, causal, window, softcap) -> None:
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     _build.launch("flash_attention", q, k, v, out, q_pos, k_pos,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  b, h, hkv, sq, sk, d, int(causal), window or 0,
-                  1.0 / math.sqrt(d), float(softcap or 0.0),
-                  int(q.dtype == torch.bfloat16))
-    return out
+                  q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1],
+                  q.shape[3], int(causal), window or 0, 1.0 / math.sqrt(q.shape[3]),
+                  float(softcap or 0.0), int(q.dtype == torch.bfloat16))
+

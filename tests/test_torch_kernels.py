@@ -19,6 +19,8 @@ within atol 1e-6); the sign words are compared word for word.
 The CUDA kernels cannot run here; the ``cuda``-marked tests hold them
 against the plain versions on a machine with a card.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -404,20 +406,212 @@ def test_cuda_sign_pipeline_matches_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_cuda_flash_attention_matches_plain(dtype, tol):
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 2**-7, 1e-4)])
+def test_cuda_flash_attention_matches_plain(dtype, rtol, atol):
     """The CUDA flash_attention against its plain version on the card, GQA,
-    window, softcap and a query range after its keys: float32 within 2e-5,
-    bf16 within 2e-2."""
+    window, softcap and a query range after its keys: float32 within 2e-5
+    on the float32 route's kernel, bf16 within one output rounding
+    (2**-7·|plain| + 1e-4) on the sm90 kernel; the launch counts show the
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    name = tfa.route(dtype, "cuda")
     for s, d, window, softcap in FLASH_CASES:
         q, k, v = (torch.randn((2, s, h, d), generator=gen, device="cuda").to(dtype)
                    for h in (8, 2, 2))
         qp = torch.arange(s, device="cuda") + 7
+        before = ops.launch_counts()
         out = tfa.flash_attention(q[:, s // 2:], k, v, qp[s // 2:], qp,
                                   window=window, softcap=softcap)
+        after = ops.launch_counts()
+        assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {name: 1}
         plain = ref.flash_attention_ref(q[:, s // 2:], k, v, qp[s // 2:].int(),
                                         qp.int(), window=window, softcap=softcap)
-        torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=rtol, atol=atol)
+
+
+# -- flash_attention's bf16 route (csrc/flash_attention_sm90.cu) -------------
+
+@pytest.mark.parametrize("dtype,device,expect", [
+    (torch.float32, "cpu", "plain"), (torch.bfloat16, "cpu", "plain"),
+    (torch.float32, "cuda", "flash_attention"),
+    (torch.bfloat16, "cuda", "flash_attention_sm90"),
+    (torch.float16, "cuda", TypeError)])
+def test_flash_attention_route(dtype, device, expect):
+    """CPU tensors take the plain version, float32 on the card the SIMT
+    kernel, bf16 the sm90 kernel; each kernel has its own launch count."""
+    if expect is TypeError:
+        with pytest.raises(TypeError):
+            tfa.route(dtype, device)
+        return
+    assert tfa.route(dtype, device) == expect
+    if expect != "plain":
+        assert expect in ops.launch_counts()
+
+
+def _ring_positions(s_max, end, empty, seed):
+    """A ring cache's pos: positions end - s_max .. end - 1 at slot
+    pos % s_max, with ``empty`` random slots at 2**30 (never written)."""
+    pos = np.arange(end - s_max, end)
+    ring = np.empty(s_max, np.int64)
+    ring[pos % s_max] = pos
+    ring[np.random.default_rng(seed).choice(s_max, empty, replace=False)] = 2**30
+    return ring
+
+
+# (name, q_pos, k_pos, causal, window, consecutive positions)
+PLAN_CASES = [
+    ("aligned", np.arange(300), np.arange(300), True, None, True),
+    ("aligned-window", np.arange(1000), np.arange(1000), True, 200, True),
+    ("window-4096", np.arange(8192), np.arange(8192), True, 4096, True),
+    ("offset", np.arange(200, 300) + 100, np.arange(300) + 100, True, 64, True),
+    ("ragged", np.arange(128, 257), np.arange(257), True, 64, True),
+    ("ring", 900 + np.arange(200), _ring_positions(512, 1100, 9, 0), True, 300, False),
+    ("ring-causal", 1000 + np.arange(100), _ring_positions(384, 1100, 5, 1), True, None,
+     False),
+    ("non-causal-window", np.arange(400), np.arange(400), False, 100, True),
+    ("shuffled", np.arange(300), np.random.default_rng(2).permutation(300), True, 50,
+     False),
+    ("keys-ahead", np.arange(385), np.arange(192, 577), True, None, True),
+]
+
+
+@pytest.mark.parametrize("name,q_pos,k_pos,causal,window,consecutive", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_tile_plan_against_the_dense_mask(name, q_pos, k_pos, causal, window,
+                                          consecutive):
+    """No visible pair ever lies in a skipped tile, every pair of a FULL
+    tile is visible and its keys lie inside Sk; for consecutive positions
+    the plan is exact (a tile is visited iff it holds a visible pair)."""
+    qp, kp = torch.from_numpy(q_pos).int(), torch.from_numpy(k_pos).int()
+    plan = tfa.tile_plan(qp, kp, causal=causal, window=window)
+    mask = ref.attention_mask(qp, kp, causal=causal, window=window)
+    bq, bk = tfa.BLOCK_Q, tfa.BLOCK_K
+    assert plan.shape == (-(-len(q_pos) // bq), -(-len(k_pos) // bk))
+    assert plan.dtype == torch.int8
+    for qt in range(plan.shape[0]):
+        for kt in range(plan.shape[1]):
+            block = mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk]
+            kind = int(plan[qt, kt])
+            assert kind in (tfa.SKIP, tfa.MASKED, tfa.FULL)
+            if kind == tfa.SKIP:
+                assert not block.any(), (name, qt, kt)
+            if kind == tfa.FULL:
+                assert block.all() and block.shape[1] == bk, (name, qt, kt)
+            if consecutive:
+                assert (kind != tfa.SKIP) == bool(block.any()), (name, qt, kt)
+                assert (kind == tfa.FULL) == (bool(block.all()) and block.shape[1] == bk)
+    if name == "window-4096":    # the serving shape: 1584 of 4096 tiles, 96 masked
+        assert int((plan != tfa.SKIP).sum()) == 1584
+        assert int((plan == tfa.MASKED).sum()) == 96
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_row_without_keys_is_the_mean_of_v(window):
+    """A row that sees no key has every score at the sentinel, so its
+    softmax is uniform over the Sk keys and its output is the mean of V:
+    the answer both kernels compute for such rows."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 385, 4, 16), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 385, 2, 16), np.float32))
+            for _ in range(2))
+    out = tfa.flash_attention(q, k, v, torch.arange(385), torch.arange(192, 577),
+                              causal=True, window=window)
+    mean = v.mean(dim=1).repeat_interleave(2, dim=1)          # (1, H, D)
+    torch.testing.assert_close(out[:, :192], mean[:, None].expand(1, 192, 4, 16),
+                               rtol=1e-5, atol=1e-6)
+    assert not torch.allclose(out[:, 192:], mean[:, None].expand(1, 193, 4, 16))
+
+
+def test_tma_layout_copies_only_what_tma_cannot_read():
+    """An aligned (B, S, H, D) view is read in place; a base off by one
+    element, or D not a multiple of 8, is copied (D zero-padded); the
+    stride of a size-1 dimension is given as the contiguous one."""
+    base = torch.zeros(2, 300, 4, 120, dtype=torch.bfloat16)
+    view = base[:, 100:]                       # sliced start: still aligned
+    t, st = tfa.tma_layout(view)
+    assert t.data_ptr() == view.data_ptr() and st == view.stride()[:3]
+    flat = torch.zeros(1 + 300 * 4 * 120, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 300, 4, 120)        # base 2 bytes off 16
+    t, st = tfa.tma_layout(odd)
+    assert t.data_ptr() != odd.data_ptr() and t.data_ptr() % 16 == 0
+    assert torch.equal(t, odd) and st == (300 * 4 * 120, 480, 120)
+    x = torch.randn(1, 10, 2, 100).to(torch.bfloat16)
+    t, st = tfa.tma_layout(x)
+    assert t.shape == (1, 10, 2, 104) and st == (10 * 2 * 104, 208, 104)
+    assert torch.equal(t[..., :100], x) and not t[..., 100:].any()
+    wide = torch.zeros(1, 10, 16, 64, dtype=torch.bfloat16)[:, :, 3:4]   # H = 1
+    t, st = tfa.tma_layout(wide)
+    assert t.data_ptr() == wide.data_ptr() and st == (10 * 64, 16 * 64, 64)   # B = 1 too
+
+
+def _emulate_sm90(q, k, v, q_pos, k_pos, *, window, softcap, split: bool):
+    """The sm90 kernel's arithmetic, in torch on the CPU: scores in float32,
+    the online softmax over key tiles of BLOCK_K in increasing order, then
+    P·V against bf16 V with P in bf16 as P_hi + P_lo (``split``) or rounded
+    once, products exact and sums in float32; the output cast to bf16 once.
+    (A skipped tile only ever precedes a row's first visible key, whose
+    rescale by exp(−1e30 − m) = 0 wipes it, so visiting it changes nothing.)"""
+    n_rep = q.shape[2] // k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(n_rep, dim=2)
+    vf = v.float().repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / math.sqrt(q.shape[-1]))
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = s.masked_fill(~ref.attention_mask(q_pos, k_pos, causal=True, window=window),
+                      ref.NEG_INF)
+    b, h, sq, sk = s.shape
+    m = torch.full((b, h, sq, 1), ref.NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, q.shape[-1]))
+    vh = vf.permute(0, 2, 1, 3)                  # (b, h, sk, d)
+    for k0 in range(0, sk, tfa.BLOCK_K):
+        st = s[..., k0:k0 + tfa.BLOCK_K]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vh[:, :, k0:k0 + tfa.BLOCK_K]
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + lo @ vh[:, :, k0:k0 + tfa.BLOCK_K]
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _within_one_rounding(out, plain) -> bool:
+    out, plain = out.float(), plain.float()
+    return bool(((out - plain).abs() <= 1e-4 + 2**-7 * plain.abs()).all())
+
+
+@pytest.mark.parametrize("s,d,h,hkv", [(s, d, h, hkv) for s in (128, 257)
+                                       for d in (64, 120, 128)
+                                       for h, hkv in ((4, 4), (32, 8))])
+def test_split_p_keeps_pv_at_float32_accuracy(s, d, h, hkv):
+    """Over chip_smoke.py's bf16 grid at S <= 257 (window x softcap x
+    offset), the kernel's P·V arithmetic with P = P_hi + P_lo stays within
+    one bf16 rounding of the plain version, 2**-7·|plain| + 1e-4; with P
+    rounded once to bf16 (as FA3 and cuDNN round it) no case does."""
+    rng = np.random.default_rng(s * 1000 + d + h)
+    for window in (None, 64, 4096):
+        for softcap in (None, 30.0):
+            for offset in (False, True):
+                sq = (s + 2) // 3 if offset else s
+                q = torch.from_numpy(rng.standard_normal((2, sq, h, d), np.float32))
+                k, v = (torch.from_numpy(rng.standard_normal((2, s, hkv, d), np.float32))
+                        for _ in range(2))
+                q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+                k_pos = torch.arange(s, dtype=torch.int32) + (100 if offset else 0)
+                q_pos = k_pos[s - sq:]
+                kw = dict(window=window, softcap=softcap)
+                plain = ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=True, **kw)
+                case = (window, softcap, offset)
+                assert _within_one_rounding(
+                    _emulate_sm90(q, k, v, q_pos, k_pos, split=True, **kw), plain), case
+                assert not _within_one_rounding(
+                    _emulate_sm90(q, k, v, q_pos, k_pos, split=False, **kw), plain), case
