@@ -8,8 +8,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/``, then, each phase failing the run:
 
-1. prints the card's name and power limit (``nvidia-smi``) and the
-   compiler's register counts;
+1. prints the card's name and power limit (``nvidia-smi``) and each
+   kernel's registers, stack frame, spills and static shared memory from
+   the ``-Xptxas -v`` build log;
 2. holds every kernel against its plain PyTorch version on the card, word
    for word and bit for bit, at the paths' shapes, at a ragged shape of
    several tiles and at 2**24 values: the quantizers on inputs with exact
@@ -17,17 +18,21 @@ into ``build/``, then, each phase failing the run:
    over p, seeds and segment lengths; quantize_ef against the unpack of
    quant_pipeline; sign_pipeline at 100, 70,001 and 2**24 values with
    exact zeros and -0.0 (words equal, scale rtol 1e-6, new cache atol
-   1e-6); and flash_attention over S in {128, 257, 4353}, D in {64, 120,
-   128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64, 4096},
-   softcap in {None, 30} and aligned or offset positions, in float32
-   (2e-5, on the float32 route's kernel, flash_attention.cu) and bf16 (one
-   bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the sm90 kernel,
-   flash_attention_sm90.cu), each call's route read from the launch
-   counts; plus bf16 cases off the grid: a ring cache's positions
-   (rotated, empty slots at 2**30), a q view with a sliced start and one
-   whose base is off TMA's 16-byte alignment (copied first), head dims
-   100, 32 and 16, 70 keys, a one-token prompt, and two without the causal
-   mask;
+   1e-6); unpack_bits also from a word buffer one word off 16 bytes (its
+   4-byte load path); and flash_attention over S in {128, 257, 4353}, D
+   in {64, 120, 128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64,
+   4096}, softcap in {None, 30} and aligned or offset positions, in
+   float32 (2e-5, on the float32 route's kernel, flash_attention.cu) and
+   bf16 (one bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the
+   sm90 kernel, flash_attention_sm90.cu), each call's route read from the
+   launch counts; plus cases off the grid on both routes: a ring cache's
+   positions (rotated, empty slots at 2**30), a q view with a sliced start
+   and one whose base is off 16 bytes (bf16: copied first for TMA;
+   float32: read with 4-byte copies), head dims 100, 32 and 16 (and 33
+   and 17 in float32), 70 keys, a one-token prompt, two without the causal
+   mask, and in float32 140,000 keys (past the key tiles the kernel plans
+   at a time); the float32 kernel's shared memory for D = 1..128 against
+   its CPU copy;
 3. runs paper Table 1's "quant L=10 ±1 / Algorithm 2 (EF)" arm of Fed-LT at
    paper size (N=100 agents, m=500, d=100, ε=50; N_e=10, γ=0.005, ρ=20;
    fused uplink) for 300 rounds, printing e_K every 50 rounds, and checks
@@ -62,10 +67,10 @@ into ``build/``, then, each phase failing the run:
     serving steps with ``torch.profiler``, and times each kernel with CUDA
     events beside its bound, its plain version and, for the two attention
     kernels, PyTorch's scaled_dot_product_attention, at the path's shape
-    and, for the uplink kernels, at 2**24 values (flash_attention_sm90 at
-    the serving prefill's shape, beside the float32 route's kernel run in
-    bf16 through its launcher for timing only; flash_attention at the
-    depth-2 float32 prefill's); flash_attention_sm90's output at the
+    and, for the uplink kernels, at 2**24 values, each beside its share of
+    the bound (flash_attention_sm90 at the serving prefill's shape;
+    flash_attention at the depth-2 float32 prefill's, and alone at the
+    serving prefill's shape in float32); flash_attention_sm90's output at the
     path's shape is held against its plain version, one batch row at a
     time, and decode's device time is attributed to the ops that launch
     it and their input shapes.
@@ -169,6 +174,49 @@ def int_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # -- phase 1 ---------------------------------------------------------------
 
+#: ptxas's report per kernel entry function, from phase 1's build log
+PTXAS: dict = {}
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled ``..._kernel`` entry function (the
+    integer and bool template arguments), else the mangled name."""
+    for m in re.finditer(r"(?=(\d+))", mangled):     # every digit run's suffixes
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if name.endswith("_kernel") and re.fullmatch(r"[a-z]\w*", name):
+            rest = mangled[end + len(name):]
+            args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2]) \
+                if rest.startswith("I") else []
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_entries(log: str) -> list:
+    """One record per entry function of an ``-Xptxas -v`` log: its kernel
+    name with its template arguments, registers, stack frame, spill stores
+    and loads, and static shared memory (bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": kernel_name(m.group(1)), "registers": None, "stack": 0,
+                   "spill_stores": 0, "spill_loads": 0, "smem_static": 0}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                cur["smem_static"] = int(m[1])
+    return out
+
+
 def phase_build() -> str:
     from repro_torch.kernels import _build
     smi = subprocess.run(
@@ -181,10 +229,32 @@ def phase_build() -> str:
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
     for src, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src}: {line.strip()}")
+        PTXAS[src] = ptxas_entries(log)
+        for e in PTXAS[src]:
+            print(f"[build] {src} {e['entry']}: {e['registers']} registers, "
+                  f"{e['stack']} B stack frame, {e['spill_stores']} B spill stores, "
+                  f"{e['spill_loads']} B spill loads, {e['smem_static']} B static "
+                  "shared memory (ptxas -v)")
+    check_f32_smem()
     return smi
+
+
+def check_f32_smem() -> None:
+    """The float32 attention kernel's dynamic shared memory, as its library
+    reports it for every head dim, against its CPU copy
+    (flash_attention.f32_smem_bytes) and the card's 227 KB per block."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    fn = _build._library("flash_attention.cu").repro_flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    card = {d: fn(d) for d in range(1, fa.MAX_HEAD_DIM + 1)}
+    off = {d: (n, fa.f32_smem_bytes(d)) for d, n in card.items()
+           if n != fa.f32_smem_bytes(d) or n > fa.SMEM_LIMIT}
+    check(not off, f"float32 attention shared memory (kernel, CPU copy) by D: {off}")
+    print(f"[build] flash_attention.cu dynamic shared memory equals f32_smem_bytes "
+          f"for D = 1..{fa.MAX_HEAD_DIM}, at most {max(card.values())} B "
+          f"(<= {fa.SMEM_LIMIT}); {card[120]} B at D = 120")
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -226,11 +296,17 @@ def phase_kernels(rng) -> dict:
             err["pack_bits"] = max(err["pack_bits"], int_err(words, words_p))
             back = unpack_bits(words, bits, n)
             back_p = ref.unpack_bits_ref(words, bits, n)
-            check(same_bits(back, back_p) and same_bits(back, vals),
-                  f"unpack_bits n={n} b={bits} differs from its plain version "
-                  "or does not invert pack_bits")
+            shifted = torch.empty(words.numel() + 1, dtype=torch.uint32, device=DEV)
+            shifted[1:] = words             # a base 4 bytes off 16: scalar loads
+            back_odd = unpack_bits(shifted[1:], bits, n)
+            check(same_bits(back, back_p) and same_bits(back, vals)
+                  and same_bits(back_odd, back_p),
+                  f"unpack_bits n={n} b={bits} differs from its plain version, "
+                  "does not invert pack_bits, or differs when its words are one "
+                  "word off 16 bytes")
             err["unpack_bits"] = max(err["unpack_bits"], int_err(back, back_p))
-        print(f"[kernels] pack_bits/unpack_bits n={n} b={BITS}: {TOL}")
+        print(f"[kernels] pack_bits/unpack_bits n={n} b={BITS} (unpack also from "
+              f"words one word off 16 bytes): {TOL}")
     for n in SIZES:
         for levels, vmin, vmax in QUANT_CONFIGS:
             msg, cache = quant_inputs(n, levels, vmin, vmax, rng)
@@ -422,8 +498,9 @@ def check_flash_attention(err: dict) -> None:
                           f"offset) in {FLASH_WINDOWS}x{FLASH_CAPS}x(no, yes): "
                           + " ".join(f"{e:.1e}" for e in errs)
                           + f" (within {tol[1]} + {tol[0]:.4g} |plain|)")
-    worst["flash_attention_sm90"] = max(worst["flash_attention_sm90"],
-                                        *check_flash_layouts(fa, ref, gen))
+    for dtype in FLASH_TOL:
+        name = fa.route(dtype, DEV)
+        worst[name] = max(worst[name], *check_flash_layouts(fa, ref, gen, dtype))
     for name, e in check_flash_no_key(fa, ref, gen).items():
         worst[name] = max(worst[name], e)
     err.update(worst)
@@ -455,13 +532,15 @@ def check_flash_no_key(fa, ref, gen) -> dict:
     return errs
 
 
-def check_flash_layouts(fa, ref, gen) -> list:
-    """bf16 cases on the sm90 kernel beyond the grid: a ring cache's
-    positions (k_pos a rotated arange with empty slots at 2**30, as
-    cache.pos holds them), a q view with a sliced start, a q view whose
-    base is 2 bytes off 16 (TMA cannot read it: the wrapper copies it
-    first), and odd head dims and lengths."""
-    dtype, errs = torch.bfloat16, []
+def check_flash_layouts(fa, ref, gen, dtype) -> list:
+    """Cases beyond the grid on ``dtype``'s route: a ring cache's positions
+    (k_pos a rotated arange with empty slots at 2**30, as cache.pos holds
+    them), a q view with a sliced start, a q view whose base is off 16
+    bytes (bf16: TMA cannot read it, so the wrapper copies it first;
+    float32: the kernel reads it with 4-byte copies), odd head dims and
+    lengths; in float32 also 140,000 keys, past the 2048 key tiles the
+    kernel plans at a time.  Returns the max_abs_err of each case."""
+    want, errs = fa.route(dtype, DEV), []
     h, hkv, d, s_max = 32, 8, 120, RING_SLOTS
     end = s_max + 904
     pos = torch.arange(end - s_max, end, device=DEV)
@@ -476,9 +555,9 @@ def check_flash_layouts(fa, ref, gen) -> list:
     for window in (None, 4096):
         kw = dict(causal=True, window=window, softcap=None)
         out, took = flash_route_call(fa, q, k, v, qp, ring, **kw)
-        check(took == "flash_attention_sm90", f"ring case ran {took}")
+        check(took == want, f"ring case ran {took}")
         errs.append(flash_check(out, ref.flash_attention_ref(q, k, v, qp, ring, **kw),
-                                f"ring positions window={window}"))
+                                f"{dtype} ring positions window={window}"))
     s = FLASH_S[-1]
     q = torch.randn((1, s, h, d), generator=gen, device=DEV).to(dtype)
     k, v = (torch.randn((1, s, hkv, d), generator=gen, device=DEV).to(dtype)
@@ -487,36 +566,58 @@ def check_flash_layouts(fa, ref, gen) -> list:
     odd = flat[1:].view(q.shape)
     odd.copy_(q)
     kp = torch.arange(s, dtype=torch.int32, device=DEV)
-    copied = []
+    in_place = []
     for what, qv in (("sliced start q[:, s//3:]", q[:, s // 3:]),
                      ("base off 16 bytes", odd[:, s // 3:])):
-        copied.append(fa.tma_layout(qv)[0].data_ptr() != qv.data_ptr())
+        in_place.append(fa.tma_layout(qv)[0].data_ptr() == qv.data_ptr()
+                        if dtype == torch.bfloat16 else fa.vec_ready(qv))
         kw = dict(causal=True, window=4096, softcap=None)
         out, took = flash_route_call(fa, qv, k, v, kp[s // 3:], kp, **kw)
-        check(took == "flash_attention_sm90", f"{what} ran {took}")
+        check(took == want, f"{what} ran {took}")
         errs.append(flash_check(out, ref.flash_attention_ref(qv, k, v, kp[s // 3:], kp,
-                                                              **kw), what))
-    check(copied == [False, True], f"TMA layout copies {copied}: expected the "
-          "sliced view read in place and the misaligned one copied")
-    # head dims off the grid (D = 100 is zero-padded to 104 by a copy; D <
-    # 64 takes one 64-column TMA box past D), one key tile short of full,
-    # a one-token prompt, and no causal mask (with and without a window)
-    for n, d, h, hkv, window, cap, causal in (
-            (300, 100, 4, 2, 50, None, True), (300, 32, 4, 2, 50, None, True),
-            (200, 16, 4, 4, None, 30.0, True), (70, 64, 2, 1, None, None, True),
-            (1, 64, 2, 1, None, None, True), (300, 64, 4, 2, None, None, False),
-            (300, 120, 4, 2, 100, None, False)):
+                                                              **kw), f"{dtype} {what}"))
+    check(in_place == [True, False], f"{dtype}: sliced and misaligned q read in place "
+          f"(bf16: by TMA; float32: in 16-byte copies): {in_place}, expected the "
+          "sliced view only")
+    # head dims off the grid (bf16: D = 100 is zero-padded to 104 by a copy;
+    # D < 64 takes one 64-column TMA box past D; float32: D = 33 and 17 take
+    # 4-byte copies), one key tile short of full, a one-token prompt, and
+    # no causal mask (with and without a window)
+    cases = [(300, 100, 4, 2, 50, None, True), (300, 32, 4, 2, 50, None, True),
+             (200, 16, 4, 4, None, 30.0, True), (70, 64, 2, 1, None, None, True),
+             (1, 64, 2, 1, None, None, True), (300, 64, 4, 2, None, None, False),
+             (300, 120, 4, 2, 100, None, False)]
+    if dtype == torch.float32:
+        cases += [(300, 33, 4, 2, 50, None, True), (200, 17, 4, 4, None, 30.0, True)]
+    for n, d, h, hkv, window, cap, causal in cases:
         q, k, v, qp, kp = flash_case(n, d, h, hkv, False, dtype, gen)
         kw = dict(causal=causal, window=window, softcap=cap)
         out, took = flash_route_call(fa, q, k, v, qp, kp, **kw)
-        check(took == "flash_attention_sm90", f"S={n} D={d} ran {took}")
+        check(took == want, f"S={n} D={d} ran {took}")
         errs.append(flash_check(out, ref.flash_attention_ref(q, k, v, qp, kp, **kw),
-                                f"S={n} D={d} H={h}/{hkv} window={window} softcap={cap} "
-                                f"causal={causal}"))
-    print(f"[kernels] flash_attention_sm90 bf16: ring positions ({s_max} slots, 7 "
+                                f"{dtype} S={n} D={d} H={h}/{hkv} window={window} "
+                                f"softcap={cap} causal={causal}"))
+    long_k = []
+    if dtype == torch.float32:
+        n = 140_000                     # 2188 key tiles of 64: two plan windows
+        k, v = (torch.randn((1, n, 1, 64), generator=gen, device=DEV) for _ in range(2))
+        q = torch.randn((1, 256, 2, 64), generator=gen, device=DEV)
+        kp = torch.arange(n, dtype=torch.int32, device=DEV)
+        for window in (None, 4096):
+            kw = dict(causal=True, window=window, softcap=None)
+            out, took = flash_route_call(fa, q, k, v, kp[-256:], kp, **kw)
+            check(took == want, f"{n} keys ran {took}")
+            long_k.append(flash_check(out, ref.flash_attention_ref(q, k, v, kp[-256:], kp,
+                                                                   **kw),
+                                      f"{n} keys window={window}"))
+        errs += long_k
+    print(f"[kernels] {want} {str(dtype)[6:]}: ring positions ({s_max} slots, 7 "
           f"empty at 2**30, window None/4096), S={s}: q[:, s//3:] read in place, a q "
-          "view 2 bytes off 16 copied first; (S, D) in (300, 100), (300, 32), (200, "
-          "16), (70, 64), (1, 64), and (300, 64), (300, 120) not causal: max_abs_err "
+          "view one element off 16 bytes " + ("copied first" if dtype == torch.bfloat16 else
+                                    "read in 4-byte copies")
+          + "; (S, D) in " + ", ".join(f"({c[0]}, {c[1]})" for c in cases)
+          + " (the last two of the first seven not causal)"
+          + ("; 140,000 keys, window None/4096" if long_k else "") + ": max_abs_err "
           + " ".join(f"{e:.1e}" for e in errs))
     return errs
 
@@ -1269,10 +1370,8 @@ def time_flash_sm90() -> dict:
     beside its bound, the plain version (at B=1: at B=4 its float32 scores
     alone would take 34 GB), PyTorch's scaled_dot_product_attention on the
     same inputs (boolean window mask, enable_gqa; timed only, the port never
-    calls it) and the float32 route's kernel run on the same bf16 inputs
-    through its launcher ``_launch_simt`` (timing only; flash_attention
-    never sends bf16 there).  Each is the least of two runs
-    timed in turns with CUDA events."""
+    calls it).  Each is the least of two runs timed in turns with CUDA
+    events."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1281,20 +1380,15 @@ def time_flash_sm90() -> dict:
                           cfg.head_dim, cfg.sliding_window)
     q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.bfloat16, 2)
     mask = ref.attention_mask(pos, pos, causal=True, window=w)
-    pairs = int(mask.sum())                    # this run's visible pairs
-    flops = 4 * d * pairs * b * h              # q.k and p.v, 2 flops per MAC
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v read, out written
-    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    pairs, flops, nbytes, b_ms, b_by = attention_work(q, k, v, pos, w, BF16_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    simt_out = torch.empty_like(q)
     fns = {"plain": lambda: ref.flash_attention_ref(q[:1], k[:1], v[:1], pos, pos,
                                                     causal=True, window=w),
            "kern1": lambda: fa.flash_attention(q[:1], k[:1], v[:1], window=w),
            "kern": lambda: fa.flash_attention(q, k, v, window=w),
-           "simt": lambda: fa._launch_simt(q, k, v, simt_out, pos, pos, True, w, None),
            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                           enable_gqa=True)}
-    runs = time_turns(fns, dict(plain=2, kern1=10, kern=10, simt=2, sdpa=10))
+    runs = time_turns(fns, dict(plain=2, kern1=10, kern=10, sdpa=10))
     ms = min(runs["kern"])
     host_ms = host_ms_per_call(fns["kern"], 10)
     out = fns["kern"]()                  # the path's shape, held row by row
@@ -1310,7 +1404,6 @@ def time_flash_sm90() -> dict:
            "library_ms_runs": runs["sdpa"],
            "library": "torch.nn.functional.scaled_dot_product_attention",
            "library_kernel": library_kernel_name(fns["sdpa"]),
-           "simt_bf16_ms": min(runs["simt"]), "simt_bf16_ms_runs": runs["simt"],
            "device_us": kernel_device_us(fns["kern"], "flash_attention_sm90"),
            "host_ms": host_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
@@ -1322,9 +1415,7 @@ def time_flash_sm90() -> dict:
           f"call {host_ms:.3f} ms), "
           f"{rec['tflops']:.1f} TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound "
           f"{b_ms:.4f} ms by {b_by} ({flops:.4e} flops over {pairs} visible pairs per "
-          f"(b, h) at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); the float32 "
-          f"route's kernel on the same bf16 inputs {rec['simt_bf16_ms']:.3f} ms (runs "
-          f"{runs['simt'][0]:.3f}, {runs['simt'][1]:.3f}); plain at B=1 "
+          f"(b, h) at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); plain at B=1 "
           f"{rec['plain_ms']:.3f} ms; scaled_dot_product_attention "
           f"{rec['library_ms']:.3f} ms (runs {runs['sdpa'][0]:.3f}, "
           f"{runs['sdpa'][1]:.3f}; longest device kernel: {rec['library_kernel']}); "
@@ -1334,12 +1425,27 @@ def time_flash_sm90() -> dict:
     return rec
 
 
+def attention_work(q, k, v, pos, w, ops_per_s):
+    """(visible pairs per (b, h), flops, bytes, bound ms, bound by) of causal
+    attention of q over k, v with window ``w`` at positions ``pos``: 4 D
+    flops per visible pair (q.k and p.v), q, k, v read once and out
+    written once."""
+    from repro_torch.kernels import ref
+    b, _, h, d = q.shape
+    pairs = int(ref.attention_mask(pos, pos, causal=True, window=w).sum())
+    flops = 4 * d * pairs * b * h
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return (pairs, flops, nbytes) + bound(nbytes, flops, ops_per_s)
+
+
 def time_flash_f32() -> dict:
     """flash_attention's float32 route (flash_attention.cu) at the depth-2
     float32 prefill's shape (B=1, S=5000, H=32, Hkv=8, D=120, W=4096),
     beside its bound (float32 operations at 67 TFLOP/s: its inputs are
     float32), the plain version and scaled_dot_product_attention in
-    float32 on the same inputs."""
+    float32 on the same inputs; then the kernel alone at the serving
+    prefill's shape in float32 (B=4, S=8192): there the plain version and
+    SDPA's float32 path would hold 4 x 32 x 8192**2 float32 scores, 34 GB."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1347,18 +1453,15 @@ def time_flash_f32() -> dict:
     b, s, h, hkv, d, w = (1, CHECK_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                           cfg.sliding_window)
     q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.float32, 3)
+    pairs, flops, nbytes, b_ms, b_by = attention_work(q, k, v, pos, w, FP32_OPS_PER_S)
     mask = ref.attention_mask(pos, pos, causal=True, window=w)
-    pairs = int(mask.sum())
-    flops = 4 * d * pairs * b * h
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(nbytes, flops, FP32_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fns = {"plain": lambda: ref.flash_attention_ref(q, k, v, pos, pos, causal=True,
                                                     window=w),
            "kern": lambda: fa.flash_attention(q, k, v, window=w),
            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                           enable_gqa=True)}
-    runs = time_turns(fns, dict(plain=3, kern=5, sdpa=3))
+    runs = time_turns(fns, dict(plain=3, kern=10, sdpa=3))
     ms = min(runs["kern"])
     rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "float32", "ms": ms,
            "ms_runs": runs["kern"], "plain_ms": min(runs["plain"]),
@@ -1367,16 +1470,42 @@ def time_flash_f32() -> dict:
            "library": "torch.nn.functional.scaled_dot_product_attention",
            "library_kernel": library_kernel_name(fns["sdpa"]),
            "device_us": kernel_device_us(fns["kern"], "flash_attention"),
+           "host_ms": host_ms_per_call(fns["kern"], 10),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs}
+           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs,
+           "smem_bytes": fa.f32_smem_bytes(d)}
     print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} float32: "
           f"kernel {ms:.3f} ms (runs {runs['kern'][0]:.3f}, {runs['kern'][1]:.3f}; "
-          f"device {rec['device_us']} us), {rec['tflops']:.2f} TFLOP/s, "
+          f"device {rec['device_us']} us; host time per call {rec['host_ms']:.3f} ms), "
+          f"{rec['tflops']:.2f} TFLOP/s, "
           f"{100 * rec['bound_share']:.1f}% of the bound {b_ms:.4f} ms by {b_by} "
           f"({flops:.4e} flops at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32; "
           f"{nbytes} B); plain {rec['plain_ms']:.3f} ms; scaled_dot_product_attention "
           f"float32 {rec['library_ms']:.3f} ms (longest device kernel: "
-          f"{rec['library_kernel']})")
+          f"{rec['library_kernel']}); {rec['smem_bytes']} B of shared memory per block")
+    del q, k, v, qt, kt, vt, mask, fns
+    torch.cuda.empty_cache()
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.float32, 4)
+    pairs, flops, nbytes, s_ms, s_by = attention_work(q, k, v, pos, w, FP32_OPS_PER_S)
+    serve_runs = [time_ms(lambda: fa.flash_attention(q, k, v, window=w), iters=3,
+                          warmup=1) for _ in range(2)]
+    out = fa.flash_attention(q[:1, -256:], k[:1], v[:1], pos[-256:], pos, window=w)
+    e = flash_check(out, ref.flash_attention_ref(q[:1, -256:], k[:1], v[:1], pos[-256:],
+                                                  pos, window=w),
+                    f"float32 at the serving shape, the last 256 queries of row 0")
+    rec["serving"] = {"shape": [b, s, h, hkv, d], "ms": min(serve_runs),
+                      "ms_runs": serve_runs, "bound_ms": s_ms, "bound_by": s_by,
+                      "flops": flops, "tflops": flops / min(serve_runs) / 1e9,
+                      "bound_share": s_ms / min(serve_runs), "pairs_per_head": pairs,
+                      "max_abs_err_last_rows": e}
+    print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} float32 (the "
+          f"serving prefill's shape, kernel only): {min(serve_runs):.3f} ms (runs "
+          f"{serve_runs[0]:.3f}, {serve_runs[1]:.3f}), "
+          f"{rec['serving']['tflops']:.2f} TFLOP/s, "
+          f"{100 * rec['serving']['bound_share']:.1f}% of the bound {s_ms:.4f} ms by "
+          f"{s_by} ({flops:.4e} flops); the last 256 queries of row 0 against the plain "
+          f"version: max_abs_err {e:.2e}")
     return rec
 
 
@@ -1391,10 +1520,12 @@ def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
     rec = {"n": n, "bits": bits, "ms": min(ms, ms2), "library_ms": None,
            "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b_ms,
            "bound_by": b_by, "bytes": nbytes, "ops": ops,
+           "bound_share": b_ms / min(ms, ms2),
            "ms_runs": [ms, ms2], "plain_ms_runs": [plain_ms, plain_ms2]}
     print(f"[times] {name:15s} n={n:9d} b={bits}: kernel {rec['ms']:.5f} ms "
           f"(runs {ms:.5f}, {ms2:.5f}), plain {rec['plain_ms']:.5f} ms, "
-          f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops); "
+          f"bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {ops} ops; "
+          f"{100 * rec['bound_share']:.1f}% of it); "
           "library: none, no single PyTorch call computes it")
     return rec
 
@@ -1482,7 +1613,9 @@ def main() -> int:
                "max_abs_err": errors[name], "ms": main_rec["ms"],
                "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
                "bound_by": main_rec["bound_by"],
-               "library_ms": main_rec["library_ms"]}
+               "library_ms": main_rec["library_ms"],
+               "ptxas": [e for e in PTXAS.get(Path(source).name, [])
+                         if e["entry"].split("<")[0] == f"{name}_kernel"]}
         if name.startswith("flash_attention"):
             rec.update({k: v for k, v in main_rec.items() if k not in rec and not
                         k.endswith("_runs")})
@@ -1491,8 +1624,8 @@ def main() -> int:
         else:
             big_rec = times[name][1]
             rec.update(n=main_rec["n"], bits=main_rec["bits"],
-                       at_2p24={k: big_rec[k] for k in ("ms", "plain_ms",
-                                                        "bound_ms", "bound_by")})
+                       at_2p24={k: big_rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "bound_share")})
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

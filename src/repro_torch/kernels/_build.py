@@ -57,7 +57,7 @@ KERNELS = {
     "sign_pipeline": ("sign_pipeline.cu", "repro_sign_pipeline",
                       (_P, _P, _P, _P, _P, _I, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
-    # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, bf16
+    # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, vec (16-byte copies)
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,

@@ -11,7 +11,8 @@
 //   word  j of column c at flat index  (tile * bits + j) * 1024 + c
 //
 // This is the JAX package's layout word for word, tile padding included.
-// The kernels give each thread one column: neighbouring threads take
+// pack_bits and quant_pipeline give each thread one column (unpack_bits
+// takes four, pack_bits.cu): neighbouring threads take
 // neighbouring lanes, so each of the 32 value loads and each of the b word
 // stores of a warp is one coalesced 128-byte access, and the 32 values of
 // a group sit in registers while their planes are built.

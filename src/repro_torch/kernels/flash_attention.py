@@ -20,7 +20,12 @@ nothing falls back from one route to another:
 
 * on the CPU, the plain version in :mod:`.ref`;
 * float32 on the card, ``csrc/flash_attention.cu`` (launch name
-  ``flash_attention``), which reads q, k and v through their strides;
+  ``flash_attention``): float32 FMAs from register micro-tiles, K and V
+  through a two-stage ``cp.async`` ring.  It reads q, k and v through
+  their strides, with 16-byte copies when every base, stride and D allow
+  them (:func:`vec_ready`) and 4-byte copies otherwise, so no input is
+  copied first.  Its geometry is :data:`F32_BLOCK_Q` by :data:`F32_BLOCK_K`
+  tiles and :func:`f32_smem_bytes` of shared memory;
 * bf16 on the card, ``csrc/flash_attention_sm90.cu`` (launch name
   ``flash_attention_sm90``): TMA and ``wgmma``, with P·V in two bf16 terms
   so that it keeps float32 accuracy.  It reads q, k and v through TMA
@@ -28,7 +33,8 @@ nothing falls back from one route to another:
   and D a multiple of 8; an input that breaks this is first copied into a
   layout that keeps it (:func:`tma_layout`).  Each block decides which
   key tiles its query tile visits from the tiles' ranges of positions;
-  :func:`tile_plan` is the CPU copy of that rule.  It takes Sk ≤ 2**23.
+  :func:`tile_plan` is the CPU copy of that rule (both kernels apply it,
+  each at its own tile sizes).  It takes Sk ≤ 2**23.
 
 Both kernels take D ≤ 128.
 """
@@ -41,7 +47,8 @@ import torch.nn.functional as F
 
 from . import _build, ref
 
-__all__ = ["flash_attention", "route", "tile_plan", "tma_layout"]
+__all__ = ["f32_smem_bytes", "flash_attention", "route", "tile_plan", "tma_layout",
+           "vec_ready"]
 
 MAX_HEAD_DIM = 128
 #: query rows and keys per tile of ``csrc/flash_attention_sm90.cu`` (BQ, BK)
@@ -51,6 +58,31 @@ BLOCK_Q = BLOCK_K = 128
 MAX_SM90_KEYS = 2**23
 #: :func:`tile_plan`'s entries: no pair visible, some visible, all visible
 SKIP, MASKED, FULL = 0, 1, 2
+#: ``csrc/flash_attention.cu`` (float32): query rows and keys per tile, K/V
+#: stages in its ring, floats per row of a K stage (and of P^T), key tiles
+#: planned at a time (a byte each)
+F32_BLOCK_Q, F32_BLOCK_K, F32_STAGES, F32_K_STRIDE, F32_PLAN_TILES = 128, 64, 2, 136, 2048
+#: dynamic shared memory one block may take on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+
+
+def f32_smem_bytes(d: int) -> int:
+    """Shared memory of one block of the float32 kernel at head dim ``d``:
+    Q (F32_BLOCK_Q rows of d rounded up to 8 floats), the K ring (rows of
+    F32_K_STRIDE floats), the V ring (rows of 64 or 128 floats) and the
+    plan.  The CPU copy of ``smem_bytes`` in ``csrc/flash_attention.cu``."""
+    v_cols = 64 if d <= 64 else 128
+    floats = (F32_BLOCK_Q * -(-d // 8) * 8 + F32_STAGES * F32_BLOCK_K * F32_K_STRIDE
+              + F32_STAGES * F32_BLOCK_K * v_cols)
+    return 4 * floats + F32_PLAN_TILES
+
+
+def vec_ready(t: torch.Tensor) -> bool:
+    """Whether the float32 kernel can copy the (B, S, H, D) float32 tensor
+    ``t`` in 16-byte pieces: base 16-byte aligned, D and the strides of its
+    dimensions of size > 1 multiples of 4 elements, the last stride 1."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0
+            and all(s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
 
 
 def route(dtype: torch.dtype, device) -> str:
@@ -76,8 +108,9 @@ def _tile_ranges(pos: torch.Tensor, block: int):
     return lo, hi
 
 
-def tile_plan(q_pos, k_pos, *, causal: bool, window=None) -> torch.Tensor:
-    """(ceil(Sq/BLOCK_Q), ceil(Sk/BLOCK_K)) int8: for each query tile and
+def tile_plan(q_pos, k_pos, *, causal: bool, window=None,
+              block_k: int = BLOCK_K) -> torch.Tensor:
+    """(ceil(Sq/BLOCK_Q), ceil(Sk/block_k)) int8: for each query tile and
     key tile, SKIP when no (query, key) pair of the two can be visible,
     FULL when every pair is visible and the key tile lies inside Sk, else
     MASKED.  Decided from the tiles' ranges of positions, not from their
@@ -85,13 +118,15 @@ def tile_plan(q_pos, k_pos, *, causal: bool, window=None) -> torch.Tensor:
     empty slots at 2**30); for runs of consecutive positions no tile with a
     visible pair is MASKED needlessly and none without one is visited.
 
-    The CPU copy of the rule that ``csrc/flash_attention_sm90.cu`` applies
-    in each block (``tile_kind``), held against the dense mask by the
-    tests; no route calls it."""
+    The CPU copy of the rule that both kernels apply in each block
+    (``tile_kind``): ``csrc/flash_attention_sm90.cu`` with key tiles of
+    BLOCK_K, ``csrc/flash_attention.cu`` with F32_BLOCK_K (both take
+    query tiles of 128 rows).  Held against the dense mask by the tests;
+    no route calls it."""
     qlo, qhi = _tile_ranges(q_pos, BLOCK_Q)
-    klo, khi = _tile_ranges(k_pos, BLOCK_K)
+    klo, khi = _tile_ranges(k_pos, block_k)
     n_kt = klo.numel()
-    inside = torch.arange(1, n_kt + 1, device=k_pos.device) * BLOCK_K <= k_pos.numel()
+    inside = torch.arange(1, n_kt + 1, device=k_pos.device) * block_k <= k_pos.numel()
     some = torch.ones((qlo.numel(), n_kt), dtype=torch.bool, device=k_pos.device)
     every = some & inside[None, :]
     if causal:
@@ -171,7 +206,7 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     if sq == 0:
         return out
     if name == "flash_attention":
-        _launch_simt(q, k, v, out, q_pos, k_pos, causal, window, softcap)
+        _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap)
         return out
     if sk > MAX_SM90_KEYS:
         raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
@@ -183,11 +218,10 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     return out
 
 
-def _launch_simt(q, k, v, out, q_pos, k_pos, causal, window, softcap) -> None:
+def _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap) -> None:
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     _build.launch("flash_attention", q, k, v, out, q_pos, k_pos,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1],
                   q.shape[3], int(causal), window or 0, 1.0 / math.sqrt(q.shape[3]),
-                  float(softcap or 0.0), int(q.dtype == torch.bfloat16))
-
+                  float(softcap or 0.0), int(all(vec_ready(t) for t in (q, k, v))))

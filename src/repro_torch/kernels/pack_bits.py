@@ -14,7 +14,13 @@ The word buffer keeps the tile padding (``tiles·b·R·LANES`` words, zero
 past the data); the logical on-wire size is ``ceil(n/32)·b`` words.
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor on
-the card goes to the CUDA kernel in ``csrc/pack_bits.cu``.
+the card goes to the CUDA kernel in ``csrc/pack_bits.cu``.  Its
+``unpack_bits`` runs one block of :data:`UNPACK_THREADS` threads per tile,
+thread t on columns ``UNPACK_COLS·t ..`` of it: one 16-byte load per word
+plane when the word buffer's base is 16-byte aligned (four 4-byte loads
+when it is not, as for a view into a wire payload) and one streaming
+16-byte store per value row, value by value where a group of four
+crosses n.
 """
 from __future__ import annotations
 
@@ -27,6 +33,9 @@ GROUP = 32      # values per packed group (= bits per uint32 word)
 R = 8           # groups stacked per tile (tile rows = 32·R)
 
 _TILE_VALS = GROUP * R * LANES
+#: csrc/pack_bits.cu unpack_bits: threads per block (a block per tile) and
+#: neighbouring columns per thread
+UNPACK_THREADS, UNPACK_COLS = 256, 4
 
 
 def _check_bits(bits: int) -> None:

@@ -440,7 +440,7 @@ def test_cuda_flash_attention_matches_plain(dtype, rtol, atol):
     (torch.bfloat16, "cuda", "flash_attention_sm90"),
     (torch.float16, "cuda", TypeError)])
 def test_flash_attention_route(dtype, device, expect):
-    """CPU tensors take the plain version, float32 on the card the SIMT
+    """CPU tensors take the plain version, float32 on the card the float32
     kernel, bf16 the sm90 kernel; each kernel has its own launch count."""
     if expect is TypeError:
         with pytest.raises(TypeError):
@@ -478,17 +478,11 @@ PLAN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("name,q_pos,k_pos,causal,window,consecutive", PLAN_CASES,
-                         ids=[c[0] for c in PLAN_CASES])
-def test_tile_plan_against_the_dense_mask(name, q_pos, k_pos, causal, window,
-                                          consecutive):
-    """No visible pair ever lies in a skipped tile, every pair of a FULL
-    tile is visible and its keys lie inside Sk; for consecutive positions
-    the plan is exact (a tile is visited iff it holds a visible pair)."""
+def _check_plan(name, q_pos, k_pos, causal, window, consecutive, bk):
     qp, kp = torch.from_numpy(q_pos).int(), torch.from_numpy(k_pos).int()
-    plan = tfa.tile_plan(qp, kp, causal=causal, window=window)
+    plan = tfa.tile_plan(qp, kp, causal=causal, window=window, block_k=bk)
     mask = ref.attention_mask(qp, kp, causal=causal, window=window)
-    bq, bk = tfa.BLOCK_Q, tfa.BLOCK_K
+    bq = tfa.BLOCK_Q
     assert plan.shape == (-(-len(q_pos) // bq), -(-len(k_pos) // bk))
     assert plan.dtype == torch.int8
     for qt in range(plan.shape[0]):
@@ -503,9 +497,34 @@ def test_tile_plan_against_the_dense_mask(name, q_pos, k_pos, causal, window,
             if consecutive:
                 assert (kind != tfa.SKIP) == bool(block.any()), (name, qt, kt)
                 assert (kind == tfa.FULL) == (bool(block.all()) and block.shape[1] == bk)
+    return plan
+
+
+@pytest.mark.parametrize("name,q_pos,k_pos,causal,window,consecutive", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_tile_plan_against_the_dense_mask(name, q_pos, k_pos, causal, window,
+                                          consecutive):
+    """No visible pair ever lies in a skipped tile, every pair of a FULL
+    tile is visible and its keys lie inside Sk; for consecutive positions
+    the plan is exact (a tile is visited iff it holds a visible pair)."""
+    plan = _check_plan(name, q_pos, k_pos, causal, window, consecutive, tfa.BLOCK_K)
     if name == "window-4096":    # the serving shape: 1584 of 4096 tiles, 96 masked
         assert int((plan != tfa.SKIP).sum()) == 1584
         assert int((plan == tfa.MASKED).sum()) == 96
+
+
+@pytest.mark.parametrize("name,q_pos,k_pos,causal,window,consecutive", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_f32_tile_plan_against_the_dense_mask(name, q_pos, k_pos, causal, window,
+                                              consecutive):
+    """The same rule at the float32 kernel's tiles (128 query rows, 64
+    keys), which csrc/flash_attention.cu applies in each block."""
+    plan = _check_plan(name, q_pos, k_pos, causal, window, consecutive,
+                       tfa.F32_BLOCK_K)
+    assert tfa.F32_BLOCK_Q == tfa.BLOCK_Q
+    if name == "window-4096":    # the serving shape: 3168 of 8192 tiles, 192 masked
+        assert int((plan != tfa.SKIP).sum()) == 3168
+        assert int((plan == tfa.MASKED).sum()) == 192
 
 
 @pytest.mark.parametrize("window", [None, 64])
@@ -615,3 +634,129 @@ def test_split_p_keeps_pv_at_float32_accuracy(s, d, h, hkv):
                     _emulate_sm90(q, k, v, q_pos, k_pos, split=True, **kw), plain), case
                 assert not _within_one_rounding(
                     _emulate_sm90(q, k, v, q_pos, k_pos, split=False, **kw), plain), case
+
+
+# -- flash_attention's float32 route (csrc/flash_attention.cu) ---------------
+
+def test_f32_geometry_fits_shared_memory_at_every_head_dim():
+    """The float32 kernel's Q tile, two-stage K/V ring and plan fit the
+    227 KB a block may use at every D <= 128; K and P^T rows are padded to
+    8 mod 32 floats and hold D columns and the 128 query rows."""
+    sizes = {d: tfa.f32_smem_bytes(d) for d in range(1, tfa.MAX_HEAD_DIM + 1)}
+    assert max(sizes.values()) == sizes[tfa.MAX_HEAD_DIM] <= tfa.SMEM_LIMIT == 232_448
+    assert tfa.F32_K_STRIDE % 32 == 8
+    assert tfa.F32_K_STRIDE >= max(tfa.F32_BLOCK_Q, tfa.MAX_HEAD_DIM)
+    kv = 4 * tfa.F32_STAGES * tfa.F32_BLOCK_K * (tfa.F32_K_STRIDE + 128)
+    assert sizes[120] == 4 * 128 * 120 + kv + tfa.F32_PLAN_TILES == 198_656
+    assert sizes[64] == 4 * 128 * 64 + kv - 4 * 2 * 64 * 64 + tfa.F32_PLAN_TILES
+    assert all(sizes[d] == sizes[-(-d // 8) * 8] for d in sizes)    # D rounds up to 8
+
+
+def test_vec_ready_decides_the_float32_copy_width():
+    """16-byte copies need a 16-byte aligned base, D a multiple of 4 and
+    the strides of dimensions of size > 1 multiples of 4; anything else is
+    read with 4-byte copies, never copied on the host."""
+    base = torch.zeros(2, 300, 4, 120)
+    assert tfa.vec_ready(base) and tfa.vec_ready(base[:, 100:])
+    flat = torch.zeros(1 + base.numel())
+    assert not tfa.vec_ready(flat[1:].view(base.shape))              # base 4 bytes off
+    assert not tfa.vec_ready(torch.zeros(1, 10, 2, 33))               # D = 33
+    wide = torch.zeros(1, 10, 82)[:, :, :80].unflatten(-1, (2, 40))   # S stride 82
+    assert not tfa.vec_ready(wide)
+    ones = torch.empty_strided((1, 10, 1, 40), (3, 40, 5, 1))         # B = H = 1
+    assert tfa.vec_ready(ones)
+
+
+# -- unpack_bits (csrc/pack_bits.cu) -----------------------------------------
+
+UNPACK_MODEL_N = [1, 31, 32, 10_000, 32_768, 32_769, 70_001]
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 32])
+@pytest.mark.parametrize("n", UNPACK_MODEL_N)
+def test_unpack_thread_map_writes_each_value_once(n, bits):
+    """A numpy model of unpack_bits_kernel's map: block = tile, thread t =
+    columns 4t .. 4t + 3, and row i of them = values (tile·32 + i)·1024 +
+    4t .. + 3.  Every index < n is written exactly once and none >= n; a
+    group of four inside n is one 16-byte store (aligned, as vals comes
+    from torch.empty), the one group that crosses n is stored value by
+    value; each word plane is one 16-byte load exactly when the word
+    buffer's base is 16-byte aligned.  The values the model reads are the
+    plain version's."""
+    T, C, cols = tpb.UNPACK_THREADS, tpb.UNPACK_COLS, tpb.R * tpb.LANES
+    assert T * C == cols                         # a block covers a tile's columns
+    tiles = tpb.n_tiles(n)
+    tile, thread, row = np.meshgrid(np.arange(tiles), np.arange(T), np.arange(tpb.GROUP),
+                                    indexing="ij")
+    first = (tile * tpb.GROUP + row) * cols + C * thread      # a group's first value
+    vec = first + C <= n
+    cross = (first < n) & ~vec
+    assert int(vec.sum()) == n // C and int(cross.sum()) == int(n % C > 0)
+    assert (first[vec] % C == 0).all()
+    stored = np.concatenate([(first[vec][:, None] + np.arange(C)).ravel(),
+                             [i for f in first[cross] for i in range(f, n)]])
+    assert stored.max() < n
+    np.testing.assert_array_equal(np.bincount(stored.astype(np.int64), minlength=n),
+                                  np.ones(n, np.int64))
+    # loads: plane j of a thread's columns at word (tile·bits + j)·1024 + 4t
+    words = ref.pack_bits_ref(torch.from_numpy(_values(n, bits, seed=n + bits)), bits)
+    w = _np(words).reshape(tiles, bits, cols).astype(np.uint64)
+    lanes = (C * np.arange(T))[:, None] + np.arange(C)               # (T, C)
+    planes = w[:, :, lanes]                                          # (tiles, bits, T, C)
+    i = np.arange(tpb.GROUP, dtype=np.uint64)
+    j = np.arange(bits, dtype=np.uint64)
+    vals = (((planes[:, None] >> i[None, :, None, None, None]) & np.uint64(1))
+            << j[None, None, :, None, None]).sum(axis=2)             # (tiles, 32, T, C)
+    model = vals.reshape(-1)[:n].astype(np.uint32)
+    np.testing.assert_array_equal(model, _np(ref.unpack_bits_ref(words, bits, n)))
+    load = ((np.arange(tiles)[:, None, None] * bits + np.arange(bits)[None, :, None])
+            * cols + C * np.arange(T))                               # first word of a load
+    assert (load % C == 0).all() and load.max() + C <= words.numel()
+    # so a load is one 16-byte vector exactly when the buffer's base is
+    # 16-byte aligned, the rule repro_unpack_bits applies to its pointer:
+    # one word offset in four of a buffer gives 16-byte loads
+    buf = torch.zeros(words.numel() + 3, dtype=torch.int32)
+    assert sum(buf[off:].data_ptr() % 16 == 0 for off in range(4)) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_unpack_bits_matches_plain_aligned_or_not():
+    """unpack_bits on the card against its plain version at the model's n
+    and b, from an aligned word buffer and from one a word off 16 bytes
+    (its 4-byte load path): bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    for n in UNPACK_MODEL_N:
+        for bits in (1, 4, 8, 13, 32):
+            vals = torch.from_numpy(_values(n, bits, seed=bits)).cuda()
+            words = tpb.pack_bits(vals, bits)
+            buf = torch.empty(words.numel() + 1, dtype=torch.uint32, device="cuda")
+            buf[1:] = words
+            for w in (words, buf[1:]):
+                assert torch.equal(tpb.unpack_bits(w, bits, n).view(torch.int32),
+                                   vals.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_layouts_match_plain():
+    """The float32 kernel on what its 4-byte copies and plan windows take:
+    a q view one element off 16 bytes, odd head dims, and 140,000 keys
+    (past the 2048 key tiles planned at a time), within 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [(1, 600, 4, 2, 120, True, 256), (2, 300, 4, 2, 33, False, 50),
+             (2, 200, 4, 4, 17, False, None), (1, 140_000, 2, 1, 64, False, 4096)]
+    for b, s, h, hkv, d, odd, window in cases:
+        q = torch.randn((b, min(s, 256), h, d), generator=gen, device="cuda")
+        if odd:
+            flat = torch.empty(1 + q.numel(), device="cuda")
+            q = flat[1:].view(q.shape).copy_(q)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        kp = torch.arange(s, device="cuda", dtype=torch.int32)
+        qp = kp[-q.shape[1]:]
+        assert tfa.vec_ready(q) == (not odd and d % 4 == 0)
+        out = tfa.flash_attention(q, k, v, qp, kp, window=window)
+        plain = ref.flash_attention_ref(q, k, v, qp, kp, window=window)
+        torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
