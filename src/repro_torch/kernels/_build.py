@@ -53,9 +53,10 @@ KERNELS = {
     # words, masked, keep, n, segment_words, seed_lo, seed_hi, threshold
     "erasure_mask": ("erasure_mask.cu", "repro_erasure_mask",
                      (_P, _P, _P, _I, _U, _U, _U, _U)),
-    # msg, cache, scale, words, new_cache, n, tiles
+    # msg, cache, words, new_cache, scale (out), partials (float64 scratch),
+    # n, tiles; one cooperative launch
     "sign_pipeline": ("sign_pipeline.cu", "repro_sign_pipeline",
-                      (_P, _P, _P, _P, _P, _I, _I)),
+                      (_P, _P, _P, _P, _P, _P, _I, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
     # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, vec (16-byte copies)
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",

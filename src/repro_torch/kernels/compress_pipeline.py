@@ -16,13 +16,18 @@ data pack as index 0 (the JAX kernel pads msg with vmin and cache with 0).
 ``sign_pipeline``: the 1-bit scaled sign (ScaledSign, sign(0) := +1),
 
     corrected = msg + cache
-    scale     = mean |corrected|      (a torch reduction before the launch)
+    scale     = mean |corrected|      (reduced inside the same launch)
     words     = pack(corrected >= 0)  at b = 1
     new_cache = corrected − (±scale)
 
 with slots past the data packed as bit 0 (the JAX kernel pads msg with −1
-and cache with 0).  No path of the JAX package calls it: its entry point
-is ``ops.sign_pipeline``, and the port's is the same.
+and cache with 0).  On the card it is one cooperative launch: a pass that
+sums |corrected| into one float64 partial per chunk of
+:data:`SIGN_CHUNK_VALUES` values, a grid-wide sync, the scale from all
+partials in one fixed order (so it does not depend on the grid), and a
+pass that writes words and new cache.  The wrapper runs no torch op on the
+device; it only allocates.  No path of the JAX package calls it: its entry
+point is ``ops.sign_pipeline``, and the port's is the same.
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor on
 the card goes to the CUDA kernel in ``csrc/quant_pipeline.cu`` or
@@ -34,12 +39,18 @@ import torch
 
 from ..core.compression import quant_constants, wire_index_bits
 from . import _build, ref
-from .pack_bits import LANES, R, _TILE_VALS, check_cuda_size, n_tiles
+from .pack_bits import GROUP, LANES, R, _TILE_VALS, check_cuda_size, n_tiles
 
 __all__ = ["quant_pipeline", "sign_pipeline", "pipeline_tile_values"]
 
 #: values per kernel tile (same tile as pack_bits: (32·R, 128) = 32768)
 pipeline_tile_values = _TILE_VALS
+#: csrc/sign_pipeline.cu: threads per block, neighbouring columns per
+#: thread (a quad), and quads per chunk (one per lane of a warp); a chunk
+#: of 32 rows of 128 columns is the unit of one float64 partial of the scale
+SIGN_THREADS, SIGN_COLS, SIGN_CHUNK_QUADS = 256, 4, 32
+SIGN_CHUNK_VALUES = GROUP * SIGN_COLS * SIGN_CHUNK_QUADS
+SIGN_CHUNKS_PER_TILE = _TILE_VALS // SIGN_CHUNK_VALUES
 
 
 def _check_pair(name: str, msg, cache) -> None:
@@ -83,6 +94,8 @@ def sign_pipeline(msg, cache):
 
     ``words`` is a flat uint32 tensor of ``tiles·R·LANES`` words, ``scale``
     a float32 scalar tensor, ``new_cache`` in the shape and dtype of msg.
+    On the card all three come from one launch; msg and cache may be views
+    of any alignment (one off 16 bytes is read with 4-byte loads).
     """
     if msg.device.type == "cpu":
         return ref.sign_pipeline_ref(msg, cache)
@@ -94,8 +107,11 @@ def sign_pipeline(msg, cache):
                          "is a mean)")
     check_cuda_size(n)
     tiles = n_tiles(n)
-    scale = (msg + cache).abs_().mean()
     words = torch.empty(tiles * R * LANES, dtype=torch.uint32, device=msg.device)
     new_cache = torch.empty_like(msg)
-    _build.launch("sign_pipeline", msg, cache, scale, words, new_cache, n, tiles)
+    scale = torch.empty((), dtype=torch.float32, device=msg.device)
+    partials = torch.empty(tiles * SIGN_CHUNKS_PER_TILE, dtype=torch.float64,
+                           device=msg.device)
+    _build.launch("sign_pipeline", msg, cache, words, new_cache, scale, partials,
+                  n, tiles)
     return words, scale, new_cache

@@ -394,15 +394,33 @@ def test_cpu_dispatch_of_the_new_kernels_counts_no_launch():
 @pytest.mark.cuda
 def test_cuda_sign_pipeline_matches_plain():
     """The CUDA sign_pipeline against its plain version on the card: words
-    and new caches bit for bit (one scale reduction on the card for both)."""
+    word for word, the scale (reduced inside the launch, the plain version
+    reduces with torch) within rtol 1e-6 and bit for bit the numpy model's
+    fixed-order sum, the new cache within atol 1e-6 and bit for bit
+    msg + cache ∓ the model's scale; at 100, 70,001, 1 and
+    32,769 values, on a msg and cache view off 16 bytes (the 4-byte load
+    path), and two calls bit for bit the same."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
-    for n in (100, 70_001):
-        msg, cache = (torch.from_numpy(a).cuda() for a in sign_inputs(n, n))
+    for n, offset in ((100, 0), (70_001, 0), (1, 0), (32_769, 0), (70_001, 1)):
+        m_np, c_np = sign_inputs(n, n)
+        msg, cache = (torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), a]))
+                      .cuda()[offset:] for a in (m_np, c_np))
+        assert (msg.data_ptr() % 16 == 0) == (offset == 0)
         w, s, c = tcp.sign_pipeline(msg, cache)
         w_r, s_r, c_r = ref.sign_pipeline_ref(msg, cache)
         assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
-        assert torch.equal(s, s_r) and torch.equal(c.view(torch.int32), c_r.view(torch.int32))
+        assert abs(float(s) - float(s_r)) <= 1e-6 * abs(float(s_r))
+        s_model = _sign_model_scale(m_np, c_np)
+        assert np.float32(s.item()).tobytes() == s_model.tobytes()
+        assert float((c - c_r).abs().max()) <= 1e-6
+        cor = np.add(m_np, c_np, dtype=np.float32)
+        want = cor - np.where(cor >= 0, s_model, -s_model).astype(np.float32)
+        np.testing.assert_array_equal(c.cpu().numpy().view(np.int32), want.view(np.int32))
+        w2, s2, c2 = tcp.sign_pipeline(msg, cache)
+        assert torch.equal(w2.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(s2.view(torch.int32), s.view(torch.int32))
+        assert torch.equal(c2.view(torch.int32), c.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -760,3 +778,186 @@ def test_cuda_flash_attention_f32_layouts_match_plain():
         out = tfa.flash_attention(q, k, v, qp, kp, window=window)
         plain = ref.flash_attention_ref(q, k, v, qp, kp, window=window)
         torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
+
+
+# -- sign_pipeline's work split (csrc/sign_pipeline.cu) ------------------------
+
+SIGN_MODEL_N = [1, 31, 100, 32_769, 70_001]
+SIGN_MODEL_GRIDS = [1, 2, 3, 7, 264]
+SIGN_BATCH = 8          # rows a thread has in flight (BATCH in the kernel)
+
+
+def _sign_index(n):
+    """Value index of (chunk, lane, row, column of the quad): chunk c is
+    quads 32·(c % 8) .. of tile c // 8, lane l its quad, thread columns
+    4·quad .. + 3."""
+    chunks = tpb.n_tiles(n) * tcp.SIGN_CHUNKS_PER_TILE
+    cols = tpb.R * tpb.LANES
+    c = np.arange(chunks)[:, None, None, None]
+    lane = np.arange(tcp.SIGN_CHUNK_QUADS)[None, :, None, None]
+    row = np.arange(tpb.GROUP)[None, None, :, None]
+    e = np.arange(tcp.SIGN_COLS)[None, None, None, :]
+    quad = (c % tcp.SIGN_CHUNKS_PER_TILE) * tcp.SIGN_CHUNK_QUADS + lane
+    return ((c // tcp.SIGN_CHUNKS_PER_TILE) * tpb.GROUP + row) * cols + tcp.SIGN_COLS * quad + e
+
+
+def _sign_batches(c, n):
+    """chunk_batches: batches of rows of chunk c that hold values."""
+    cols = tpb.R * tpb.LANES
+    first = ((c // tcp.SIGN_CHUNKS_PER_TILE) * tpb.GROUP * cols
+             + (c % tcp.SIGN_CHUNKS_PER_TILE) * tcp.SIGN_CHUNK_QUADS * tcp.SIGN_COLS)
+    rows = min(max(-(-(n - first) // cols), 0), tpb.GROUP)
+    return -(-rows // SIGN_BATCH)
+
+
+def _sign_runs(chunks, grid):
+    """Each warp's run of chunks [lo, hi): warp gw of W = 8·grid."""
+    warps = grid * tcp.SIGN_THREADS // 32
+    gw = np.arange(warps)
+    return gw * chunks // warps, (gw + 1) * chunks // warps
+
+
+def _butterfly(v):
+    """warp_sum: the xor butterfly over the last axis (32 lanes), lane 0's
+    value; float64 adds in the kernel's order."""
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ off]
+    return v[..., 0]
+
+
+def _sign_partials(msg, cache, chunks_of=None):
+    """Pass 1's float64 partial per chunk: lane sums in row-then-column
+    order, then the butterfly.  ``chunks_of`` restricts it to those chunks
+    (the others stay NaN, as unwritten scratch)."""
+    n = msg.size
+    idx = _sign_index(n)
+    a = np.abs(np.add(msg, cache, dtype=np.float32))
+    vals = np.where(idx < n, a[np.minimum(idx, n - 1)], np.float32(0)).astype(np.float64)
+    acc = np.zeros(vals.shape[:2])
+    for r in range(tpb.GROUP):
+        for e in range(tcp.SIGN_COLS):
+            acc = acc + vals[:, :, r, e]
+    partials = _butterfly(acc)
+    if chunks_of is not None:
+        keep = np.zeros(partials.size, bool)
+        keep[list(chunks_of)] = True
+        partials = np.where(keep, partials, np.nan)
+    return partials
+
+
+def _sign_total(partials):
+    """The scale's float64 sum: thread t adds partials t, t + 256, ...; the
+    butterfly in each warp; then warps 0..7 in order."""
+    t = np.zeros(tcp.SIGN_THREADS)
+    for k0 in range(0, partials.size, tcp.SIGN_THREADS):
+        part = partials[k0:k0 + tcp.SIGN_THREADS]
+        t[:part.size] = t[:part.size] + part
+    total = 0.0
+    for w in _butterfly(t.reshape(-1, 32)):
+        total = total + w
+    return total
+
+
+def _sign_model_scale(msg, cache):
+    """The kernel's scale, float32(total / n), from the model."""
+    return np.float32(_sign_total(_sign_partials(msg, cache)) / np.float64(msg.size))
+
+
+@pytest.mark.parametrize("grid", SIGN_MODEL_GRIDS)
+@pytest.mark.parametrize("n", SIGN_MODEL_N)
+def test_sign_work_split_reads_twice_and_writes_once(n, grid):
+    """A numpy model of sign_pipeline_kernel's split: warp gw owns chunks
+    [gw·C/W, (gw+1)·C/W), so a block owns a contiguous run of tile columns;
+    pass 1 walks a warp's chunks and rows forward, pass 2 the same rows in
+    reverse.  Every value < n is read once in each pass and its new cache
+    written once, none >= n; every word of the tile padding is written once
+    (a 16-byte store of four columns); the words and new cache the model
+    makes from its scale equal the plain version's."""
+    chunks = tpb.n_tiles(n) * tcp.SIGN_CHUNKS_PER_TILE
+    lo, hi = _sign_runs(chunks, grid)
+    np.testing.assert_array_equal(np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)]),
+                                  np.arange(chunks))
+    idx = _sign_index(n)
+    pass1, pass2 = [], []
+    for a, b in zip(lo, hi):
+        seq = [(c, r) for c in range(a, b) for r in range(SIGN_BATCH * _sign_batches(c, n))]
+        pass1 += seq
+        back = [(c, i0 + u) for c in range(b - 1, a - 1, -1)
+                for i0 in range(SIGN_BATCH * (_sign_batches(c, n) - 1), -1, -SIGN_BATCH)
+                for u in range(SIGN_BATCH - 1, -1, -1)]
+        assert back == seq[::-1]
+        pass2 += back
+    for seq in (pass1, pass2):
+        c, r = np.array(seq, np.int64).reshape(-1, 2).T
+        touched = idx[c, :, r].ravel()
+        np.testing.assert_array_equal(np.bincount(touched[touched < n], minlength=n),
+                                      np.ones(n, np.int64))
+    # words: chunk c, lane l writes words tile·1024 + 4·quad .. + 3
+    words_at = (idx[:, :, 0, :] // (tpb.GROUP * tpb.R * tpb.LANES) * tpb.R * tpb.LANES
+                + idx[:, :, 0, :] % (tpb.R * tpb.LANES))
+    assert (words_at[:, :, 0] % tcp.SIGN_COLS == 0).all()
+    np.testing.assert_array_equal(np.bincount(words_at.ravel()),
+                                  np.ones(chunks * 32 * tcp.SIGN_COLS, np.int64))
+    # what the model writes
+    msg, cache = sign_inputs(n, n)
+    scale = _sign_model_scale(msg, cache)
+    cor = np.add(msg, cache, dtype=np.float32)
+    bit = (cor >= 0).astype(np.uint32)
+    padded = np.zeros(idx.max() + 1, np.uint32)
+    padded[:n] = bit
+    vals = padded[idx]                                   # (chunk, lane, row, col)
+    words = np.zeros(chunks * 32 * tcp.SIGN_COLS, np.uint32)
+    words[words_at] = (vals << np.arange(tpb.GROUP, dtype=np.uint32)[None, None, :, None]
+                       ).sum(axis=2, dtype=np.uint32)
+    newc = cor - np.where(bit == 1, scale, -scale).astype(np.float32)
+    w_r, s_r, c_r = ref.sign_pipeline_ref(torch.from_numpy(msg), torch.from_numpy(cache))
+    np.testing.assert_array_equal(words, _np(w_r))
+    np.testing.assert_allclose(float(scale), float(s_r), rtol=1e-6)
+    np.testing.assert_allclose(newc, _np(c_r), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", SIGN_MODEL_N)
+def test_sign_scale_sum_is_the_same_whatever_the_grid(n):
+    """The partials are one per chunk, whichever warp wrote them, and every
+    block adds all of them in one fixed order: for every grid the model's
+    scale has the same bits, and it agrees with the plain version and with
+    the JAX package's jnp mean within rtol 1e-6."""
+    msg, cache = sign_inputs(n, n + 1)
+    chunks = tpb.n_tiles(n) * tcp.SIGN_CHUNKS_PER_TILE
+    scales = set()
+    for grid in SIGN_MODEL_GRIDS:
+        lo, hi = _sign_runs(chunks, grid)
+        partials = np.full(chunks, np.nan)
+        for a, b in zip(lo, hi):                  # each warp writes its own chunks
+            if b > a:
+                got = _sign_partials(msg, cache, range(a, b))
+                partials[a:b] = got[a:b]
+        assert not np.isnan(partials).any()
+        scales.add(np.float32(_sign_total(partials) / np.float64(n)).tobytes())
+    assert len(scales) == 1
+    scale = np.frombuffer(scales.pop(), np.float32)[0]
+    _, s_r, _ = ref.sign_pipeline_ref(torch.from_numpy(msg), torch.from_numpy(cache))
+    _, s_j, _ = jcp.sign_pipeline(jnp.asarray(msg), jnp.asarray(cache), interpret=True)
+    np.testing.assert_allclose(float(scale), float(s_r), rtol=1e-6)
+    np.testing.assert_allclose(float(scale), float(s_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n", SIGN_MODEL_N)
+def test_chip_smoke_sign_model_scale_is_the_split_models(n):
+    """chip_smoke.py holds the card's scale bit for bit to its own numpy
+    model of the kernel's sum (the card has no JAX, so it cannot import
+    this file): that model gives the same bits as the work-split model
+    above, on arrays and on a 2-d view such as the Fed-LT uplink's."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    msg, cache = sign_inputs(n, n + 2)
+    want = _sign_model_scale(msg, cache).tobytes()
+    assert smoke.sign_model_scale(torch.from_numpy(msg), torch.from_numpy(cache)).tobytes() == want
+    if n == 100:
+        m2, c2 = (torch.from_numpy(a).reshape(10, 10) for a in (msg, cache))
+        assert smoke.sign_model_scale(m2, c2).tobytes() == want
