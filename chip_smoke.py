@@ -14,7 +14,9 @@ into ``build/``, then, each phase failing the run:
 2. holds every kernel against its plain PyTorch version on the card, word
    for word and bit for bit, at the paths' shapes, at a ragged shape of
    several tiles and at 2**24 values: the quantizers on inputs with exact
-   half-level boundaries, out-of-range values and -0.0, the erasure mask
+   half-level boundaries, out-of-range values and -0.0, pack_bits and
+   unpack_bits at b in {1, 4, 7, 8, 13, 17, 24, 32} (7, 17 and 24: the
+   sparse codec's index widths at 100, 70,001 and 2**24 values), the erasure mask
    over p, seeds and segment lengths; quantize_ef against the unpack of
    quant_pipeline; sign_pipeline at 100, 70,001, 2**24, 1 and 32,769
    values with exact zeros and -0.0, and on msg and cache views off 16
@@ -68,7 +70,8 @@ into ``build/``, then, each phase failing the run:
    flash_attention launches per prefill: the float32 route) and the plain
    attention (backend "xla", none), whose logits must agree within
    relative L2 error 1e-4;
-10. profiles a few rounds of phases 3 and 5 and the serving steps with
+10. profiles a few rounds of phases 3 and 5 (and of the example's
+    FedAvg(space) arm, phase 13) and the serving steps with
     ``torch.profiler``, and times each kernel with CUDA events beside its
     bound, its plain version and, for the two attention kernels, PyTorch's
     scaled_dot_product_attention, at the path's shape and, for the uplink
@@ -80,10 +83,30 @@ into ``build/``, then, each phase failing the run:
     prefill's, and alone at the serving prefill's shape in float32); flash_attention_sm90's output at the
     path's shape is held against its plain version, one batch row at a
     time, and decode's device time is attributed to the ops that launch
-    it and their input shapes.
+    it and their input shapes;
+11. holds the sign and sparse wire codecs on the card at 100, 70,001 and
+    2**24 values, on ScaledSign, TopK(0.1) and RandD(0.2) outputs and on
+    all-zero leaves (k = 0: no launch): words equal the plain version's and
+    the CPU encode's word for word, and the decode gives C(x) back bit for
+    bit;
+12. runs paper Table 2 at the paper's size (``repro_torch.bench.
+    table2_space_comparison``: N=100, m=500, d=100, ε=50 on Walker(100, 10)
+    with k_direct=4, n_relay=2): all five algorithms under all four
+    compressors through ``Experiment``, one Monte-Carlo run of
+    TABLE2_ROUNDS rounds each (cut from the paper's 400 for time), checking
+    that e_K is finite in every cell, falls in every cell but LED's, and
+    in LED's rises by no more than TABLE2_LED_RISE, that the quant_coarse cells'
+    first 10 rounds equal the CPU's (x and the received wires, rtol 1e-5,
+    atol 1e-6), that the rand_0.2 cells' bytes_up equal the CPU's, and that
+    a rand_0.2 FedAvg cell with ``measure="cohort"`` launches pack_bits once
+    per landed update; prints the e_K table;
+13. runs the constellation example's FedAvg(space) arm through
+    ``repro_torch.examples.satellite_constellation`` and prints its
+    ``obs.render_rounds`` table.
 
-The launch counts are zeroed just before each main-path run (phases 3–4,
-each run of phase 5, each chain run of phase 7, phase 8, and the timed
+Phases 11–13 run after phase 8.  The launch counts are zeroed just before
+each main-path run (phases 3–4, each run of phase 5, each chain run of
+phase 7, phase 8, each cell of phase 12 and phase 13, and the timed
 prefill, the decode steps and the depth-2 float32 prefills of phase 9)
 and read just after.  Then it
 prints the card's name and power limit again, one JSON line with a
@@ -116,13 +139,12 @@ MAIN_N = 100 * 100            # the fused uplink: (N, d) = (100, 100)
 AGENT_N = 100                 # one agent's uplink, d = 100
 BIG_N = 2**24
 SIZES = (MAIN_N, 70_001, BIG_N)
-BITS = (1, 4, 8, 13, 32)
+BITS = (1, 4, 7, 8, 13, 17, 24, 32)   # 7, 17, 24: the sparse codec's index widths
 QUANT_CONFIGS = ((10, -1.0, 1.0), (10, -10.0, 10.0), (255, -1.0, 1.0),
                  (255, -10.0, 10.0), (1023, -1.0, 1.0), (1023, -10.0, 10.0))
 ROUND_CHUNKS = (1, 49, 50, 50, 50, 50, 49, 1)     # 300 rounds, e_K at 1, 50, …
 TOL = "exact: words equal word for word, new caches equal bit for bit"
-# the constellation example (examples/satellite_constellation.py)
-SAT = dict(n_agents=100, m=200, dim=100)
+# the constellation example's rounds (its sizes: examples.satellite_constellation)
 SAT_ROUNDS = 120
 # bench.sim_scale's path shapes: one satellite's update, and the words of
 # one cohort or satellite at 8 bits (one tile)
@@ -149,6 +171,16 @@ SIGN_OFFSET_N = 70_001        # sign_pipeline on views 4 bytes off 16-byte align
 SERVE_ARCH = "h2o-danube-3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8192, 32
 CHECK_PROMPT, CHECK_STEPS, CHECK_REL_L2 = 5000, 4, 1e-4
+# the sign and sparse wire codecs (phase 11)
+CODEC_SIZES = (100, 70_001, BIG_N)
+# paper Table 2 at the paper's size (phase 12): rounds cut from its 400 to
+# keep the phase near a minute; N, m and d are the paper's
+TABLE2_ROUNDS = 60
+TABLE2_CHECK_ROUNDS = 10
+# LED's e_K stays near its start (γ=0.01 in benchmarks/common.py): in the
+# JAX package it ends its 400 rounds at 23.85–23.99 from 24.006 at x = 0.
+# Its cells are held to a last e_K at most 1% above the first, not a falling one
+TABLE2_LED_RISE = 1.01
 
 
 class SmokeFailure(RuntimeError):
@@ -173,6 +205,15 @@ def same_wire(a: torch.Tensor, b: torch.Tensor) -> bool:
     from repro_torch.kernels.ref import as_int64
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         as_int64(a), as_int64(b))
+
+
+def launched(fn):
+    """``fn()`` and the kernel launches it made: (result, {name: n})."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 def int_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -523,11 +564,7 @@ def flash_check(out, plain, what: str) -> float:
 
 def flash_route_call(fa, q, k, v, qp, kp, **kw):
     """flash_attention(...) with the launch it made: (out, kernel name)."""
-    from repro_torch.kernels import ops
-    before = ops.launch_counts()
-    out = fa.flash_attention(q, k, v, qp, kp, **kw)
-    after = ops.launch_counts()
-    made = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    out, made = launched(lambda: fa.flash_attention(q, k, v, qp, kp, **kw))
     check(len(made) == 1 and list(made.values()) == [1],
           f"flash_attention {q.dtype} made launches {made}, expected one")
     return out, next(iter(made), None)
@@ -844,6 +881,216 @@ def phase_sign_entry(state, before) -> dict:
     return counts
 
 
+# -- phase 11: the sign and sparse wire codecs ---------------------------------
+
+def check_codec_leaf(codec, x, plain_words, what: str) -> None:
+    """``codec`` on ``x`` on the card: one pack_bits launch (none for an
+    empty sparse payload), words equal ``plain_words`` and the CPU's
+    encode of the same values word for word, the byte counts equal the
+    CPU's, and the decode (one unpack_bits launch, none for k = 0) gives
+    ``x`` back bit for bit."""
+    leaf, made = launched(lambda: codec.encode_leaf(x))
+    k = leaf.meta.get("k", x.numel())
+    check(made == ({"pack_bits": 1} if k else {}), f"{what}: encode launched {made}")
+    check(same_bits(leaf.payload["words"], plain_words), f"{what}: words differ "
+          "from the plain version")
+    cpu = codec.encode_leaf(x.cpu())
+    check(same_bits(leaf.payload["words"].cpu(), cpu.payload["words"])
+          and (leaf.meta, leaf.header_nbytes, leaf.payload_nbytes)
+          == (cpu.meta, cpu.header_nbytes, cpu.payload_nbytes),
+          f"{what}: the card's encode differs from the CPU's")
+    back, made = launched(lambda: codec.decode_leaf(leaf))
+    check(made == ({"unpack_bits": 1} if k else {}), f"{what}: decode launched {made}")
+    want = -x if (codec.kind == "sign" and not bool(x.any())) else x
+    check(same_bits(back, want), f"{what}: decode does not give C(x) back bit for bit")
+
+
+def phase_codecs(rng) -> None:
+    """SignCodec and SparseCodec on the card at 100, 70,001 and 2**24 values,
+    on ScaledSign, TopK(0.1) and RandD(0.2) outputs and on all-zero leaves."""
+    from repro_torch.core.compression import RandD, ScaledSign, TopK
+    from repro_torch.kernels import ref
+    from repro_torch.wire.codecs import SignCodec, SparseCodec, index_bits
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    for n in CODEC_SIZES:
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(DEV)
+        zeros = torch.zeros(n, device=DEV)
+        for comp, codec in ((ScaledSign(), SignCodec()), (TopK(0.1), SparseCodec(0.1)),
+                            (RandD(0.2), SparseCodec(0.2))):
+            for what, cx in ((type(comp).__name__, comp(gen, x)), ("zero leaf", zeros)):
+                if codec.kind == "sign":
+                    plain = ref.pack_bits_ref((cx > 0).to(torch.int32), 1)
+                else:
+                    plain = ref.pack_bits_ref(torch.nonzero(cx).reshape(-1), index_bits(n))
+                check_codec_leaf(codec, cx, plain, f"{codec.kind} codec n={n} {what}")
+        k = SparseCodec(0.2).encode_leaf(RandD(0.2)(gen, x)).meta["k"]
+        check(k == round(0.2 * n), f"RandD(0.2) kept {k} of {n} values")
+        print(f"[codecs] n={n}: SignCodec on ScaledSign, SparseCodec on TopK(0.1) and "
+              f"RandD(0.2) outputs (indices at {index_bits(n)} bits, RandD keeps "
+              f"{k}) and on all-zero leaves (k = 0: one tile of zero words, no "
+              "launch): words == plain version and == the CPU's encode, word for "
+              "word; decode == C(x) bit for bit (the zero leaf's sign decode -0.0)")
+
+
+# -- phase 12: paper Table 2 at the paper's size -------------------------------
+
+def phase_table2(launches: dict) -> dict:
+    """All five algorithms under all four compressors through Experiment on
+    Walker(100, 10) with k_direct=4, n_relay=2, at N=100, m=500, d=100, one
+    Monte-Carlo run of TABLE2_ROUNDS rounds each."""
+    from repro_torch.bench import table2_space_comparison as t2
+    from repro_torch.bench.common import COMPRESSORS, problem
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    engine = t2.make_engine(1.0)
+    prob = problem(seed=0, scale=1.0, device=DEV)
+    cpu_prob = (tree_map(lambda t: t.cpu(), prob[0]),) + prob[1:2] + (prob[2].cpu(), prob[3])
+    torch.cuda.synchronize()
+    print(f"[table2] set-up (data, x̄ by Newton) {time.perf_counter() - t0:.2f} s; "
+          f"{TABLE2_ROUNDS} of the paper's 400 rounds per cell (cut for time; N, m, "
+          "d are the paper's)")
+    cells = {}
+    for comp_name, C in COMPRESSORS.items():
+        for algo in t2.ALGOS:
+            what = f"{comp_name} {t2.LABEL[algo]}"
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            res = t2.run_cell(engine, C, algo, prob, TABLE2_ROUNDS, 200, device=DEV)
+            e_first, e_last = res.logs[0].error, res.logs[-1].error
+            wall = time.perf_counter() - t1
+            counts = ops.launch_counts()
+            for key, v in counts.items():
+                launches[key] += v
+            # one probe encode for the message size; the baselines and Table
+            # 2's Fed-LT run the batched uplink chain, as in the JAX package
+            expect = dict.fromkeys(SOURCES, 0)
+            expect["pack_bits"] = 1
+            check(counts == expect, f"{what}: launches {counts}, expected {expect}")
+            check(math.isfinite(e_first) and math.isfinite(e_last),
+                  f"{what}: e_K not finite")
+            if algo == "led":
+                check(e_last <= TABLE2_LED_RISE * e_first, f"{what}: e_K rose more "
+                      f"than {TABLE2_LED_RISE - 1:.0%}: {e_first} -> {e_last}")
+            else:
+                check(e_last < e_first, f"{what}: e_K did not fall: {e_first} -> "
+                      f"{e_last}")
+            cells[(comp_name, algo)] = dict(e_first=e_first, e_last=e_last,
+                                            ms_per_round=1e3 * wall / TABLE2_ROUNDS,
+                                            bytes_up=res.logs[-1].bytes_up, res=res)
+            print(f"[table2] {what}: e_K {e_first:.4e} -> {e_last:.4e}, "
+                  f"{1e3 * wall / TABLE2_ROUNDS:.3f} ms per round (host clock, ending "
+                  f"in the e_K read), bytes_up {res.logs[-1].bytes_up:.0f}")
+    check_table2_against_cpu(engine, prob, cpu_prob, cells)
+    check_table2_cohort(engine, prob, cpu_prob, launches)
+    print("[table2] e_K after " + f"{TABLE2_ROUNDS} rounds (rows: algorithm; "
+          "columns: " + ", ".join(COMPRESSORS) + ")")
+    for algo in t2.ALGOS:
+        print(f"[table2]   {t2.LABEL[algo]:24s} " + " ".join(
+            f"{cells[(c, algo)]['e_last']:12.4e}" for c in COMPRESSORS))
+    table = {k: (v["e_last"], 0.0) for k, v in cells.items()}
+    print(f"[table2] fedltsat_wins={t2.wins(table)}/{len(COMPRESSORS)} at "
+          f"{TABLE2_ROUNDS} rounds")
+    return {f"{c}|{a}": {k: v for k, v in rec.items() if k != "res"}
+            for (c, a), rec in cells.items()}
+
+
+def check_table2_against_cpu(engine, prob, cpu_prob, cells) -> None:
+    """quant_coarse: the first TABLE2_CHECK_ROUNDS rounds of every algorithm
+    on the card and on the CPU from the same data, x and the received wires
+    within rtol 1e-5, atol 1e-6.  rand_0.2: bytes_up after as many rounds
+    equal to the CPU run's (RandD keeps exactly round(0.2·n) values, so the
+    bytes do not depend on its draws, which differ between the devices)."""
+    from repro_torch.bench import table2_space_comparison as t2
+    from repro_torch.bench.common import COMPRESSORS
+    r = TABLE2_CHECK_ROUNDS
+    for algo in t2.ALGOS:
+        card = t2.run_cell(engine, COMPRESSORS["quant_coarse"], algo, prob, r, 200,
+                           device=DEV).state
+        cpu = t2.run_cell(engine, COMPRESSORS["quant_coarse"], algo, cpu_prob, r, 200,
+                          device="cpu").state
+        wire = "z_hat" if hasattr(card, "z_hat") else "m_hat"
+        for f in ("x", wire):
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            # matmul summation order differs between CPU and card
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                  f"quant_coarse {algo}: {f} after {r} rounds on the card vs the CPU: "
+                  f"max diff {float((a - b).abs().max())}")
+        cpu_rand = t2.run_cell(engine, COMPRESSORS["rand_0.2"], algo, cpu_prob, r, 200,
+                               device="cpu")
+        got = cells[("rand_0.2", algo)]["res"].logs[r - 1].bytes_up
+        check(got == cpu_rand.logs[-1].bytes_up, f"rand_0.2 {algo}: bytes_up after {r} "
+              f"rounds {got} on the card vs {cpu_rand.logs[-1].bytes_up} on the CPU")
+    print(f"[table2] quant_coarse, every algorithm, first {r} rounds: x and the "
+          "received wires on the card == the CPU run's within rtol 1e-5, atol 1e-6; "
+          f"rand_0.2: bytes_up after {r} rounds == the CPU run's")
+
+
+def check_table2_cohort(engine, prob, cpu_prob, launches) -> None:
+    """FedAvg under rand_0.2 with measure="cohort": every landed update is
+    encoded by SparseCodec, one pack_bits launch each (and one for the
+    probe); bytes_up equals the CPU run's over the first
+    TABLE2_CHECK_ROUNDS rounds."""
+    from repro_torch.bench import table2_space_comparison as t2
+    from repro_torch.bench.common import COMPRESSORS
+    from repro_torch.kernels import ops
+    C = COMPRESSORS["rand_0.2"]
+    ops.reset_launch_counts()
+    res = t2.run_cell(engine, C, "fedavg", prob, TABLE2_ROUNDS, 200, device=DEV,
+                      measure="cohort")
+    counts = ops.launch_counts()
+    for key, v in counts.items():
+        launches[key] += v
+    landed = sum(lg.n_active for lg in res.logs)      # a lossless channel
+    expect = dict.fromkeys(SOURCES, 0)
+    expect["pack_bits"] = 1 + landed
+    check(counts == expect, f"rand_0.2 FedAvg cohort: launches {counts}, expected "
+          f"{expect} (one per landed update and the probe)")
+    r = TABLE2_CHECK_ROUNDS
+    cpu = t2.run_cell(engine, C, "fedavg", cpu_prob, r, 200, device="cpu",
+                      measure="cohort")
+    check(res.logs[r - 1].bytes_up == cpu.logs[-1].bytes_up,
+          f"rand_0.2 FedAvg cohort: bytes_up after {r} rounds {res.logs[r - 1].bytes_up}"
+          f" on the card vs {cpu.logs[-1].bytes_up} on the CPU")
+    check(res.logs[-1].error < res.logs[0].error, "rand_0.2 FedAvg cohort: e_K did "
+          "not fall")
+    print(f"[table2] rand_0.2 FedAvg, measure=\"cohort\": {TABLE2_ROUNDS} rounds, "
+          f"{landed} landed updates each encoded by SparseCodec ({counts['pack_bits']} "
+          f"pack_bits launches with the probe's), bytes_up {res.logs[-1].bytes_up:.0f}; "
+          f"after {r} rounds == the CPU run's; e_K {res.logs[0].error:.4e} -> "
+          f"{res.logs[-1].error:.4e}")
+
+
+# -- phase 13: the constellation example's FedAvg(space) arm ---------------------
+
+def phase_example_fedavg(launches: dict) -> None:
+    """``repro_torch.examples.satellite_constellation``'s FedAvg(space) run:
+    walker-kiruna, cohort bytes, the coarse quantizer with EF, 120 rounds,
+    traced; prints its obs.render_rounds table."""
+    from repro_torch.examples import satellite_constellation as ex
+    from repro_torch.kernels import ops
+    data, x_star, quant, algs = ex.setup(DEV)
+    name, alg_name, scenario, seed, kw = next(r for r in ex.RUNS if r[0] == "FedAvg(space)")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, path, table = ex.traced_run(name, algs[alg_name], scenario, seed, kw, data,
+                                     x_star, quant, SAT_ROUNDS, DEV)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for key, v in counts.items():
+        launches[key] += v
+    expect = dict.fromkeys(SOURCES, 0)
+    expect["pack_bits"] = 1                 # the probe; quant bytes are analytic
+    check(counts == expect, f"example {name}: launches {counts}, expected {expect}")
+    errs = [lg.error for lg in res.logs if lg.error is not None]
+    check(len(res.logs) == SAT_ROUNDS and all(math.isfinite(e) for e in errs)
+          and errs[-1] < errs[0], f"example {name}: e_K {errs}")
+    print(f"[example] {name} on {scenario}: {SAT_ROUNDS} rounds in {wall:.2f} s "
+          f"({1e3 * wall / SAT_ROUNDS:.3f} ms per round wall), trace {path}; "
+          f"launches {counts}")
+    print(table)
+
+
 # -- phase 9: serving h2o-danube-3-4b -----------------------------------------
 
 def serve_config(**changes):
@@ -987,17 +1234,9 @@ def check_serve_f32(launches: dict) -> float:
 
 def constellation_setup(device):
     """The constellation example's problem and Fed-LTSat algorithm."""
-    from repro_torch.core.compression import UniformQuantizer
-    from repro_torch.core.error_feedback import EFChannel
-    from repro_torch.core.fedlt import FedLT
-    from repro_torch.data.logistic import generate, make_local_loss, solve_global
-    data, _ = generate(0, **SAT, device=device)
-    xbar = solve_global(data, eps=50.0)
-    quant = UniformQuantizer(levels=10, vmin=-1.0, vmax=1.0, clip=True)
-    alg = FedLT(loss=make_local_loss(eps=50.0, n_agents=SAT["n_agents"]),
-                n_epochs=10, gamma=0.005, rho=20.0, uplink=EFChannel(quant),
-                downlink=EFChannel(quant), fused_uplink=True)
-    return data, xbar, quant, alg
+    from repro_torch.examples import satellite_constellation as ex
+    data, xbar, quant, algs = ex.setup(device)
+    return data, xbar, quant, algs["Fed-LTSat"]
 
 
 def run_experiment(scenario, alg, quant, data, xbar, rounds, seed, *,
@@ -1006,10 +1245,11 @@ def run_experiment(scenario, alg, quant, data, xbar, rounds, seed, *,
     ``kw`` when not given) from the algorithm's initial state."""
     from repro_torch.api import Experiment
     from repro_torch.core.fedlt import optimality_error
+    from repro_torch.examples import satellite_constellation as ex
     if exp is None:
         exp = Experiment.from_scenario(scenario, algorithm=alg, compressor=quant,
                                        device=device or DEV, **kw)
-    st = exp.init(torch.zeros(SAT["dim"]), SAT["n_agents"])
+    st = exp.init(torch.zeros(ex.DIM), ex.N_AGENTS)
     return exp.run(st, data, rounds, seed, log_every=log_every, trace=trace,
                    error_fn=lambda s: optimality_error(s.x, xbar))
 
@@ -1099,7 +1339,8 @@ def check_constellation_against_cpu(res_card, data, xbar, quant, alg,
 # -- phase 6: the canonical convergence scenarios ----------------------------
 
 def phase_canonical() -> dict:
-    from repro_torch.obs.report import CANONICAL, extract_series, run_canonical
+    from repro_torch.obs.report import CANONICAL, run_canonical
+    from repro_torch.obs.summary import extract_series
     reference = json.loads((ROOT / "CONV_reference.json").read_text())
     out = {}
     for name in CANONICAL:
@@ -1132,8 +1373,8 @@ def check_canonical_against_cpu(name: str, e_card) -> None:
     """The card's e_K curve against the port on the CPU, on the card's draw
     (the same problem ``run_canonical`` draws on the card, copied over)."""
     from repro_torch.data.logistic import generate, solve_global
-    from repro_torch.obs.report import CANONICAL, CANONICAL_SEED, extract_series
-    from repro_torch.obs.report import run_canonical
+    from repro_torch.obs.report import CANONICAL, CANONICAL_SEED, run_canonical
+    from repro_torch.obs.summary import extract_series
     cfg = CANONICAL[name]
     data, _ = generate(CANONICAL_SEED, n_agents=cfg["n_agents"], m=cfg["m"],
                        dim=cfg["dim"], device=DEV)
@@ -1682,18 +1923,24 @@ def main() -> int:
     _, lossy_chains = phase_transport(launches)   # counts zeroed per chain run
     for k, v in phase_sign_entry(state, before).items():   # zeroed before
         launches[k] += v
+    phase_codecs(rng)                    # kernel checks, not a main path
+    table2 = phase_table2(launches)      # counts zeroed before each cell
+    phase_example_fedavg(launches)       # zeroed before the run
     serve, (params, cfg, prompts) = phase_serve(launches)  # zeroed per step
 
     phase_profile(lambda: alg.run(state, data, 5), 5, "Fed-LT")
     from repro_torch.api import Experiment
-    c_data, c_xbar, c_quant, c_alg = constellation_setup(DEV)
-    c_exp = Experiment.from_scenario("walker-kiruna", algorithm=c_alg,
-                                     compressor=c_quant, measure="cohort",
-                                     device=DEV)
-    run_experiment(None, c_alg, c_quant, c_data, c_xbar, 5, 2, exp=c_exp)  # plan
-    phase_profile(lambda: run_experiment(None, c_alg, c_quant, c_data, c_xbar,
-                                         5, 2, exp=c_exp),
-                  5, "Fed-LTSat walker-kiruna")
+    from repro_torch.examples import satellite_constellation as ex
+    c_data, c_xbar, c_quant, c_algs = ex.setup(DEV)
+    for name in ("Fed-LTSat", "FedAvg(space)"):     # the example's two arms
+        c_alg = c_algs[name]
+        c_exp = Experiment.from_scenario("walker-kiruna", algorithm=c_alg,
+                                         compressor=c_quant, measure="cohort",
+                                         device=DEV)
+        run_experiment(None, c_alg, c_quant, c_data, c_xbar, 5, 2, exp=c_exp)  # plan
+        phase_profile(lambda: run_experiment(None, c_alg, c_quant, c_data, c_xbar,
+                                             5, 2, exp=c_exp),
+                      5, f"{name} walker-kiruna")
     phase_profile(lossy_chains, 3, "mega-1000-lossy chains, fused + unfused")
     profile_serve(params, cfg, prompts)
     del params, prompts
@@ -1729,6 +1976,7 @@ def main() -> int:
                            or k.startswith("bound_ms_two_pass")})
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
+    print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)                          # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))

@@ -111,29 +111,39 @@ class FedLT:
         participation 1.0; below 1.0 masks are Bernoulli draws from ``gen``
         with agent 0 always active (the paper assumes p_i > 0).
         """
-        x_leaf = tree_leaves(state.x)[0]
-        n_agents, dev = x_leaf.shape[0], x_leaf.device
-        if active is None:
-            if participation < 1.0:
-                if gen is None:
-                    raise ValueError("partial participation draws its masks "
-                                     "from a torch.Generator; pass gen")
-                active = torch.rand((n_rounds, n_agents), generator=gen,
-                                    device=dev) < participation
-                active[:, 0] = True
-            else:
-                active = torch.ones((n_rounds, n_agents), dtype=torch.bool,
-                                    device=dev)
+        state, infos = run_rounds(self.round, state, data, n_rounds, gen,
+                                  participation, active)
+        return state, {"n_active": torch.stack([i["n_active"] for i in infos])}
+
+
+def run_rounds(round_fn, state, data, n_rounds: int,
+               gen: Optional[torch.Generator], participation: float, active):
+    """``n_rounds`` calls of ``round_fn(state, data, mask, gen)`` under
+    the per-round masks :meth:`FedLT.run` describes; returns the final
+    state and the rounds' info dicts."""
+    x_leaf = tree_leaves(state.x)[0]
+    n_agents, dev = x_leaf.shape[0], x_leaf.device
+    if active is None:
+        if participation < 1.0:
+            if gen is None:
+                raise ValueError("partial participation draws its masks "
+                                 "from a torch.Generator; pass gen")
+            active = torch.rand((n_rounds, n_agents), generator=gen,
+                                device=dev) < participation
+            active[:, 0] = True
         else:
-            active = torch.as_tensor(active, dtype=torch.bool, device=dev)
-            if tuple(active.shape) != (n_rounds, n_agents):
-                raise ValueError(f"active masks have shape {tuple(active.shape)}, "
-                                 f"expected ({n_rounds}, {n_agents})")
-        n_active = []
-        for r in range(n_rounds):
-            state, info = self.round(state, data, active[r], gen)
-            n_active.append(info["n_active"])
-        return state, {"n_active": torch.stack(n_active)}
+            active = torch.ones((n_rounds, n_agents), dtype=torch.bool,
+                                device=dev)
+    else:
+        active = torch.as_tensor(active, dtype=torch.bool, device=dev)
+        if tuple(active.shape) != (n_rounds, n_agents):
+            raise ValueError(f"active masks have shape {tuple(active.shape)}, "
+                             f"expected ({n_rounds}, {n_agents})")
+    infos = []
+    for r in range(n_rounds):
+        state, info = round_fn(state, data, active[r], gen)
+        infos.append(info)
+    return state, infos
 
 
 def optimality_error(x_agents, x_star):

@@ -65,7 +65,8 @@ def pack_bits(x, bits: int):
 
     Returns a flat uint32 tensor of ``tiles·bits·R·LANES`` words, the
     tile padding packed as zero values; ``logical_words(x.numel(), bits)``
-    is what the wire carries.
+    is what the wire carries.  No value (an empty sparse payload) gives
+    one tile of zero words, as in the JAX package, with no launch.
     """
     _check_bits(bits)
     if x.device.type == "cpu":
@@ -79,6 +80,9 @@ def pack_bits(x, bits: int):
     n = flat.numel()
     check_cuda_size(n)
     tiles = n_tiles(n)
+    if n == 0:
+        return torch.zeros(tiles * bits * R * LANES, dtype=torch.uint32,
+                           device=x.device)
     words = torch.empty(tiles * bits * R * LANES, dtype=torch.uint32,
                         device=x.device)
     _build.launch("pack_bits", flat, words, n, bits, tiles)
@@ -86,7 +90,8 @@ def pack_bits(x, bits: int):
 
 
 def unpack_bits(words, bits: int, n: int):
-    """Inverse of :func:`pack_bits`: the first ``n`` values, flat uint32."""
+    """Inverse of :func:`pack_bits`: the first ``n`` values, flat uint32
+    (no launch for ``n = 0``)."""
     _check_bits(bits)
     tiles = words.numel() // (bits * R * LANES)
     if tiles * bits * R * LANES != words.numel():
@@ -102,5 +107,7 @@ def unpack_bits(words, bits: int, n: int):
     check_cuda_size(words.numel())
     words = words.reshape(-1).contiguous()
     vals = torch.empty(n, dtype=torch.uint32, device=words.device)
+    if n == 0:
+        return vals
     _build.launch("unpack_bits", words, vals, n, bits, tiles)
     return vals

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+from .summary import extract_series
+
 DEFAULT_TOL = 0.25        # e_K may degrade by at most 25% at any round
 DEFAULT_TOL_BYTES = 0.01  # byte accounting is deterministic: ±1% only
 
@@ -45,42 +47,6 @@ CANONICAL: Dict[str, dict] = {
         gamma=0.02, rho=2.0),
 }
 CANONICAL_SEED = 7
-
-
-def of_kind(records: Sequence[dict], *kinds: str) -> List[dict]:
-    return [r for r in records if r.get("kind") in kinds]
-
-
-def extract_series(records: Sequence[dict]) -> Dict[str, dict]:
-    """Group ``series`` records into ``{name: {"steps": [...],
-    "values": [...]}}`` curves, step-ordered.
-
-    Schema-v1 traces predate the ``series`` kind; for those the federated
-    curves are synthesized from the ``fl_round`` records (``e_K`` from
-    non-null errors, ``bytes_up``, ``staleness``).
-    """
-    out: Dict[str, dict] = {}
-    for r in records:
-        if r.get("kind") != "series":
-            continue
-        s = out.setdefault(r["name"], {"steps": [], "values": []})
-        s["steps"].append(r["step"])
-        s["values"].append(r["value"])
-    if not out:      # v1 fallback: derive the federated curves
-        for r in of_kind(records, "fl_round"):
-            for name, val in (("e_K", r.get("error")),
-                              ("bytes_up", r.get("bytes_up")),
-                              ("staleness", r.get("staleness"))):
-                if val is None:
-                    continue
-                s = out.setdefault(name, {"steps": [], "values": []})
-                s["steps"].append(r["round"])
-                s["values"].append(val)
-    for s in out.values():
-        order = sorted(range(len(s["steps"])), key=s["steps"].__getitem__)
-        s["steps"] = [s["steps"][i] for i in order]
-        s["values"] = [s["values"][i] for i in order]
-    return out
 
 
 def run_canonical(name: str, *, ef: bool = True, loss_robust: bool = True,

@@ -29,7 +29,7 @@ SHAPE_DIM_NBYTES = 4
 class LeafWire:
     """One encoded tree leaf: packed payload + exact byte counts."""
 
-    kind: str                       # codec tag: quant | dense
+    kind: str                       # codec tag: quant | sign | sparse | dense
     shape: Tuple[int, ...]          # original leaf shape
     dtype: Any                      # original leaf dtype
     payload: Dict[str, Any]         # packed tensors (may be tile-padded)

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from repro_torch import api, convert, resolve_device
-from repro_torch.bench import sim_scale
+from repro_torch.bench import common, fig4_trajectory, sim_scale
+from repro_torch.bench import table1_error_feedback, table2_space_comparison
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.data import logistic
+from repro_torch.examples import satellite_constellation
 from repro_torch.models import transformer
 from repro_torch.obs import report
 
@@ -39,9 +41,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 69     # every module of the port
+    assert int(out.stdout.strip()) >= 79     # every module of the port
     for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
-                "models", "configs", "launch"):
+                "models", "configs", "launch", "examples"):
         assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped
 
 
@@ -72,9 +74,15 @@ def test_no_jax_or_repro_import(path):
     lambda: transformer.init_params(smoke_variant(ARCHS["h2o-danube-3-4b"])),
     lambda: transformer.init_cache(smoke_variant(ARCHS["h2o-danube-3-4b"]), 1, 8),
     lambda: convert.model_params_from_jax({"w": np.zeros(3, np.float32)}),
+    lambda: common.problem(scale=0.05),
+    lambda: table1_error_feedback.run(mc_runs=1, rounds=1, scale=0.05),
+    lambda: table2_space_comparison.run(mc_runs=1, rounds=1, scale=0.2),
+    lambda: fig4_trajectory.run(rounds=1, scale=0.05),
+    lambda: satellite_constellation.main(rounds=1),
 ], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
         "run_canonical", "lossy_round", "round_pipeline", "init_params",
-        "init_cache", "model_params_from_jax"])
+        "init_cache", "model_params_from_jax", "bench_problem", "table1",
+        "table2", "fig4", "constellation_example"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
