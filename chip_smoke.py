@@ -71,7 +71,8 @@ into ``build/``, then, each phase failing the run:
    attention (backend "xla", none), whose logits must agree within
    relative L2 error 1e-4;
 10. profiles a few rounds of phases 3 and 5 (and of the example's
-    FedAvg(space) arm, phase 13) and the serving steps with
+    FedAvg(space) arm, phase 13, and of the lossy table, phase 15) and the
+    serving steps with
     ``torch.profiler``, and times each kernel with CUDA events beside its
     bound, its plain version and, for the two attention kernels, PyTorch's
     scaled_dot_product_attention, at the path's shape and, for the uplink
@@ -102,23 +103,58 @@ into ``build/``, then, each phase failing the run:
     per landed update; prints the e_K table;
 13. runs the constellation example's FedAvg(space) arm through
     ``repro_torch.examples.satellite_constellation`` and prints its
-    ``obs.render_rounds`` table.
+    ``obs.render_rounds`` table;
+14. checkpoints and resumes the main path on the card: Fed-LTSat on
+    walker-kiruna (the example's sizes, fused uplink, cohort bytes) and
+    RandD(0.2) on the batched chain, each for 2R rounds (R =
+    RESUME_ROUNDS) with a checkpoint every round and without, then R
+    rounds and a fresh ``Experiment`` resumed to 2R, then a copy of that
+    directory with its newest npz torn, resumed from round R-1: each held
+    bit for bit to the uninterrupted run (every state leaf, every
+    RoundLog), the resumed rounds' launches counted (quant_pipeline and
+    unpack_bits once per round, pack_bits once for the byte probe), and
+    one ``save_round`` timed;
+15. runs the lossy-EF, fault-tolerance and plane-aggregation tables
+    (``repro_torch.bench.table_*``) at the cut sizes of LOSSY_CUT,
+    FAULT_CUT and PLANE_CUT_ROUNDS, each table's rows read back from its
+    ledger under build/ and held against the same cut run on the CPU from
+    the card's data (bytes, losses, updates and simulated time equal, e_K
+    within rtol 1e-4; a fault arm whose e_K parts is run again on the card,
+    on the contact plan's horizon that arm started on in the table's
+    sweep, with a checkpoint every round, and the CPU's run held to it in
+    lockstep, every round within rtol 1e-4, each round whose wires part a
+    rounding tie, after which the CPU resumes from the card's checkpoint),
+    plus the plane table's fast-vs-oracle ``smoke``; and ``python -m
+    repro_torch.obs`` ``report --frontier`` on the lossy ledger and
+    ``check`` and ``chrome`` on phase 14's trace, as subprocesses that
+    must exit 0;
+16. runs ``python -m repro_torch.obs convgate`` on phase 6's four traces
+    (written to build/) and prints each scenario's verdict; it must reach
+    one (exit 0 or 1).  Phase 6 runs on the port's own draws, and the
+    1.25x e_K gate holds with JAX's (``tests/test_torch_canonical.py``),
+    so a failing verdict is recorded, not failed on.  The obs CLI's four
+    subprocesses run beside phases 14 and 15.
 
-Phases 11–13 run after phase 8.  The launch counts are zeroed just before
+Phases 11–16 run after phase 8.  The launch counts are zeroed just before
 each main-path run (phases 3–4, each run of phase 5, each chain run of
-phase 7, phase 8, each cell of phase 12 and phase 13, and the timed
-prefill, the decode steps and the depth-2 float32 prefills of phase 9)
-and read just after.  Then it
-prints the card's name and power limit again, one JSON line with a
+phase 7, phase 8, each cell of phase 12 and phase 13, each resumed run of
+phase 14, each card run of phase 15, and the timed prefill, the decode
+steps and the depth-2 float32 prefills of phase 9) and read just after.
+Then it
+prints each phase's seconds ([time]), the card's name and power limit
+again, one JSON line with a
 record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -181,6 +217,18 @@ TABLE2_CHECK_ROUNDS = 10
 # JAX package it ends its 400 rounds at 23.85–23.99 from 24.006 at x = 0.
 # Its cells are held to a last e_K at most 1% above the first, not a falling one
 TABLE2_LED_RISE = 1.01
+# phases 14-16: checkpoint/resume, the ledger tables at a cut size, convgate
+BUILD = ROOT / "build"
+RESUME_ROUNDS = 20            # R: a run checkpointed at round R resumes to 2R
+CKPT_SAVES = 20               # save_round calls timed for the per-round cost
+# the three ledger tables, cut for time (their full sizes: PERF.md §6): the
+# lossy table at 2 of its 5 loss rates x 3 arms x 100 of 1500 rounds, the
+# fault table at 2 of its 3 crash rates x 2 arms x 60 of 300 rounds, and the
+# plane-agg table's walker sweep at 10 of 60 rounds (not its mega sweep),
+# with its --smoke; N, m and d are each table's own
+LOSSY_CUT = dict(loss_rates=[0.0, 0.2], rounds=100)
+FAULT_CUT = dict(crash_rates=[0.0, 0.1], rounds=60)
+PLANE_CUT_ROUNDS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -1091,6 +1139,455 @@ def phase_example_fedavg(launches: dict) -> None:
     print(table)
 
 
+# -- phase 14: checkpoint and resume on the card ---------------------------------
+
+def same_run(a, b, what: str) -> None:
+    """Bit for bit: every leaf of the final state and every RoundLog."""
+    from repro_torch.core.pytree import tree_flatten_with_names
+    names, leaves_a = tree_flatten_with_names(a.state)
+    check(names == tree_flatten_with_names(b.state)[0], f"{what}: state trees differ")
+    for name, x, y in zip(names, leaves_a, tree_flatten_with_names(b.state)[1]):
+        check(x == y if isinstance(x, int) else torch.equal(x, y),
+              f"{what}: {name} differs from the uninterrupted run")
+    check([dataclasses.asdict(lg) for lg in a.logs]
+          == [dataclasses.asdict(lg) for lg in b.logs],
+          f"{what}: RoundLogs (time, bytes_up, e_K, ...) differ from the "
+          "uninterrupted run's")
+
+
+def phase_resume(launches: dict) -> dict:
+    """The main path's Fed-LTSat (walker-kiruna, fused uplink, cohort bytes,
+    the coarse quantizer; the constellation example's N=100, m=200, d=100)
+    and RandD(0.2) on the batched chain: 2R rounds with a checkpoint every
+    round and without; R rounds, then a fresh Experiment resumed to 2R; and
+    a copy of the R-round directory with its newest npz torn, resumed from
+    round R-1.  Each held bit for bit to the uninterrupted run."""
+    from repro_torch.api import Experiment
+    from repro_torch.checkpoint.run import RunCheckpoint
+    from repro_torch.core.compression import RandD
+    from repro_torch.core.error_feedback import EFChannel
+    from repro_torch.core.fedlt import optimality_error
+    from repro_torch.examples import satellite_constellation as ex
+    from repro_torch.kernels import ops
+    data, xbar, quant, algs = ex.setup(DEV)
+    rand = RandD(fraction=0.2)
+    configs = {  # kind: (Experiment options, launches per round besides the probe)
+        "quant": (dict(algorithm=algs["Fed-LTSat"], compressor=quant, measure="cohort"),
+                  dict(quant_pipeline=1, unpack_bits=1)),
+        "randd": (dict(algorithm=dataclasses.replace(
+                      algs["Fed-LTSat"], uplink=EFChannel(rand),
+                      downlink=EFChannel(rand), fused_uplink=False),
+                       compressor=rand), {}),
+    }
+    R = RESUME_ROUNDS
+    out = {}
+    for kind, (kw, per_round) in configs.items():
+        root = BUILD / f"resume_{kind}"
+        shutil.rmtree(root, ignore_errors=True)
+
+        def run(rounds, ck, walls=None, **run_kw):
+            exp = Experiment.from_scenario("walker-kiruna", device=DEV, **kw)
+            st = exp.init(torch.zeros(ex.DIM), ex.N_AGENTS)
+            t0 = time.perf_counter()
+            res = exp.run(st, data, rounds, 2, log_every=1,
+                          checkpoint=None if ck is None else str(ck),
+                          error_fn=lambda s: float(optimality_error(s.x, xbar)),
+                          **run_kw)
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls["ckpt" if ck else "plain"] = time.perf_counter() - t0
+            return res
+
+        run(2, None)                    # the first launches
+        walls = {}
+        full = run(2 * R, None, walls)
+        res = run(2 * R, root / "full", walls)
+        same_run(res, full, f"{kind}: 2R rounds with a checkpoint every round")
+        run(R, root / "half")
+        shutil.copytree(root / "half", root / "torn")
+        ops.reset_launch_counts()
+        resumed = run(2 * R, root / "half", resume=True)
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        expect = dict.fromkeys(SOURCES, 0)
+        expect["pack_bits"] = 1                     # the byte probe
+        expect.update({k: R * v for k, v in per_round.items()})
+        check(counts == expect, f"{kind}: launches over the {R} resumed rounds "
+              f"{counts}, expected {expect}")
+        same_run(resumed, full, f"{kind}: resumed at round {R}")
+        with open(root / "torn" / f"round_{R:06d}.npz", "r+b") as f:
+            f.truncate(64)                          # a writer killed mid-save
+        trace = BUILD / f"resume_{kind}.jsonl"
+        torn = run(2 * R, root / "torn", resume=True, trace=str(trace))
+        marks = [r for r in torn.records if r.get("kind") == "resume"]
+        check(len(marks) == 1 and marks[0]["k_next"] == R - 1,
+              f"{kind}: the torn round {R} was not skipped: {marks}")
+        same_run(torn, full, f"{kind}: resumed at round {R - 1} past a torn npz")
+        ck = RunCheckpoint(str(root / "cost"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(1, CKPT_SAVES + 1):
+            ck.save_round(full.state, step=step, t=full.logs[-1].time,
+                          up_bytes=full.logs[-1].bytes_up, isl_bytes=0.0,
+                          logs=full.logs)
+        save_ms = 1e3 * (time.perf_counter() - t0) / CKPT_SAVES
+        added_ms = 1e3 * (walls["ckpt"] - walls["plain"]) / (2 * R)
+        lost = sum(lg.n_lost for lg in full.logs)
+        print(f"[resume] {kind}: {2 * R} rounds, e_K {full.logs[0].error:.6e} -> "
+              f"{full.logs[-1].error:.6e}, bytes_up {full.logs[-1].bytes_up:.0f}, "
+              f"lost {lost}; checkpointed every round, resumed at round {R} "
+              f"(launches {counts}) and at {R - 1} past a torn npz: state, "
+              f"RoundLogs, bytes_up and t bit for bit the uninterrupted run's")
+        print(f"[resume] {kind}: {1e3 * walls['plain'] / (2 * R):.3f} ms per round "
+              f"without checkpoints, {1e3 * walls['ckpt'] / (2 * R):.3f} with one "
+              f"every round (host clock; {added_ms:+.3f} ms per round); one "
+              f"save_round (npz write, fsync, meta, prune) {save_ms:.3f} ms")
+        out[kind] = dict(ms_plain=1e3 * walls["plain"] / (2 * R),
+                         ms_ckpt=1e3 * walls["ckpt"] / (2 * R),
+                         save_ms=save_ms, trace=str(trace))
+    return out
+
+
+# -- phase 15: the run ledger and the three ledger tables at a cut size ---------
+
+#: the obs CLI's subprocesses, each with its argv and output files; they
+#: run beside the phases and are collected by obs_cli_wait (stop_children
+#: ends any still running when the script exits)
+CLI_RUNS: list = []
+
+
+def obs_cli_start(*args) -> dict:
+    """Start ``python -m repro_torch.obs ARGS`` from the repository root,
+    its output into files under build/."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = BUILD / f"obs_cli_{len(CLI_RUNS)}_{args[0]}"
+    out, err = open(f"{base}.out", "w+"), open(f"{base}.err", "w+")
+    run = dict(args=args, out=out, err=err, proc=subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.obs", *args], cwd=ROOT, env=env,
+        stdout=out, stderr=err, text=True))
+    CLI_RUNS.append(run)
+    return run
+
+
+def obs_cli_wait(run: dict) -> tuple:
+    """(exit code, stdout, stderr) of a started CLI run."""
+    rc = run["proc"].wait(timeout=300)
+    texts = []
+    for f in (run["out"], run["err"]):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return (rc, *texts)
+
+
+def stop_children() -> None:
+    for run in CLI_RUNS:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+
+
+def table_cuts():
+    """(name, module, sizes, runner(device, ledger), arms, exact row fields)"""
+    from repro_torch.bench import table_fault_tolerance as tft
+    from repro_torch.bench import table_lossy_ef as tle
+    from repro_torch.bench import table_plane_agg as tpa
+    from repro_torch.obs.report import plane_agg_rows
+    big = dict(n_agents=100, m=100, dim=100)
+    return (
+        ("lossy", tle, big,
+         lambda dev, led: tle.run(LOSSY_CUT["loss_rates"], rounds=LOSSY_CUT["rounds"],
+                                  verbose=False, ledger_path=led, device=dev),
+         3 * len(LOSSY_CUT["loss_rates"]),
+         ("loss_rate", "arm", "lost", "received", "bytes_up")),
+        ("fault", tft, big,
+         lambda dev, led: tft.run(FAULT_CUT["crash_rates"], rounds=FAULT_CUT["rounds"],
+                                  verbose=False, ledger_path=led, device=dev),
+         2 * len(FAULT_CUT["crash_rates"]),
+         ("crash_rate", "arm", "quorum", "bytes_up", "lost", "t_sim", "quorum_frac")),
+        ("plane", tpa, dict(n_agents=100, m=40, dim=32),
+         lambda dev, led: plane_agg_rows(tpa.run_sweep(
+             tpa.WALKER_ARMS, rounds=PLANE_CUT_ROUNDS, n_agents=100, dim=32, m=40,
+             group="walker", ledger_path=led, device=dev)),
+         len(tpa.WALKER_ARMS),
+         ("arm", "topology", "scenario", "bytes_gs", "bytes_isl", "updates", "lost")),
+    )
+
+
+class Split(Exception):
+    """Raised by the CPU run of a fault arm at a round whose wires part
+    from the card's: (round, z_hat, c_down, z) of the CPU."""
+
+
+def fault_engine(horizon: float):
+    """An engine of the fault table's scenario whose contact plan reaches
+    ``horizon``.  Rounds depend on the plan's horizon, and the table's
+    sweep shares one engine, so an arm starts on the horizon that the arms
+    before it grew (ROADMAP Queue 3); a run that repeats an arm, or
+    resumes it, starts from the horizon that arm had."""
+    from repro_torch.bench import table_fault_tolerance as tft
+    from repro_torch.sim import Engine
+    engine = Engine(tft._scenario())
+    engine.ensure(engine.plan.t_start + horizon)
+    check(engine.plan.horizon == horizon, f"a contact plan of horizon "
+          f"{engine.plan.horizon} s, not {horizon}")
+    return engine
+
+
+def fault_arm_card(prob, crash_rate, arm, rounds, horizon, ckpt_dir):
+    """One arm of the fault table on the card, built by
+    ``table_fault_tolerance.make_arm`` as the table builds it, on an engine
+    whose plan starts at the sweep's ``horizon`` for it, with a checkpoint
+    after every round kept in ``ckpt_dir``; every round's (e_K, z_hat,
+    c_down, c_up, the plan's horizon) on the host."""
+    from repro_torch.bench import table_fault_tolerance as tft
+    from repro_torch.checkpoint.run import RunCheckpoint
+    from repro_torch.core.fedlt import optimality_error
+    data, loss, x_star = prob
+    exp = tft.make_arm(loss, crash_rate, arm, fault_engine(horizon), device=DEV)
+    seen = []
+
+    def err(st):
+        seen.append((float(optimality_error(st.x, x_star)),
+                     *(t.cpu().clone() for t in (st.z_hat, st.c_down, st.c_up)),
+                     exp.engine.plan.horizon))
+        return seen[-1][0]
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    exp.runner.run(exp.algorithm, exp.init(torch.zeros(x_star.shape[0]),
+                                           data["a"].shape[0]),
+                   data, rounds, tft.RUN_SEED, error_fn=err, log_every=1,
+                   ckpt=RunCheckpoint(str(ckpt_dir), keep_last=0))
+    return seen
+
+
+def check_fault_lockstep(card, horizon, ckpt_dir, cpu_prob, crash_rate, arm,
+                         what: str):
+    """The CPU's run of a fault arm held to the card's round by round: e_K
+    within rtol 1e-4 at every round.  A round whose wires part (z_hat
+    differs, or the downlink's EF cache c_down by half a level or more)
+    must be a rounding tie: the downlink's input (the mean of the wires
+    plus its EF cache) where its output differs, or else each uplink's
+    input (z plus its EF cache) where its wire differs, lies within 1e-4
+    of a level of a point half-way between two levels of the quantizer's
+    grid, which float32 sums in another order round either way (ROADMAP
+    Queue 3).  The downlink runs first in a round, so where it differs the
+    uplinks follow it.  The CPU run then resumes from the card's
+    checkpoint after that round, on a plan of the card's horizon there, and
+    is held on to the last round.  The CPU's run starts on ``horizon``, as
+    the card's did.  Returns the rounds where it split."""
+    from repro_torch.bench import table_fault_tolerance as tft
+    from repro_torch.bench.common import COMPRESSORS
+    from repro_torch.checkpoint.run import RunCheckpoint
+    from repro_torch.core.fedlt import optimality_error
+    C = COMPRESSORS["quant_coarse"]
+    delta = (C.vmax - C.vmin) / C.levels
+    data, loss, x_star = cpu_prob
+    rounds = len(card)
+    # (z_hat, c_down, c_up) of the state the CPU's round k+1 starts from
+    prev = {-1: tuple(torch.zeros_like(t) for t in card[0][1:4])}
+    splits, start = [], 0
+    while True:
+        exp = tft.make_arm(loss, crash_rate, arm, fault_engine(
+            card[start - 1][4] if start else horizon), device="cpu")
+        k = [start]
+
+        def err(st):
+            r, k[0] = k[0], k[0] + 1
+            if (not torch.equal(st.z_hat, card[r][1])
+                    or float((st.c_down - card[r][2]).abs().max()) >= delta / 2):
+                raise Split(r, st.z_hat.clone(), st.c_down.clone(), st.z.clone())
+            e = float(optimality_error(st.x, x_star))
+            check(abs(card[r][0] - e) < 1e-4 * abs(e), f"{what}: round {r} e_K "
+                  f"{card[r][0]} on the card vs {e} on the CPU, with the same wires")
+            prev[r] = (st.z_hat.clone(), st.c_down.clone(), st.c_up.clone())
+            return e
+
+        ckpt = None
+        if start:
+            # the card's state after round start-1, as the run saved it
+            ckpt = ckpt_dir / f"cpu_from_{start}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            ckpt.mkdir(parents=True)
+            for ext in (".npz", ".meta.json"):
+                shutil.copy(ckpt_dir / f"round_{start:06d}{ext}", ckpt)
+            ckpt = RunCheckpoint(str(ckpt), keep_last=0)
+        try:
+            exp.runner.run(exp.algorithm, exp.init(torch.zeros(x_star.shape[0]),
+                                                   data["a"].shape[0]),
+                           data, rounds, tft.RUN_SEED, error_fn=err, log_every=1,
+                           ckpt=ckpt, ckpt_every=rounds + 1, resume=ckpt is not None)
+            return splits
+        except Split as split:
+            f, z_hat, c_down, z = split.args
+        z_prev, c_prev, cu_prev = prev[f - 1]
+        down = (c_down - card[f][2]).abs() >= delta / 2
+        if bool(down.any()):
+            link, where = "downlink", down
+            u = z_prev.double().mean(0) + c_prev.double()
+        else:
+            link, where = "uplink", z_hat != card[f][1]
+            u = z.double() + cu_prev.double()
+        off = (torch.frac((u.clamp(C.vmin, C.vmax) - C.vmin) / delta) - 0.5).abs()
+        check(float(off[where].max()) < 1e-4,
+              f"{what}: the wires part at round {f}; the {link} differs at "
+              f"{where.nonzero().tolist()}, whose inputs are {off[where].tolist()} "
+              "of a level from a tie")
+        splits.append((f, link))
+        prev[f] = card[f][1:4]                  # the card's state after round f
+        start = f + 1
+
+
+def phase_ledger_tables(launches: dict, trace: str) -> dict:
+    """The three tables at their cut sizes on the card, rows from a ledger
+    under build/ only, each held against the same cut run on the CPU from
+    the card's data; the plane table's --smoke; and the obs CLI's report
+    (on the lossy ledger), check and chrome (on ``trace``) as subprocesses
+    beside them."""
+    from repro_torch.bench import common
+    from repro_torch.bench import table_plane_agg as tpa
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.obs import report
+    from repro_torch.obs.ledger import load_ledger
+    rows_of = {"lossy": report.lossy_ef_rows, "fault": report.fault_tolerance_rows,
+               "plane": report.plane_agg_rows}
+    cli = [obs_cli_start("check", trace),
+           obs_cli_start("chrome", trace, "-o", str(BUILD / "resume.perfetto.json"))]
+    out = {}
+    for name, mod, sizes, run, arms, exact in table_cuts():
+        prob = common.logistic_problem(0, device=DEV, **sizes)
+        cpu_prob = (tree_map(lambda t: t.cpu(), prob[0]), prob[1], prob[2].cpu())
+        real, real_arm = mod.logistic_problem, getattr(mod, "make_arm", None)
+        rows, walls, starts = {}, {}, {}
+        try:
+            for dev, p in ((DEV, prob), ("cpu", cpu_prob)):
+                mod.logistic_problem = lambda *a, p=p, **k: p
+                if real_arm is not None:
+                    # the plan horizon each arm starts on, on the sweep's engine
+                    def make_arm(loss, crash_rate, arm, engine, dev=dev, **kw):
+                        starts[dev, crash_rate, arm[0]] = engine.plan.horizon
+                        return real_arm(loss, crash_rate, arm, engine, **kw)
+                    mod.make_arm = make_arm
+                ledger = BUILD / f"ledger_{name}_{dev}.jsonl"
+                ledger.unlink(missing_ok=True)
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                rows[dev] = run(dev, str(ledger))
+                walls[dev] = time.perf_counter() - t0
+                if name == "lossy" and dev == DEV:
+                    cli.append(obs_cli_start("report", "--ledger", str(ledger),
+                                             "--frontier"))
+                counts = ops.launch_counts()
+                if dev == DEV:
+                    for k, v in counts.items():
+                        launches[k] += v
+                    # the reference's path: the byte probe, then the batched
+                    # EFChannel chain, no fused uplink
+                    expect = dict.fromkeys(SOURCES, 0)
+                    expect["pack_bits"] = arms
+                    check(counts == expect, f"{name} table: launches {counts}, "
+                          f"expected {expect} (one probe per arm)")
+                check(rows[dev] == rows_of[name](load_ledger(str(ledger))),
+                      f"{name} table on {dev}: rows are not the ledger's")
+        finally:
+            mod.logistic_problem = real
+            if real_arm is not None:
+                mod.make_arm = real_arm
+        card, cpu = rows[DEV], rows["cpu"]
+        check(all(starts[DEV, cr, arm] == h for (d, cr, arm), h in starts.items()),
+              f"{name} table: the arms' plan horizons differ between the card and "
+              f"the CPU: {starts}")
+        check(len(card) == len(cpu) == arms, f"{name} table: {len(card)} rows on "
+              f"the card, {len(cpu)} on the CPU, {arms} arms")
+        worst, ties = 0.0, []
+        for a, b in zip(card, cpu):
+            for f in exact:
+                check(a[f] == b[f], f"{name} table, {a['arm']}: {f} {a[f]} on the "
+                      f"card vs {b[f]} on the CPU")
+            check(math.isfinite(a["error"]), f"{name} table, {a['arm']}: e_K "
+                  f"{a['error']}")
+            rel = abs(a["error"] - b["error"]) / abs(b["error"])
+            worst = max(worst, rel)
+            # matmul summation order differs between CPU and card
+            if rel < 1e-4 or name != "fault":
+                check(rel < 1e-4, f"{name} table, {a['arm']}: e_K {a['error']} on "
+                      f"the card vs {b['error']} on the CPU")
+                continue
+            # the fault table's arms put ~70 satellites' wires into each
+            # downlink mean: the two devices may round a tie apart, and the
+            # runs then go separate ways.  Such an arm is run again on the
+            # card, checkpointed every round, and held round by round
+            arm = next(x for x in mod.ARMS if x[0] == a["arm"])
+            what = f"fault table, crash {a['crash_rate']}, {a['arm']}"
+            ckpt_dir = BUILD / f"lockstep_{a['crash_rate']}_{arm[1]}"
+            horizon = starts[DEV, a["crash_rate"], a["arm"]]
+            card_rounds = fault_arm_card(prob, a["crash_rate"], arm,
+                                         FAULT_CUT["rounds"], horizon, ckpt_dir)
+            check(card_rounds[-1][0] == a["error"], f"{what}: the run again on the "
+                  f"card ends at e_K {card_rounds[-1][0]}, its row at {a['error']}")
+            splits = check_fault_lockstep(card_rounds, horizon, ckpt_dir, cpu_prob,
+                                          a["crash_rate"], arm, what)
+            check(splits, f"{what}: e_K {a['error']} on the card vs {b['error']} "
+                  "on the CPU, and no round's wires differ")
+            at = ", ".join(f"{f} ({link})" for f, link in splits)
+            ties.append(f"{what}: rel {rel:.1e} at the end; ties rounded apart at "
+                        f"rounds {at}, the CPU resumed from the card's checkpoint "
+                        f"after each, e_K within 1e-4 at every other round")
+        rounds = {"lossy": LOSSY_CUT["rounds"], "fault": FAULT_CUT["rounds"],
+                  "plane": PLANE_CUT_ROUNDS}[name]
+        for row in card:
+            print(f"[ledger] {mod.render_row(row)}")
+        print(f"[ledger] {name} table, {arms} arms x {rounds} rounds: "
+              f"{1e3 * walls[DEV] / (arms * rounds):.3f} ms per round on the card "
+              f"(host clock), {1e3 * walls['cpu'] / (arms * rounds):.3f} on the CPU; "
+              + (f"exact fields equal, e_K within rel {worst:.1e} < 1e-4" if not ties
+                 else f"exact fields equal; e_K: {'; '.join(ties)}"))
+        out[name] = dict(ms_per_round=1e3 * walls[DEV] / (arms * rounds),
+                         rows=card, e_rel=worst, ties=ties)
+    check(tpa.smoke(), "plane-agg --smoke: the fast path and the heapq oracle differ")
+    for proc in cli:
+        rc, stdout, stderr = obs_cli_wait(proc)
+        args = proc["args"]
+        check(rc == 0, f"python -m repro_torch.obs {' '.join(args)}: exit "
+              f"{rc}\n{stdout}{stderr}")
+        print(f"[ledger] python -m repro_torch.obs {args[0]} {args[1]}: exit 0")
+        print("\n".join(f"[ledger]   {ln}" for ln in stdout.splitlines()))
+    return out
+
+
+# -- phase 16: the convergence gate over phase 6's traces ------------------------
+
+def start_convgate(canonical: dict) -> dict:
+    """Start ``python -m repro_torch.obs convgate`` on phase 6's four
+    traces; it runs beside phases 14 and 15."""
+    from repro_torch.obs.report import CANONICAL
+    return obs_cli_start("convgate", *(canonical[n]["trace"] for n in CANONICAL),
+                         "--reference", str(ROOT / "CONV_reference.json"))
+
+
+def phase_convgate(run: dict) -> dict:
+    """The convgate run's verdict per scenario (exit 0 or 1).  Phase 6 ran
+    on the port's own draws, and the 1.25x e_K gate holds with JAX's
+    (tests/test_torch_canonical.py), so a failing verdict is recorded, not
+    failed on."""
+    from repro_torch.obs.report import CANONICAL
+    rc, stdout, stderr = obs_cli_wait(run)
+    check(rc in (0, 1), f"convgate: exit {rc}\n{stdout}{stderr}")
+    verdicts = dict((n, v) for v, n in re.findall(r"^CONVGATE (OK|FAIL) (\S+):",
+                                                   stdout, re.M))
+    check(sorted(verdicts) == sorted(CANONICAL), f"convgate: verdicts {verdicts}")
+    print(f"[convgate] exit {rc} on the card's draws")
+    shown = {}                    # each verdict and its first violations
+    for ln in stdout.splitlines():
+        name = ln.split(":")[0].split()[-1]
+        shown[name] = shown.get(name, 0) + 1
+        if shown[name] <= 4:
+            print(f"[convgate]   {ln}")
+    return dict(rc=rc, verdicts=verdicts)
+
+
 # -- phase 9: serving h2o-danube-3-4b -----------------------------------------
 
 def serve_config(**changes):
@@ -1338,15 +1835,24 @@ def check_constellation_against_cpu(res_card, data, xbar, quant, alg,
 
 # -- phase 6: the canonical convergence scenarios ----------------------------
 
+def write_trace(records, path: Path) -> str:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(json.dumps(r) + "\n" for r in records))
+    return str(path)
+
+
 def phase_canonical() -> dict:
+    """Returns each scenario's numbers and the path of its trace, written
+    to build/ for phase 16."""
     from repro_torch.obs.report import CANONICAL, run_canonical
     from repro_torch.obs.summary import extract_series
     reference = json.loads((ROOT / "CONV_reference.json").read_text())
     out = {}
     for name in CANONICAL:
         t0 = time.perf_counter()
-        series = extract_series(run_canonical(name, device=DEV))
+        records = run_canonical(name, device=DEV)
         wall = time.perf_counter() - t0
+        series = extract_series(records)
         e_k = series["e_K"]["values"]
         got = series["bytes_up"]["values"][-1]
         want = reference["scenarios"][name]["bytes_up"]
@@ -1365,7 +1871,8 @@ def phase_canonical() -> dict:
               f"{e_k[0]:.6e} -> {e_k[-1]:.6e} (min {min(e_k):.6e}; port's own "
               f"draws), bytes_up "
               f"{got:.0f} == reference {want:.0f} within ±1%")
-        out[name] = dict(bytes_up=got, e_first=e_k[0], e_last=e_k[-1])
+        out[name] = dict(bytes_up=got, e_first=e_k[0], e_last=e_k[-1],
+                         trace=write_trace(records, BUILD / f"canonical_{name}.jsonl"))
     return out
 
 
@@ -1459,6 +1966,7 @@ def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> float:
     round."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_session = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -1474,7 +1982,8 @@ def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> float:
     launches = sum(e.count for e in device) / rounds
     print(f"[profile] {tag}: {rounds} {unit}s under torch.profiler: wall "
           f"{wall_ms:.3f} ms per {unit}, device busy {busy_ms:.3f} ms per {unit} "
-          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per {unit}")
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per {unit}; "
+          f"the session with its averages {time.perf_counter() - t_session:.1f} s")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/{unit} "
               f"{e.count / rounds:6.0f}x/{unit} "
@@ -1893,19 +2402,34 @@ SOURCES = {
 }
 
 
+#: seconds per phase of this run, printed as [time] before the result
+PHASE_S: dict = {}
+
+
+def lap(name: str) -> None:
+    """Charge the time since the last lap to ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - PHASE_S.pop("_t", now)
+    PHASE_S["_t"] = now
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 1
+    import atexit
     import repro_torch
     from repro_torch.kernels import ops
 
+    atexit.register(stop_children)
     repro_torch.set_float32_precision()
     rng = np.random.default_rng(0)
-    t_start = time.perf_counter()
+    t_start = PHASE_S["_t"] = time.perf_counter()
     smi = phase_build()
+    lap("1 build")
     errors = phase_kernels(rng)
+    lap("2 kernels")
 
     ops.reset_launch_counts()            # the first main path: phases 3 and 4
     alg, data, state, before = phase_fedlt()
@@ -1918,15 +2442,31 @@ def main() -> int:
 
     check_captured_round(state, before)
     check_small_against_cpu()
+    lap("3-4 Fed-LT")
     phase_constellation(launches)        # counts zeroed before each run
-    phase_canonical()
+    lap("5 constellation")
+    canonical = phase_canonical()
+    lap("6 canonical")
     _, lossy_chains = phase_transport(launches)   # counts zeroed per chain run
+    lap("7 transport")
     for k, v in phase_sign_entry(state, before).items():   # zeroed before
         launches[k] += v
+    lap("8 sign entry")
     phase_codecs(rng)                    # kernel checks, not a main path
+    lap("11 codecs")
     table2 = phase_table2(launches)      # counts zeroed before each cell
+    lap("12 table 2")
     phase_example_fedavg(launches)       # zeroed before the run
+    lap("13 example")
+    gate = start_convgate(canonical)     # runs beside phases 14 and 15
+    resume = phase_resume(launches)      # zeroed before each resumed run
+    lap("14 resume")
+    ledger = phase_ledger_tables(launches, resume["quant"]["trace"])  # per table
+    lap("15 ledger tables")
+    convgate = phase_convgate(gate)
+    lap("16 convgate")
     serve, (params, cfg, prompts) = phase_serve(launches)  # zeroed per step
+    lap("9 serve")
 
     phase_profile(lambda: alg.run(state, data, 5), 5, "Fed-LT")
     from repro_torch.api import Experiment
@@ -1942,15 +2482,23 @@ def main() -> int:
                                              5, 2, exp=c_exp),
                       5, f"{name} walker-kiruna")
     phase_profile(lossy_chains, 3, "mega-1000-lossy chains, fused + unfused")
+    from repro_torch.bench import table_lossy_ef
+    phase_profile(lambda: table_lossy_ef.run(
+        [0.2], rounds=20, verbose=False, device=DEV,
+        ledger_path=str(BUILD / "ledger_profile.jsonl")), 60,
+        "lossy table at p=0.2, 3 arms x 20 rounds (with its set-up)")
     profile_serve(params, cfg, prompts)
     del params, prompts
     torch.cuda.empty_cache()
+    lap("10 profiles")
     serve["f32_rel_l2"] = check_serve_f32(launches)      # zeroed per prefill
     torch.cuda.empty_cache()
+    lap("9 serve")
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
     times = phase_times(rng)
+    lap("10 times")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1977,6 +2525,12 @@ def main() -> int:
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[table2] summary: {json.dumps(table2)}")
+    print(f"[resume] summary: {json.dumps(resume)}")
+    print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")
+    print(f"[convgate] summary: {json.dumps(convgate)}")
+    PHASE_S.pop("_t")
+    print(f"[time] seconds by phase: "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)                          # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))

@@ -14,12 +14,15 @@ with self-describing meta::
     state = exp.init(torch.zeros(dim), n_agents)   # on exp.device
     result = exp.run(state, data, n_rounds=120, seed=2,
                      error_fn=err, trace=True)
+    result.ingest("runs/ledger.jsonl")
 
 The algorithm's state lives on ``exp.device``: the card unless
 ``device="cpu"`` is passed, and without a card construction raises.
-Run ledgers and checkpoints are not ported yet: ``ledger=``,
-``checkpoint=``, ``resume=True`` and :meth:`ExperimentResult.ingest`
-raise ``NotImplementedError``.
+``run(ledger=...)`` traces the run and folds it into a run ledger
+(:mod:`repro_torch.obs.ledger`); ``run(checkpoint="dir")`` checkpoints
+it per round (:mod:`repro_torch.checkpoint.run`) and ``resume=True``
+continues from the newest intact checkpoint, bit for bit as the
+uninterrupted run.  Both write the JAX package's formats.
 """
 from __future__ import annotations
 
@@ -66,19 +69,26 @@ def describe_channel(ch) -> str:
 class ExperimentResult:
     """What one :meth:`Experiment.run` produced: the final algorithm
     state, the per-round logs, and (when tracing was on) the trace
-    records."""
+    records plus the ledger id if they were ingested."""
     state: Any
     logs: List[RoundLog]
     records: Optional[List[dict]] = None
+    run_id: Optional[str] = None
 
     @property
     def final(self) -> Optional[RoundLog]:
         return self.logs[-1] if self.logs else None
 
     def ingest(self, ledger_path: str) -> dict:
-        raise NotImplementedError(
-            "the run ledger (obs/ledger.py) is not ported yet; the trace "
-            "records are in ExperimentResult.records")
+        """Fold this run's trace into a ledger; returns the entry."""
+        if self.records is None:
+            raise ValueError(
+                "no trace records to ingest — call run(..., trace=True) "
+                "(or pass ledger=... to run, which implies it)")
+        from .obs.ledger import ingest as _ingest
+        entry, _ = _ingest(self.records, ledger_path)
+        self.run_id = entry["run_id"]
+        return entry
 
 
 class Experiment:
@@ -175,36 +185,45 @@ class Experiment:
             error_fn: Optional[Callable] = None, log_every: int = 10,
             trace: Union[bool, str] = False,
             ledger: Optional[str] = None,
-            checkpoint: Optional[str] = None,
+            checkpoint: Optional[str] = None, checkpoint_every: int = 1,
             resume: bool = False) -> ExperimentResult:
         """Drive the algorithm ``n_rounds`` through the engine.
 
-        ``data`` goes to :attr:`device`; ``seed`` seeds the generator of
-        the algorithm's stochastic compressors.  ``trace=True`` records an
-        in-memory obs trace (``trace="path"`` streams it to a file as
-        well).  Returns an :class:`ExperimentResult`."""
+        ``data`` goes to :attr:`device`; ``seed`` seeds the generators of
+        the algorithm's stochastic compressors, one per round.
+        ``trace=True`` records an in-memory obs trace (``trace="path"``
+        streams it to a file as well); ``ledger="runs/x.jsonl"`` implies
+        tracing and ingests the finished trace.  ``checkpoint="dir"``
+        saves an atomic per-round checkpoint every ``checkpoint_every``
+        sync rounds; ``resume=True`` restarts from the newest intact one,
+        and the resumed run's state and ``e_K`` / ``bytes_up`` curves are
+        bit for bit the uninterrupted run's.  Returns an
+        :class:`ExperimentResult`."""
         from .obs import active as _active
         from .obs import tracing
-        if ledger is not None:
-            raise NotImplementedError(
-                "ledger= needs the run ledger (obs/ledger.py), not ported "
-                "yet; pass trace=True and keep ExperimentResult.records")
-        if checkpoint is not None or resume:
-            raise NotImplementedError(
-                "checkpoint=/resume= need checkpoint/, not ported yet "
-                "(ROADMAP Queue 1)")
+        ckpt = None
+        if checkpoint is not None:
+            from .checkpoint.run import RunCheckpoint
+            ckpt = RunCheckpoint(checkpoint)
+        elif resume:
+            raise ValueError("resume=True needs checkpoint=<dir>")
+        if not trace and ledger is not None:
+            trace = True
         data = tree_map(lambda a: torch.as_tensor(a).to(self.device), data)
+        run_kw = dict(error_fn=error_fn, log_every=log_every, ckpt=ckpt,
+                      ckpt_every=checkpoint_every, resume=resume)
         if not trace or _active() is not None:
             # no tracing requested, or the caller already opened a tracer
             # (nested tracing() scopes don't stack): run under it as-is
             state, logs = self.runner.run(self.algorithm, state, data,
-                                          n_rounds, seed, error_fn=error_fn,
-                                          log_every=log_every)
+                                          n_rounds, seed, **run_kw)
             return ExperimentResult(state, logs)
         path = trace if isinstance(trace, str) else None
         with tracing(path, **self.ledger_meta()) as trc:
             state, logs = self.runner.run(self.algorithm, state, data,
-                                          n_rounds, seed, error_fn=error_fn,
-                                          log_every=log_every)
+                                          n_rounds, seed, **run_kw)
             records = trc.records()
-        return ExperimentResult(state, logs, records)
+        result = ExperimentResult(state, logs, records)
+        if ledger is not None:
+            result.ingest(ledger)
+        return result

@@ -44,6 +44,15 @@ def problem(seed=0, scale=1.0, device=None):
     return data, loss, xbar, n_agents
 
 
+def logistic_problem(seed=0, *, n_agents, m, dim, device=None):
+    """(data, loss, x̄) of the logistic problem (ε=50) at these sizes, the
+    problem of the lossy-EF, fault-tolerance and plane-aggregation tables;
+    on the card unless ``device``."""
+    data, _ = generate(seed, n_agents=n_agents, m=m, dim=dim, device=device)
+    return (data, make_local_loss(eps=50.0, n_agents=n_agents),
+            solve_global(data, eps=50.0))
+
+
 def make_algorithm(name, loss, compressor, ef=True, **overrides):
     up, down = EFChannel(compressor, enabled=ef), EFChannel(compressor, enabled=ef)
     kw = dict(TUNED)

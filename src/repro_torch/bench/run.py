@@ -1,7 +1,8 @@
 """Benchmark runner: one function per paper table and figure.
 
 Counterpart of the JAX package's ``benchmarks/run.py``, with the sections
-the port has: Table 1, Fig. 4 and Table 2.  Prints
+the port has: Table 1, the lossy-channel and fault-tolerance tables,
+Fig. 4 and Table 2.  Prints
 ``name,us_per_call,derived`` CSV lines.  ``--full`` runs the paper-scale
 versions (minutes); the default quick mode checks the same qualitative
 claims at reduced scale.  Runs on the card.
@@ -32,9 +33,14 @@ def main() -> None:
             failures.append(name)
 
     from . import fig4_trajectory, table1_error_feedback, table2_space_comparison
+    from . import table_fault_tolerance, table_lossy_ef
 
     section("Table 1: error feedback ablation",
             lambda: table1_error_feedback.main(quick=quick))
+    section("Lossy-channel table: loss-robust EF vs naive EF vs no EF",
+            lambda: table_lossy_ef.main(quick=quick))
+    section("Fault-tolerance table: quorum+failover+robust-EF vs naive restart",
+            lambda: table_fault_tolerance.main(quick=quick))
     section("Fig 4: error trajectory",
             lambda: fig4_trajectory.main(quick=quick))
     section("Table 2: constellation comparison",

@@ -23,8 +23,11 @@ with ``init``/``round`` through the port's discrete-event engine
 The engine is numpy host code; the algorithm's state lives on a torch
 device (the card unless the caller built it on the CPU).  Per-round masks
 go to the state's device with ``torch.as_tensor``, and the algorithm's
-random numbers come from one ``torch.Generator`` on that device, seeded
-by ``run``'s ``seed``.  ``alg.round`` runs eagerly (no ``jit``).
+random numbers come from one ``torch.Generator`` on that device,
+re-seeded before round k with :func:`round_seeds`'s k-th seed (the
+counterpart of the JAX package's ``jax.random.split(key, n_rounds)``), so
+a run resumed from a checkpoint replays the rounds it missed with the
+same draws.  ``alg.round`` runs eagerly (no ``jit``).
 """
 from __future__ import annotations
 
@@ -41,9 +44,6 @@ from ..obs.trace import active as _obs_active
 from .compression import Compressor
 from .error_feedback import resync_cache
 from .pytree import tree_leaves, tree_map, tree_size, tree_split_keys, tree_where_mask
-
-_NO_CHECKPOINT = ("checkpoint/resume is not ported yet (ROADMAP Queue 1, "
-                  "checkpoint/store.py and checkpoint/run.py)")
 
 
 @dataclasses.dataclass
@@ -62,6 +62,15 @@ class RoundLog:
 
 def _device_of(state) -> torch.device:
     return tree_leaves(state.x)[0].device
+
+
+def round_seeds(seed: int, n_rounds: int) -> List[int]:
+    """One generator seed per round, drawn from a CPU generator seeded with
+    ``seed``.  Round k's seed depends on ``seed`` and k only, not on
+    ``n_rounds``: a longer run, or one resumed at round k, draws round k's
+    numbers as the first run did."""
+    g = torch.Generator().manual_seed(int(seed))
+    return torch.randint(0, 2**62, (n_rounds,), generator=g).tolist()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -187,21 +196,27 @@ class SpaceRunner:
 
     def run(self, alg, state, data, n_rounds: int, seed: int = 0,
             error_fn: Optional[Callable] = None,
-            log_every: int = 10, ckpt=None, resume: bool = False) -> tuple:
+            log_every: int = 10, ckpt=None, ckpt_every: int = 1,
+            resume: bool = False) -> tuple:
         """Drive ``n_rounds`` rounds; returns ``(state, [RoundLog, ...])``.
 
-        ``seed`` seeds the ``torch.Generator`` (on the state's device) that
-        the algorithm's stochastic compressors draw from.  ``ckpt`` and
-        ``resume`` raise ``NotImplementedError``: checkpoints are not
-        ported yet."""
-        if ckpt is not None or resume:
-            raise NotImplementedError(_NO_CHECKPOINT)
-        gen = torch.Generator(device=_device_of(state)).manual_seed(int(seed))
+        Before round k the ``torch.Generator`` (on the state's device) that
+        the algorithm's stochastic compressors draw from is seeded with
+        ``round_seeds(seed, n_rounds)[k]``.  ``ckpt`` (a
+        :class:`repro_torch.checkpoint.run.RunCheckpoint`) checkpoints the
+        run every ``ckpt_every`` sync rounds; ``resume=True`` restarts from
+        the newest intact checkpoint and continues bit for bit as the
+        uninterrupted run (sync mode only: the async delivery stream has
+        no round boundary to checkpoint at)."""
+        seeds = round_seeds(seed, n_rounds)
         if self.mode == "async":
-            return self._run_async(alg, state, data, n_rounds, gen,
+            if ckpt is not None or resume:
+                raise ValueError("checkpoint/resume is sync-only")
+            return self._run_async(alg, state, data, n_rounds, seeds,
                                    error_fn, log_every)
-        return self._run_sync(alg, state, data, n_rounds, gen, error_fn,
-                              log_every)
+        return self._run_sync(alg, state, data, n_rounds, seeds, error_fn,
+                              log_every, ckpt=ckpt, ckpt_every=ckpt_every,
+                              resume=resume)
 
     def _cohort_nbytes(self, state, cohorts) -> dict:
         """Measured on-wire bytes per satellite, grouped per cohort.
@@ -232,7 +247,9 @@ class SpaceRunner:
         return out
 
     # -- synchronous rounds ------------------------------------------------
-    def _run_sync(self, alg, state, data, n_rounds, gen, error_fn, log_every):
+    def _run_sync(self, alg, state, data, n_rounds, seeds, error_fn,
+                  log_every, ckpt=None, ckpt_every: int = 1,
+                  resume: bool = False):
         msg = self._msg_bytes(state)
         use_cohorts = (self.measure == "cohort" and self.compressor is not None
                        and self.compressor.wire_codec() is not None)
@@ -240,10 +257,36 @@ class SpaceRunner:
         wire_field = "z_hat" if hasattr(state, "z_hat") else "m_hat"
         has_cache = hasattr(state, "c_up")
         dev = _device_of(state)
+        gen = torch.Generator(device=dev)
         t, up_bytes, isl_bytes = 0.0, 0.0, 0.0
         logs: List[RoundLog] = []
         trc = _obs_active()       # read once; None ⇒ tracing fully off
-        for k in range(n_rounds):
+        start_k = 0
+        if ckpt is not None and resume:
+            loaded = ckpt.load(like=state)
+            if loaded is not None:
+                # bit-identical continuation: round k's seed is seeds[k],
+                # engine rounds are pure functions of (scenario, seed, t0),
+                # and the time cursor and accumulators restore exactly, so
+                # rounds >= start_k replay the uninterrupted run's floats
+                state, meta = loaded
+                start_k = int(meta.get("k_next", 0))
+                t = float(meta.get("t", 0.0))
+                up_bytes = float(meta.get("up_bytes", 0.0))
+                isl_bytes = float(meta.get("isl_bytes", 0.0))
+                logs = [RoundLog(**d) for d in meta.get("logs", [])]
+                if hasattr(self.engine, "_round_idx"):
+                    self.engine._round_idx = start_k   # trace round labels
+                if trc is not None:
+                    # replay the prefix's curves so a resumed trace carries
+                    # the full series
+                    trc.event("resume", k_next=start_k, t=float(t),
+                              bytes_up=float(up_bytes))
+                    for lg in logs:
+                        trc.series("bytes_up", lg.round, lg.bytes_up)
+                        if lg.error is not None:
+                            trc.series("e_K", lg.round, lg.error)
+        for k in range(start_k, n_rounds):
             if trc is None:
                 res = self.engine.run_round(t, msg)
             else:
@@ -295,6 +338,7 @@ class SpaceRunner:
             # coordinator-side wire is reverted below
             active_np = attempted if lossy else delivered
             active = torch.as_tensor(active_np, dtype=torch.bool, device=dev)
+            gen.manual_seed(seeds[k])
             if trc is None:
                 state_new, _ = alg.round(state, data, active, gen)
             else:
@@ -383,14 +427,20 @@ class SpaceRunner:
                            n_surv / n_att if n_att else 1.0)
                 if err is not None and err == err:
                     trc.series("e_K", k, err)
+            if ckpt is not None and ((k + 1) % ckpt_every == 0
+                                     or k == n_rounds - 1):
+                ckpt.save_round(state, step=k + 1, t=t, up_bytes=up_bytes,
+                                isl_bytes=isl_bytes, logs=logs)
         return state, logs
 
     # -- buffered-async (FedBuff-style) -------------------------------------
-    def _run_async(self, alg, state, data, n_rounds, gen, error_fn, log_every):
+    def _run_async(self, alg, state, data, n_rounds, seeds, error_fn,
+                   log_every):
         msg = self._msg_bytes(state)
         n_agents = tree_leaves(state.x)[0].shape[0]
         wire_field = "z_hat" if hasattr(state, "z_hat") else "m_hat"
         dev = _device_of(state)
+        gen = torch.Generator(device=dev)
 
         trc = _obs_active()       # read once; None ⇒ tracing fully off
         if trc is None:
@@ -421,6 +471,7 @@ class SpaceRunner:
             weights = np.where(active_np,
                                (1.0 + stale) ** (-self.staleness_alpha), 1.0)
             active = torch.as_tensor(active_np, dtype=torch.bool, device=dev)
+            gen.manual_seed(seeds[k])
             if trc is None:
                 new_state, _ = alg.round(state, data, active, gen)
             else:

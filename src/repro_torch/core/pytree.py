@@ -36,6 +36,31 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_flatten_with_names(tree) -> tuple:
+    """``(names, leaves)`` in :func:`tree_leaves` order, each name the path
+    to its leaf as ``jax.tree_util.keystr`` spells it: ``.x`` for a
+    NamedTuple field, ``['k']`` for a dict key, ``[0]`` for a sequence
+    index (``.x['w']``, ``.extra[0]``; ``''`` for a bare leaf)."""
+    names, leaves = [], []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif _is_namedtuple(node):
+            for field, v in zip(node._fields, node):
+                walk(v, f"{path}.{field}")
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        else:
+            names.append(path)
+            leaves.append(node)
+
+    walk(tree, "")
+    return names, leaves
+
+
 def tree_unflatten(template, leaves):
     """A tree shaped like ``template`` holding ``leaves`` in leaf order."""
     it = iter(leaves)

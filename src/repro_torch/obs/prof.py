@@ -40,19 +40,28 @@ slower, never *which stage*.  This module rides the existing
   flamegraph.pl all read;
 * **perfdiff** (:func:`perfdiff` / :func:`render_perfdiff`) — aligns two
   profiles by path, normalizes per round, and names the top regressed
-  phases with deltas.
+  phases with deltas;
+* **bench history** (:func:`ingest_bench` / :func:`render_history`) —
+  folds successive ``BENCH_*.json`` emissions into an append-only
+  ``runs/bench_history.jsonl`` (content-hashed entries, idempotent like
+  the run ledger) and renders per-metric trajectories with
+  regression-onset localization (first entry that degrades beyond
+  tolerance against the best value seen before it).
 
-The port's copy of the JAX package's ``obs/prof.py``, without its
-``BENCH_*.json`` history (the port has no benchmark files yet) and
-without a command line: :func:`collect`, :func:`render_profile`,
-:func:`folded` and :func:`perfdiff` are called from Python.
+The port's copy of the JAX package's ``obs/prof.py``; its command line
+is ``python -m repro_torch.obs prof | perfdiff | bench-history``.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .metrics import PHASE_BOUNDS, Histogram
+
+DEFAULT_HISTORY = os.path.join("runs", "bench_history.jsonl")
 
 # record kinds emitted by PhaseAcc.flush (host timing — NOT diff kinds)
 PHASE_KINDS = ("phase", "phase_total")
@@ -322,4 +331,112 @@ def render_perfdiff(d: dict, top: int = 8) -> str:
             for o in d["offenders"]))
     else:
         lines.append("no phase regressed beyond tolerance")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# bench history
+# ---------------------------------------------------------------------------
+
+def bench_id(benchmarks: dict) -> str:
+    """Deterministic 12-hex content hash over the benchmark metrics —
+    the same idiom as the run ledger's ``run_id``, so re-ingesting an
+    identical emission appends nothing."""
+    blob = json.dumps(benchmarks, sort_keys=True, separators=(",", ":"),
+                      allow_nan=False)
+    return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+def load_history(path: str) -> List[dict]:
+    if not os.path.exists(path):
+        return []
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return [e for e in out if e.get("kind") == "bench"]
+
+
+def ingest_bench(path: str, history_path: str = DEFAULT_HISTORY, *,
+                 sha: Optional[str] = None) -> Tuple[dict, bool]:
+    """Fold one ``BENCH_<group>.json`` into the append-only history.
+
+    Returns ``(entry, appended)`` — idempotent on the content hash."""
+    from .ledger import git_sha          # lazy: keeps prof import-light
+    with open(path) as f:
+        doc = json.load(f)
+    group = os.path.basename(path)
+    if group.startswith("BENCH_") and group.endswith(".json"):
+        group = group[len("BENCH_"):-len(".json")]
+    entry = {"kind": "bench", "group": group,
+             "tiny": bool(doc.get("tiny", False)),
+             "bench_id": bench_id(doc.get("benchmarks", {})),
+             "git_sha": sha if sha is not None else git_sha(),
+             "benchmarks": doc.get("benchmarks", {})}
+    existing = {(e["group"], e["bench_id"]) for e in
+                load_history(history_path)}
+    if (entry["group"], entry["bench_id"]) in existing:
+        return entry, False
+    d = os.path.dirname(history_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(history_path, "a") as f:
+        f.write(json.dumps(entry, sort_keys=True, allow_nan=False) + "\n")
+    return entry, True
+
+
+def _onset(values: List[float], hib: bool, tol: float) -> Optional[int]:
+    """First index whose value degrades beyond ``tol`` against the best
+    value seen before it (direction-aware); None when clean."""
+    best = None
+    for i, v in enumerate(values):
+        if best is not None:
+            if hib and v < best * (1.0 - tol):
+                return i
+            if not hib and v > best * (1.0 + tol):
+                return i
+        if best is None or (hib and v > best) or (not hib and v < best):
+            best = v
+    return None
+
+
+def render_history(entries: Sequence[dict], tol: float = 0.2) -> str:
+    """Per-metric trajectories across ingested emissions, localizing the
+    regression-onset entry (index + git sha) for any gated metric that
+    degraded beyond ``tol``."""
+    if not entries:
+        return "(empty bench history)"
+    series: Dict[Tuple[str, str, str], dict] = {}
+    for i, e in enumerate(entries):
+        for bench, metrics in e.get("benchmarks", {}).items():
+            for m, md in metrics.items():
+                s = series.setdefault(
+                    (e["group"], bench, m),
+                    {"values": [], "idx": [], "shas": [], "meta": md})
+                s["values"].append(md["value"])
+                s["idx"].append(i)
+                s["shas"].append(e.get("git_sha", "?"))
+                s["meta"] = md          # latest flags win
+    lines = [f"bench history: {len(entries)} emission(s)"]
+    n_reg = 0
+    for (group, bench, m) in sorted(series):
+        s = series[(group, bench, m)]
+        md = s["meta"]
+        gated = md.get("gate", False)
+        traj = " -> ".join(f"{v:.4g}" for v in s["values"][-8:])
+        tag = " [gate]" if gated else ""
+        line = f"  {bench}.{m}{tag}: {traj}"
+        onset = _onset(s["values"], md.get("higher_is_better", True), tol)
+        if onset is not None and gated:
+            n_reg += 1
+            prev_best = (max if md.get("higher_is_better", True)
+                         else min)(s["values"][:onset])
+            line += (f"\n    REGRESSION ONSET at emission "
+                     f"#{s['idx'][onset]} (git {s['shas'][onset]}): "
+                     f"{s['values'][onset]:.4g} vs best {prev_best:.4g} "
+                     f"(tol {tol:.0%})")
+        lines.append(line)
+    lines.append(f"gated regressions localized: {n_reg}")
     return "\n".join(lines)

@@ -33,6 +33,7 @@ from repro.data import logistic as jl
 from repro_torch import api as tapi
 from repro_torch import channel as tch
 from repro_torch import convert
+from repro_torch.checkpoint import store
 from repro_torch.core import compression as tc
 from repro_torch.core import error_feedback as te
 from repro_torch.core import fedlt as tf
@@ -166,18 +167,22 @@ def test_fused_uplink_launch_path_counts_no_launch_on_cpu(problem):
     assert ops.launch_counts() == before
 
 
-def test_not_ported_options_raise(problem):
+def test_not_ported_options_raise(problem, tmp_path):
+    """Checkpoints and the ledger are ported (``tests/test_torch_checkpoint.py``,
+    ``tests/test_torch_ledger.py``); what the reference refuses, the port
+    refuses too, and sharded checkpoints are not ported."""
     _, _, data_t, _ = problem
     q = tc.UniformQuantizer(**QUANT)
     alg = tf.FedLT(loss=tl.make_local_loss(50.0, N), uplink=te.EFChannel(q),
                    downlink=te.EFChannel(q), **TUNED)
     exp = tapi.Experiment("walker-kiruna", alg, compressor=q, device="cpu")
     st = exp.init(torch.zeros(D), N)
-    for kw in (dict(checkpoint="ckpt"), dict(resume=True), dict(ledger="l.jsonl")):
-        with pytest.raises(NotImplementedError):
-            exp.run(st, data_t, 1, **kw)
-    with pytest.raises(NotImplementedError):
-        tapi.ExperimentResult(st, []).ingest("l.jsonl")
+    with pytest.raises(ValueError, match="checkpoint"):
+        exp.run(st, data_t, 1, resume=True)
+    with pytest.raises(ValueError, match="no trace records"):
+        tapi.ExperimentResult(st, []).ingest(str(tmp_path / "l.jsonl"))
+    with pytest.raises(NotImplementedError, match="launch/"):
+        store.save(str(tmp_path / "ck"), st, specs=object())
     with pytest.raises(ValueError, match="sync-only"):
         tapi.Experiment("walker-kiruna", alg, mode="async", measure="cohort",
                         device="cpu")

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, and its entry points run on the card unless asked otherwise."""
 import ast
+import io
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ import torch
 from repro_torch import api, convert, resolve_device
 from repro_torch.bench import common, fig4_trajectory, sim_scale
 from repro_torch.bench import table1_error_feedback, table2_space_comparison
+from repro_torch.bench import table_fault_tolerance, table_lossy_ef, table_plane_agg
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.data import logistic
 from repro_torch.examples import satellite_constellation
@@ -79,10 +81,16 @@ def test_no_jax_or_repro_import(path):
     lambda: table2_space_comparison.run(mc_runs=1, rounds=1, scale=0.2),
     lambda: fig4_trajectory.run(rounds=1, scale=0.05),
     lambda: satellite_constellation.main(rounds=1),
+    lambda: table_lossy_ef.run([0.0], rounds=1, dim=2, m=2, verbose=False),
+    lambda: table_fault_tolerance.run([0.0], rounds=1, dim=2, m=2, verbose=False),
+    lambda: table_plane_agg.run_sweep(table_plane_agg.WALKER_ARMS[:1], rounds=1,
+                                      n_agents=100, dim=2, m=2),
+    lambda: report.convgate(str(ROOT / "CONV_reference.json"), out=io.StringIO()),
 ], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
         "run_canonical", "lossy_round", "round_pipeline", "init_params",
         "init_cache", "model_params_from_jax", "bench_problem", "table1",
-        "table2", "fig4", "constellation_example"])
+        "table2", "fig4", "constellation_example", "table_lossy_ef",
+        "table_fault_tolerance", "table_plane_agg", "convgate"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

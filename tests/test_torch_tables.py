@@ -29,6 +29,8 @@ from repro_torch.bench import fig4_trajectory as tfig4
 from repro_torch.bench import run as trun
 from repro_torch.bench import table1_error_feedback as tt1
 from repro_torch.bench import table2_space_comparison as tt2
+from repro_torch.bench import table_fault_tolerance as tfault
+from repro_torch.bench import table_lossy_ef as tlossy
 from repro_torch.data import logistic as tl
 
 
@@ -128,10 +130,12 @@ def test_csv_lines_and_the_driver(same_problem, monkeypatch, capsys):
     assert tt2.wins({(c, a): (1.0 if a == "fedlt" else 2.0, 0.0)
                      for c in tcommon.COMPRESSORS for a in tt2.ALGOS}) == 4
     calls = []
-    for mod in (tt1, tfig4, tt2):
+    for mod in (tt1, tlossy, tfault, tfig4, tt2):
         monkeypatch.setattr(mod, "main", lambda quick, mod=mod: calls.append(
             (mod.__name__, quick)))
     monkeypatch.setattr("sys.argv", ["run"])
     trun.main()
-    assert calls == [(tt1.__name__, True), (tfig4.__name__, True), (tt2.__name__, True)]
+    assert calls == [(tt1.__name__, True), (tlossy.__name__, True),
+                     (tfault.__name__, True), (tfig4.__name__, True),
+                     (tt2.__name__, True)]
     assert "all benchmark sections completed" in capsys.readouterr().out
