@@ -30,7 +30,12 @@ into ``build/``, then, each phase failing the run:
    float32 (2e-5, on the float32 route's kernel, flash_attention.cu) and
    bf16 (one bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the
    sm90 kernel, flash_attention_sm90.cu), each call's route read from the
-   launch counts; plus cases off the grid on both routes: a ring cache's
+   launch counts; flash_attention_bwd (csrc/flash_attention_bwd.cu)
+   against its plain version over S in {128, 257, 2048}, the same D and
+   heads, window in {None, 64}, softcap and offsets, in float32 (1e-4) and
+   bf16 (one rounding of the gradient: 2**-7 |plain| + 1e-3), two calls
+   equal bit for bit, rows that see no key, and FlashAttention's backward
+   on it; quant_pipeline also on bf16 msg and cache; plus cases off the grid on both routes: a ring cache's
    positions (rotated, empty slots at 2**30), a q view with a sliced start
    and one whose base is off 16 bytes (bf16: copied first for TMA;
    float32: read with 4-byte copies), head dims 100, 32 and 16 (and 33
@@ -134,16 +139,29 @@ into ``build/``, then, each phase failing the run:
     1.25x e_K gate holds with JAX's (``tests/test_torch_canonical.py``),
     so a failing verdict is recorded, not failed on.  The obs CLI's four
     subprocesses run beside phases 14 and 15.
+17. trains stablelm-1.6b at full width and depth in bf16 (random weights
+    from the launcher's seed) through ``python -m repro_torch.launch.train``'s
+    ``main``: 2 agents x batch 2 x 2048 tokens, 2 local epochs, 3 rounds and
+    a checkpoint on the last (17a): every loss finite and the last below
+    the first, each round's launches 96 flash_attention_bwd and 192
+    flash_attention_sm90 (24 layers x 2 agents x 2 epochs, the forward
+    twice under remat) and nothing else, the checkpoint restoring bit for
+    bit, ms per round and peak memory; then one round with pack_wire=True
+    (17b): one quant_pipeline and one unpack_bits launch per leaf of at
+    least 32768 values, and the fused uplink equal bit for bit to the
+    unfused one leaf by leaf (words, gathered values, means, caches); a
+    profiled round; and the model at depth 2 in float32 (17c), one round
+    with compression off through the kernels against plain attention
+    (autograd), every state leaf within rtol 1e-4 / atol 1e-5.
 
-Phases 11–16 run after phase 8.  The launch counts are zeroed just before
-each main-path run (phases 3–4, each run of phase 5, each chain run of
-phase 7, phase 8, each cell of phase 12 and phase 13, each resumed run of
-phase 14, each card run of phase 15, and the timed prefill, the decode
-steps and the depth-2 float32 prefills of phase 9) and read just after.
-Then it
-prints each phase's seconds ([time]), the card's name and power limit
-again, one JSON line with a
-record per kernel and, last,
+Phases 11–16 run after phase 8, phase 17 after phase 9.  The launch
+counts are zeroed just before each main-path run (phases 3–4, each run of
+phase 5, each chain run of phase 7, phase 8, each cell of phase 12 and
+phase 13, each resumed run of phase 14, each card run of phase 15, the
+timed prefill, the decode steps and the depth-2 float32 prefills of phase
+9, and the launcher's run and each later round of phase 17) and read just
+after.  Then it prints each phase's seconds ([time]), the card's name and
+power limit again, one JSON line with a record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
 """
@@ -226,6 +244,22 @@ CKPT_SAVES = 20               # save_round calls timed for the per-round cost
 # fault table at 2 of its 3 crash rates x 2 arms x 60 of 300 rounds, and the
 # plane-agg table's walker sweep at 10 of 60 rounds (not its mega sweep),
 # with its --smoke; N, m and d are each table's own
+# phase 17: federated training of stablelm-1.6b at full width and depth in
+# bf16 through python -m repro_torch.launch.train, with the launcher's
+# traffic at --seq 2048 (16 key tiles of 128), then one packed-wire round
+# and the depth-2 float32 kernel-vs-plain round
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_AGENTS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EPOCHS, TRAIN_ROUNDS = 2, 2, 2048, 2, 3
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--agents", str(TRAIN_AGENTS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--n-epochs", str(TRAIN_EPOCHS),
+              "--gamma", "0.02", "--rho", "10", "--rounds", str(TRAIN_ROUNDS)]
+# the depth-2 float32 round, kernels (backend chunked) against plain
+# attention (backend xla): (rtol, atol) on every state leaf
+TRAIN_F32_TOL = (1e-4, 1e-5)
+# and lm_loss's gradient at depth 2, float32, leaf by leaf: max |kernels -
+# plain| <= TRAIN_GRAD_RTOL max |plain| (3.8e-6 measured on an H100 80GB
+# HBM3 at 700 W); a backward that zeroes dq, dk or dv parts by 1.0 there
+TRAIN_GRAD_RTOL = 1e-4
 LOSSY_CUT = dict(loss_rates=[0.0, 0.2], rounds=100)
 FAULT_CUT = dict(crash_rates=[0.0, 0.1], rounds=60)
 PLANE_CUT_ROUNDS = 10
@@ -241,11 +275,12 @@ def check(cond, msg: str) -> None:
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal bit patterns (uint32 words, or floats including signed zeros)."""
+    """Equal bit patterns (uint32 words, or floats including signed zeros;
+    bf16 read through int16)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    return torch.equal(a.contiguous().view(torch.int32),
-                       b.contiguous().view(torch.int32))
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int))
 
 
 def same_wire(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -419,12 +454,36 @@ def phase_kernels(rng) -> dict:
                                         float((newc - newc_p).abs().max()))
         print(f"[kernels] quant_pipeline n={n} (L, vmin, vmax) in "
               f"{QUANT_CONFIGS}: {TOL}")
+    check_quant_bf16(rng)
     check_quantize_ef(rng, err)
     check_erasure_mask(rng, err)
     check_sign_pipeline(rng, err)
     check_flash_attention(err)
+    check_flash_bwd(err)
     torch.cuda.synchronize()
     return err
+
+
+def check_quant_bf16(rng) -> None:
+    """quant_pipeline on bf16 msg and cache (a bf16 model's uplink) against
+    its plain version: one launch each, words word for word, the bf16 new
+    cache bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.compress_pipeline import quant_pipeline
+    for n in SIZES:
+        for levels, vmin, vmax in QUANT_CONFIGS:
+            msg, cache = (t.to(torch.bfloat16) for t in quant_inputs(n, levels, vmin,
+                                                                     vmax, rng))
+            (words, newc), made = launched(lambda: quant_pipeline(
+                msg, cache, levels=levels, vmin=vmin, vmax=vmax))
+            words_p, newc_p = ref.quant_pipeline_ref(msg, cache, levels=levels,
+                                                     vmin=vmin, vmax=vmax)
+            check(made == {"quant_pipeline": 1} and newc.dtype == torch.bfloat16
+                  and same_bits(words, words_p) and same_bits(newc, newc_p),
+                  f"quant_pipeline bf16 n={n} L={levels} ±{vmax}: launches {made}, "
+                  "or words or bf16 new cache differ from its plain version")
+        print(f"[kernels] quant_pipeline bf16 msg and cache, n={n}, the same "
+              f"(L, vmin, vmax): one launch each, {TOL} (new cache in bf16)")
 
 
 def check_quantize_ef(rng, err: dict) -> None:
@@ -658,11 +717,31 @@ def check_flash_attention(err: dict) -> None:
         worst[name] = max(worst[name], *check_flash_layouts(fa, ref, gen, dtype))
     for name, e in check_flash_no_key(fa, ref, gen).items():
         worst[name] = max(worst[name], e)
+    for name, e in check_flash_train_shape(fa, ref).items():
+        worst[name] = max(worst[name], e)
     err.update(worst)
     print(f"[kernels] flash_attention: within tolerance of its plain version in "
           f"all cases; max_abs_err float32 (flash_attention) "
           f"{worst['flash_attention']:.3e}, bf16 (flash_attention_sm90) "
           f"{worst['flash_attention_sm90']:.3e}")
+
+
+def check_flash_train_shape(fa, ref) -> dict:
+    """Both routes at the training path's shape (TRAIN_ATTN: B=2, S=2048,
+    H=Hkv=32, D=64, causal; bf16 in 17a-17b, float32 in 17c) against the
+    plain version.  {route: max_abs_err}."""
+    t, errs = TRAIN_ATTN, {}
+    for dtype in FLASH_TOL:
+        q, k, v, pos = attention_inputs(t["b"], t["s"], t["h"], t["hkv"], t["d"], dtype, 8)
+        out, took = flash_route_call(fa, q, k, v, pos, pos, causal=True)
+        check(took == fa.route(dtype, DEV), f"training shape {dtype} ran {took}")
+        errs[took] = flash_check(out, ref.flash_attention_ref(q, k, v, pos, pos, causal=True),
+                                 f"{dtype} at the training shape {t}")
+        print(f"[kernels] {took} ({str(dtype)[6:]}) at the training shape B={t['b']} "
+              f"S={t['s']} H={t['h']}/{t['hkv']} D={t['d']} causal: max_abs_err "
+              f"{errs[took]:.1e} (within {FLASH_TOL[dtype][1]} + "
+              f"{FLASH_TOL[dtype][0]:.4g} |plain|)")
+    return errs
 
 
 def check_flash_no_key(fa, ref, gen) -> dict:
@@ -775,6 +854,103 @@ def check_flash_layouts(fa, ref, gen, dtype) -> list:
           + ("; 140,000 keys, window None/4096" if long_k else "") + ": max_abs_err "
           + " ".join(f"{e:.1e}" for e in errs))
     return errs
+
+
+FLASH_BWD_S = (128, 257, 2048)
+FLASH_BWD_WINDOWS = (None, 64)
+# flash_attention_bwd against its plain version: (rtol, atol) for |kernel -
+# plain| <= atol + rtol |plain|, on unit-scale q, k, v and dout.  float32:
+# both sum in float32 in other orders; bf16: both sum in float32 and round
+# the gradient to bf16 once, so they differ by one rounding
+FLASH_BWD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2**-7, 1e-3)}
+# the training path's attention: stablelm-1.6b at --batch 2 --seq 2048
+TRAIN_ATTN = dict(b=2, s=2048, h=32, hkv=32, d=64)
+
+
+def flash_bwd_check(got, plain, what: str) -> float:
+    """Fail unless each of (dq, dk, dv) is within FLASH_BWD_TOL of the
+    plain version's; the largest max_abs_err of the three."""
+    rtol, atol = FLASH_BWD_TOL[plain[0].dtype]
+    errs = []
+    for name, g, p in zip(("dq", "dk", "dv"), got, plain):
+        g, p = g.float(), p.float()
+        e = float((g - p).abs().max())
+        check(bool(torch.isfinite(g).all()) and torch.allclose(g, p, rtol=rtol, atol=atol),
+              f"flash_attention_bwd {what}: {name} max_abs_err {e}, over atol {atol} "
+              f"+ rtol {rtol} |plain|")
+        errs.append(e)
+    return max(errs)
+
+
+def check_flash_bwd(err: dict) -> None:
+    """flash_attention_bwd (csrc/flash_attention_bwd.cu) against its plain
+    version over the forward grid's cases at S in FLASH_BWD_S, window in
+    FLASH_BWD_WINDOWS, offset positions and keys ahead of the queries (rows
+    that see no key), in float32 and bf16: one launch each, and a second
+    call equal bit for bit.  Then through FlashAttention: a forward on its
+    route and a backward on this kernel, from the launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    worst = 0.0
+    for dtype, tol in FLASH_BWD_TOL.items():
+        for s in FLASH_BWD_S:
+            for d in FLASH_D:
+                for h, hkv in FLASH_HEADS:
+                    errs = []
+                    for window in FLASH_BWD_WINDOWS:
+                        for cap in FLASH_CAPS:
+                            for offset in (False, True):
+                                q, k, v, qp, kp = flash_case(s, d, h, hkv, offset, dtype,
+                                                             gen)
+                                do = torch.randn(q.shape, generator=gen,
+                                                 device=DEV).to(dtype)
+                                kw = dict(causal=True, window=window, softcap=cap)
+                                what = (f"{dtype} S={s} D={d} H={h}/{hkv} window={window} "
+                                        f"softcap={cap} offset={offset}")
+                                got, made = launched(lambda: fa.flash_attention_bwd(
+                                    q, k, v, do, qp, kp, **kw))
+                                check(made == {"flash_attention_bwd": 1},
+                                      f"flash_attention_bwd {what} launched {made}")
+                                again = fa.flash_attention_bwd(q, k, v, do, qp, kp, **kw)
+                                check(all(same_bits(a, b) for a, b in zip(got, again)),
+                                      f"flash_attention_bwd {what}: two calls differ")
+                                errs.append(flash_bwd_check(
+                                    got, ref.flash_attention_bwd_ref(q, k, v, do, qp, kp,
+                                                                     **kw), what))
+                    worst = max(worst, *errs)
+                    print(f"[kernels] flash_attention_bwd ({str(dtype)[6:]}) S={s} D={d} "
+                          f"H={h}/{hkv}: max_abs_err of dq, dk, dv per (window, softcap, "
+                          f"offset) in {FLASH_BWD_WINDOWS}x{FLASH_CAPS}x(no, yes): "
+                          + " ".join(f"{e:.1e}" for e in errs)
+                          + f" (within {tol[1]} + {tol[0]:.4g} |plain|); two calls equal "
+                          "bit for bit")
+    ahead = torch.arange(192, 192 + 385, dtype=torch.int32, device=DEV)
+    for dtype in FLASH_BWD_TOL:
+        q, k, v, qp, _ = flash_case(385, 120, 32, 8, False, dtype, gen)
+        do = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+        for window in (None, 64):
+            kw = dict(causal=True, window=window, softcap=30.0 if window else None)
+            got = fa.flash_attention_bwd(q, k, v, do, qp, ahead, **kw)
+            e = flash_bwd_check(got, ref.flash_attention_bwd_ref(q, k, v, do, qp, ahead,
+                                                                 **kw),
+                                f"{dtype} keys ahead of the queries window={window}")
+            check(float(got[0][:, :192].float().abs().max()) == 0.0,
+                  f"{dtype}: rows that see no key have a nonzero dq")
+            worst = max(worst, e)
+        # through the autograd Function: forward on the dtype's route, backward here
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        (grads, made) = launched(lambda: torch.autograd.grad(
+            fa.flash_attention(qg, kg, vg, qp, ahead, window=64), (qg, kg, vg), do))
+        check(made == {fa.route(dtype, DEV): 1, "flash_attention_bwd": 1},
+              f"FlashAttention {dtype}: forward and backward launched {made}")
+        worst = max(worst, flash_bwd_check(grads, ref.flash_attention_bwd_ref(
+            q, k, v, do, qp, ahead, causal=True, window=64), f"{dtype} FlashAttention"))
+    err["flash_attention_bwd"] = worst
+    print(f"[kernels] flash_attention_bwd: keys ahead of the queries (S=385, rows 0..191 "
+          f"see no key: dq 0 there, dv gains their dO / Sk) and FlashAttention's "
+          f"backward (one {{route}} and one flash_attention_bwd launch) within tolerance "
+          f"in float32 and bf16; max_abs_err over the grid {worst:.3e}")
 
 
 # -- phases 3 and 4: the main path -----------------------------------------
@@ -1588,6 +1764,317 @@ def phase_convgate(run: dict) -> dict:
     return dict(rc=rc, verdicts=verdicts)
 
 
+# -- phase 17: federated training of stablelm-1.6b -----------------------------
+
+def train_config(**changes):
+    from repro_torch.configs import get
+    return dataclasses.replace(get(TRAIN_ARCH), **changes)
+
+
+def train_batch(cfg, round_idx: int) -> dict:
+    """The launcher's batch of round ``round_idx``: agent i draws from
+    seeded(11 + i, round_idx)."""
+    from repro_torch.data.synthetic import make_batch, seeded, stack_batches
+    return stack_batches([make_batch(cfg, seeded(11 + i, round_idx), TRAIN_BATCH,
+                                     TRAIN_SEQ, device=DEV) for i in range(TRAIN_AGENTS)])
+
+
+def train_attention_launches(cfg, dtype) -> dict:
+    """Attention launches of one round: each of the layers' forwards twice
+    per epoch and agent (the forward, and remat's recompute in the
+    backward, on the dtype's route) and its backward once."""
+    from repro_torch.kernels import flash_attention as fa
+    n = cfg.n_layers * TRAIN_AGENTS * TRAIN_EPOCHS
+    return {fa.route(dtype, DEV): 2 * n, "flash_attention_bwd": n}
+
+
+def phase_train(launches: dict) -> dict:
+    """17a: ``repro_torch.launch.train.main`` on stablelm-1.6b at full width
+    and depth in bf16 (random weights from the launcher's seed), TRAIN_ROUNDS
+    rounds with a checkpoint on the last: every round's loss finite and the
+    last below the first, each round's attention launches as derived, and
+    the checkpoint restoring bit for bit."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    cfg = train_config()
+    ckpt = BUILD / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()            # the main path: the launcher's rounds
+    t0 = time.perf_counter()
+    run = train.main(TRAIN_ARGV + ["--checkpoint-dir", str(ckpt)], device=DEV)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts.items():
+        launches[k] += v
+    want = train_attention_launches(cfg, torch.bfloat16)
+    check(all(r == want for r in run.launches), f"training rounds launched "
+          f"{run.launches}, expected {want} each (no other kernel: the wire is not "
+          "packed)")
+    check(all(math.isfinite(x) for x in run.losses) and run.losses[-1] < run.losses[0],
+          f"training losses {run.losses}: not finite, or the last not below the first")
+    restored = store.restore(run.checkpoints[-1], run.state.y_hat)
+    check(all(same_bits(a, b) for a, b in zip(tree_leaves(restored),
+                                              tree_leaves(run.state.y_hat))),
+          "the last round's checkpoint of y_hat does not restore bit for bit")
+    del restored
+    n_params = sum(t.numel() for t in tree_leaves(run.state.y_hat))
+    out = {"arch": TRAIN_ARCH, "params": n_params, "losses": run.losses,
+           "ms_per_round": [1e3 * x for x in run.seconds], "launches_per_round": want,
+           "peak_bytes": peak, "total_s": total_s, "checkpoint": run.checkpoints[-1]}
+    print(f"[train] {TRAIN_ARCH} at full width and depth, bf16, {n_params} parameters, "
+          f"{TRAIN_AGENTS} agents x batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{TRAIN_EPOCHS} epochs a round: losses "
+          + ", ".join(f"{x:.4f}" for x in run.losses) + "; ms per round "
+          + ", ".join(f"{x:.1f}" for x in out["ms_per_round"])
+          + f" (host clock to the loss read back); launches per round {want} "
+          f"(flash_attention_bwd from the card's kernel, never the plain version); "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); checkpoint "
+          f"round {TRAIN_ROUNDS} restores bit for bit; {total_s:.1f} s with set-up")
+    return out, run.state
+
+
+def same_ints(a: torch.Tensor, b: torch.Tensor, piece: int = 2**26) -> bool:
+    """Equal integer values (any widths), compared a piece at a time."""
+    from repro_torch.kernels.ref import as_int64
+    a, b = a.reshape(-1), b.reshape(-1)
+    return a.numel() == b.numel() and all(
+        torch.equal(as_int64(a[s:s + piece]), as_int64(b[s:s + piece]))
+        for s in range(0, a.numel(), piece))
+
+
+def check_leaf_plain(z, c, ints, words_q, nc_q, words_p, q: dict, bits: int) -> None:
+    """quant_pipeline's words and new cache and pack_bits' words for one
+    leaf against their plain versions (ref.quant_pipeline_ref,
+    ref.pack_bits_ref), a piece of 2**26 values (2048 tiles) at a time:
+    words word for word, cache bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    piece = 2048 * _TILE_VALS
+    zf, cf, nf, intsf = z.reshape(-1), c.reshape(-1), nc_q.reshape(-1), ints.reshape(-1)
+    for s in range(0, zf.numel(), piece):
+        e = min(zf.numel(), s + piece)
+        w_ref, nc_ref = ref.quant_pipeline_ref(zf[s:e], cf[s:e], **q)
+        ws = s // 32 * bits
+        check(same_bits(words_q[ws:ws + w_ref.numel()], w_ref)
+              and same_bits(nf[s:e], nc_ref)
+              and same_bits(words_p[ws:ws + w_ref.numel()],
+                            ref.pack_bits_ref(intsf[s:e], bits)),
+              f"a {tuple(z.shape)} {z.dtype} leaf, values {s}..{e}: quant_pipeline or "
+              "pack_bits differs from its plain version")
+        del w_ref, nc_ref
+
+
+def phase_train_packed(state, launches: dict) -> dict:
+    """17b: one round of the same model with ``pack_wire=True`` from the
+    launcher's last state: one quant_pipeline and one unpack_bits launch per
+    leaf of at least one tile (bf16 weights and float32 norms alike); then,
+    leaf by leaf on that state: unpack_bits of quant_pipeline's words and
+    of pack_bits' words equal to the plain quantizer's level ints
+    (``deploy._quantize_ef``, PyTorch ops) and quant_pipeline's new cache
+    to its cache, bit for bit; the fused uplink against the unfused one
+    (the quantizer and pack_bits): words, gathered values, their agent mean
+    and the new EF cache equal bit for bit, and the round's cache the fused
+    one's; and on the largest leaf, quant_pipeline and pack_bits against
+    their plain versions word for word."""
+    from repro_torch.core.deploy import DeployFedLT, _quantize_ef
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    cfg = train_config()
+    alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0, pack_wire=True)
+    unfused = dataclasses.replace(alg, fuse_pipeline=False)
+    batch = train_batch(cfg, TRAIN_ROUNDS)
+    tiles = [x for x in tree_leaves(state.x) if x.numel() >= _TILE_VALS]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()            # the main path: one packed round
+    (new, metrics), ms = sync_ms(lambda: alg.round_step(state, batch))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts.items():
+        launches[k] += v
+    want = dict(train_attention_launches(cfg, torch.bfloat16),
+                quant_pipeline=len(tiles), unpack_bits=len(tiles))
+    check(counts == want, f"packed round launched {counts}, expected {want}")
+    check(math.isfinite(float(metrics["loss"])), "packed round's loss not finite")
+    q = alg.quant
+    bits, n_vals, dtypes = alg.wire_word_bits, 0, {}
+    largest = max(x.numel() for x in tiles)
+    for z, c, c_new in zip(tree_leaves(new.z), tree_leaves(state.c_up),
+                           tree_leaves(new.c_up)):
+        if z.numel() < _TILE_VALS:
+            continue
+        what = f"packed uplink of a {tuple(z.shape)} {z.dtype} leaf"
+        ints, nc_plain = _quantize_ef(z, c, q)
+        words_f, nc_q = ops.quant_pipeline(z, c, **q)
+        words_u = ops.pack_bits(ints, bits)
+        check(same_ints(ops.unpack_bits(words_f, bits, z.numel()), ints)
+              and same_ints(ops.unpack_bits(words_u, bits, z.numel()), ints),
+              f"{what}: unpack_bits of quant_pipeline's or pack_bits' words differs "
+              "from the plain level ints")
+        check(same_bits(nc_q, nc_plain), f"{what}: quant_pipeline's new cache differs "
+              "from the plain quantizer's")
+        if z.numel() == largest:
+            check_leaf_plain(z, c, ints, words_f, nc_q, words_u, q, bits)
+        del ints, nc_plain, nc_q
+        (g_f, nc_f), (g_u, nc_u) = alg.uplink_leaf(z, c), unfused.uplink_leaf(z, c)
+        check(same_bits(words_f, words_u) and same_bits(g_f, g_u)
+              and same_bits(nc_f, nc_u) and same_bits(nc_f, c_new)
+              and same_bits(g_f.mean(dim=0), g_u.mean(dim=0)),
+              f"{what}: fused and unfused words, gathered values, means or caches differ")
+        n_vals += z.numel()
+        dtypes[str(z.dtype)[6:]] = dtypes.get(str(z.dtype)[6:], 0) + 1
+        del g_f, nc_f, g_u, nc_u, words_f, words_u
+    # the fused uplink kernel alone on the largest leaf (bf16, with the agent
+    # axis): 4 B read and 2 B written per value and b/8 B of words
+    z, c = max(((z, c) for z, c in zip(tree_leaves(new.z), tree_leaves(state.c_up))),
+               key=lambda zc: zc[0].numel())
+    leaf_ms = time_ms(lambda: ops.quant_pipeline(z, c, **q), iters=3, warmup=1)
+    leaf_bound, _ = bound(z.numel() * (3 * z.element_size() + bits / 8), 44 * z.numel())
+    print(f"[times] quant_pipeline on the largest leaf, {tuple(z.shape)} {z.dtype}, "
+          f"L={alg.levels}: {leaf_ms:.3f} ms, bound {leaf_bound:.3f} ms by bytes "
+          f"({100 * leaf_bound / leaf_ms:.1f}% of it)")
+    del z, c
+    out = {"ms": ms, "launches": counts, "tile_leaves": len(tiles), "values": n_vals,
+           "largest_leaf_kernel_ms": leaf_ms, "largest_leaf_bound_ms": leaf_bound,
+           "leaf_dtypes": dtypes, "largest_leaf": max(x.numel() for x in tiles),
+           "peak_bytes": peak, "loss": float(metrics["loss"])}
+    print(f"[train] packed wire (levels {alg.levels}, {bits}-bit words), one round: "
+          f"{ms:.1f} ms, launches {counts}: one quant_pipeline and one unpack_bits per "
+          f"leaf of >= {_TILE_VALS} values ({len(tiles)} leaves, {dtypes} by dtype, "
+          f"{n_vals} values, the largest {out['largest_leaf']}); leaf by leaf, "
+          f"unpack_bits of both routes' words equal to the plain level ints and "
+          f"quant_pipeline's cache to the plain one, bit for bit; fused and unfused "
+          f"uplinks equal bit for bit (words, gathered values, agent means, new "
+          f"caches); on the largest leaf quant_pipeline and pack_bits equal to their "
+          f"plain versions word for word; peak memory {peak / 2**30:.2f} GiB")
+    return out
+
+
+def lm_grads(cfg, params, batch, backend: str) -> list:
+    """lm_loss's gradient, one tensor per parameter leaf."""
+    from repro_torch.core.pytree import tree_leaves, tree_unflatten
+    from repro_torch.models.transformer import lm_loss
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss = lm_loss(tree_unflatten(params, leaves), cfg, batch, backend=backend)
+    return list(torch.autograd.grad(loss, leaves))
+
+
+def grad_gaps(got, plain) -> list:
+    """Per leaf: max |got - plain| / max |plain|."""
+    return [float((g - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+            for g, p in zip(got, plain)]
+
+
+def grads_with_zeroed(cfg, params, batch, which: int) -> list:
+    """A control: lm_loss's gradient through the kernels with the
+    backward's output ``which`` (0 dq, 1 dk, 2 dv) replaced by zeros."""
+    from repro_torch.kernels import flash_attention as fa
+    orig = fa.FlashAttention.backward
+
+    def zeroed(ctx, dout):
+        out = list(orig(ctx, dout))
+        out[which] = torch.zeros_like(out[which])
+        return tuple(out)
+
+    fa.FlashAttention.backward = staticmethod(zeroed)
+    try:
+        return lm_grads(cfg, params, batch, "chunked")
+    finally:
+        fa.FlashAttention.backward = staticmethod(orig)
+
+
+def phase_train_f32(launches: dict) -> dict:
+    """17c: stablelm-1.6b at full width, depth 2, float32, from one state:
+    lm_loss's gradient with the kernels (backend chunked: flash_attention
+    forward, flash_attention_bwd backward) against plain attention
+    differentiated by autograd (backend xla), every leaf within
+    TRAIN_GRAD_RTOL of its largest plain value, while a backward that
+    zeroes dq, dk or dv fails that check (the control); then one round with
+    compression off each way, every state leaf within TRAIN_F32_TOL."""
+    from repro_torch.core.deploy import DeployFedLT
+    from repro_torch.core.pytree import tree_flatten_with_names, tree_leaves
+    from repro_torch.kernels import ops
+    cfg = train_config(n_layers=2, scan_repeats=2, dtype="float32")
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    algs = {b: DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0,
+                           compress=False, backend=b) for b in ("chunked", "xla")}
+    state = algs["chunked"].init(TRAIN_AGENTS, generator=gen, device=DEV)
+    batch = train_batch(cfg, 0)
+    names = tree_flatten_with_names(state.y_hat)[0]
+    one = {k: t[0] for k, t in batch.items()}
+    grads, made = {}, {}
+    for b in algs:
+        ops.reset_launch_counts()
+        grads[b] = lm_grads(cfg, state.y_hat, one, b)
+        made[b] = {k: v for k, v in ops.launch_counts().items() if v}
+    fa_want = {k: v // (TRAIN_AGENTS * TRAIN_EPOCHS)
+               for k, v in train_attention_launches(cfg, torch.float32).items()}
+    check(made == {"chunked": fa_want, "xla": {}}, f"depth-2 float32 gradients launched "
+          f"{made}, expected {fa_want} with the kernels and none with plain attention")
+    gaps = grad_gaps(grads["chunked"], grads["xla"])
+    at = max(range(len(gaps)), key=gaps.__getitem__)
+    check(max(gaps) <= TRAIN_GRAD_RTOL, f"depth-2 float32 gradient of {names[at]} parts "
+          f"from plain attention's by {gaps[at]:.3e} of its largest value, over "
+          f"{TRAIN_GRAD_RTOL}")
+    controls = {}
+    for which, label in enumerate(("dq", "dk", "dv")):
+        g = grad_gaps(grads_with_zeroed(cfg, state.y_hat, one, which), grads["xla"])
+        i = max(range(len(g)), key=g.__getitem__)
+        controls[label] = {"leaf": names[i], "gap": g[i]}
+        check(g[i] > TRAIN_GRAD_RTOL, f"control with {label} zeroed passes the gradient "
+              f"check (largest gap {g[i]:.3e} at {names[i]}): it cannot see a wrong "
+              "backward")
+        del g
+    del grads
+    new = {}
+    for b, alg in algs.items():
+        ops.reset_launch_counts()
+        new[b], _ = alg.round_step(state, batch)
+        made[b] = {k: v for k, v in ops.launch_counts().items() if v}
+    for k, v in made["chunked"].items():
+        launches[k] += v
+    want = train_attention_launches(cfg, torch.float32)
+    check(made == {"chunked": want, "xla": {}}, f"depth-2 float32 rounds launched {made}, "
+          f"expected {want} with the kernels and none with plain attention")
+    rtol, atol = TRAIN_F32_TOL
+    worst_abs = worst_rel = 0.0
+    for a, b in zip(tree_leaves(tuple(new["chunked"])[:5]), tree_leaves(tuple(new["xla"])[:5])):
+        d = (a - b).abs()
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float((d / b.abs().clamp(min=atol)).max()))
+        check(torch.allclose(a, b, rtol=rtol, atol=atol), f"depth-2 float32 round: a "
+              f"{tuple(a.shape)} leaf parts from plain attention's by {float(d.max())}")
+    print(f"[train] {TRAIN_ARCH} at full width, depth 2, float32: lm_loss's gradient "
+          f"with the kernels ({fa_want}) against plain attention (autograd, no launch): "
+          f"largest gap per leaf {gaps[at]:.3e} of the leaf's largest value at "
+          f"{names[at]} (limit {TRAIN_GRAD_RTOL}); controls with the backward's output "
+          f"zeroed: " + ", ".join(f"{k} {v['gap']:.3e} at {v['leaf']}"
+                                  for k, v in controls.items())
+          + f" (each over the limit: the check fails them); one round with compression "
+          f"off each way ({want}): every state leaf within rtol {rtol} / atol {atol}; "
+          f"max abs diff {worst_abs:.3e}, max rel diff (over |plain| >= {atol}) "
+          f"{worst_rel:.3e}")
+    return {"max_abs_diff": worst_abs, "max_rel_diff": worst_rel, "launches": want,
+            "grad_gap": gaps[at], "grad_gap_leaf": names[at], "controls": controls}
+
+
+def profile_train(state) -> None:
+    """Where a training round's time goes: one more round from 17a's last
+    state under torch.profiler (device busy share, time by kernel)."""
+    cfg = train_config()
+    from repro_torch.core.deploy import DeployFedLT
+    alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0)
+    batch = train_batch(cfg, TRAIN_ROUNDS + 1)
+    phase_profile(lambda: alg.round_step(state, batch), 1,
+                  f"train {TRAIN_ARCH} bf16 round (2 agents x 2 x {TRAIN_SEQ})")
+
+
 # -- phase 9: serving h2o-danube-3-4b -----------------------------------------
 
 def serve_config(**changes):
@@ -1972,18 +2459,24 @@ def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> float:
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / rounds
-    # device kernels only: the dispatchers' record_function ranges
-    # ("repro.kernels.<name>") also carry device time, which would count
-    # their kernels twice
+    # device kernels only: the record_function ranges (the dispatchers'
+    # "repro.kernels.<name>", the training round's "fedlt.<stage>") also
+    # carry device time, which would count their kernels twice
     device = [e for e in prof.key_averages() if e.self_device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("repro.kernels.")]
+              and not e.key.startswith(("repro.kernels.", "fedlt."))]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / rounds
     launches = sum(e.count for e in device) / rounds
     print(f"[profile] {tag}: {rounds} {unit}s under torch.profiler: wall "
           f"{wall_ms:.3f} ms per {unit}, device busy {busy_ms:.3f} ms per {unit} "
           f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} device ops per {unit}; "
           f"the session with its averages {time.perf_counter() - t_session:.1f} s")
+    stages = {e.key: e.self_device_time_total / 1e3 / rounds for e in prof.key_averages()
+              if e.key.startswith("fedlt.") and e.self_device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA}
+    if stages:
+        print(f"[profile] {tag}: device ms per {unit} by stage (record_function spans): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/{unit} "
               f"{e.count / rounds:6.0f}x/{unit} "
@@ -2097,6 +2590,14 @@ def phase_times(rng) -> dict:
                 nbytes, ops = 12 * n + word_bytes, 12 * n + bit_ops
             out.setdefault(name, []).append(
                 time_record(name, n, bits, kern, plain, iters, nbytes, ops))
+    # quant_pipeline on bf16 msg and cache (a bf16 model's uplink), L=255
+    msg, cache = (t.to(torch.bfloat16) for t in quant_inputs(BIG_N, 255, -1.0, 1.0, rng))
+    out["quant_pipeline_bf16"] = time_record(
+        "quant_pipeline", BIG_N, 8,
+        lambda: quant_pipeline(msg, cache, levels=255, vmin=-1.0, vmax=1.0),
+        lambda: ref.quant_pipeline_ref(msg, cache, levels=255, vmin=-1.0, vmax=1.0),
+        20, 7 * BIG_N, 12 * BIG_N + 32 * BIG_N)
+    del msg, cache
     # the transport's kernels at its shapes: one satellite's update (2,048
     # values, L=255 → uint8) and one tile of 8-bit words (8,192 words)
     from repro_torch.kernels.erasure_mask import erasure_mask
@@ -2141,6 +2642,7 @@ def phase_times(rng) -> dict:
         out.setdefault("sign_pipeline", []).append(rec)
     out["flash_attention_sm90"] = [time_flash_sm90()]
     out["flash_attention"] = [time_flash_f32()]
+    out["flash_attention_bwd"] = [time_flash_bwd()]
     return out
 
 
@@ -2361,6 +2863,78 @@ def time_flash_f32() -> dict:
     return rec
 
 
+def time_flash_bwd() -> dict:
+    """flash_attention_bwd at the training path's shape (stablelm-1.6b,
+    B=2, S=2048, H=Hkv=32, D=64, causal, bf16) beside its bound (the five
+    S^2 D products of the gradient plus the log-sum-exp's Q K^T, 2 D flops
+    per visible pair each, at 989 TFLOP/s bf16, against q, k, v and dout
+    read and dq, dk, dv written once), the plain version, and the backward
+    of torch.nn.functional.scaled_dot_product_attention (is_causal; timed
+    only, the port never calls it).  Least of two runs in turns."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    t = TRAIN_ATTN
+    q, k, v, pos = attention_inputs(t["b"], t["s"], t["h"], t["hkv"], t["d"],
+                                    torch.bfloat16, 6)
+    do = torch.randn(q.shape, device=DEV).to(torch.bfloat16)
+    pairs = int(ref.attention_mask(pos, pos, causal=True).sum())
+    flops = 6 * 2 * t["d"] * pairs * t["b"] * t["h"]
+    nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    fns = {"plain": lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos),
+           "kern": lambda: fa.flash_attention_bwd(q, k, v, do, pos, pos),
+           "sdpa": lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                               retain_graph=True)}
+    runs = time_turns(fns, dict(plain=2, kern=5, sdpa=10))
+    ms = min(runs["kern"])
+    got = fns["kern"]()
+    e = flash_bwd_check(got, fns["plain"](), "at the training shape")
+    rec = {"shape": [t["b"], t["s"], t["h"], t["hkv"], t["d"]], "dtype": "bfloat16",
+           "ms": ms, "ms_runs": runs["kern"], "plain_ms": min(runs["plain"]),
+           "plain_ms_runs": runs["plain"], "library_ms": min(runs["sdpa"]),
+           "library_ms_runs": runs["sdpa"],
+           "library": "scaled_dot_product_attention backward (torch.autograd.grad)",
+           "library_kernel": library_kernel_name(fns["sdpa"]),
+           "host_ms": host_ms_per_call(fns["kern"], 5),
+           "device_us": bwd_device_us(fns["kern"]),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs,
+           "max_abs_err_path": e}
+    print(f"[times] flash_attention_bwd B={t['b']} S={t['s']} H={t['h']}/{t['hkv']} "
+          f"D={t['d']} causal bf16: kernel {ms:.3f} ms (runs "
+          + ", ".join(f"{x:.3f}" for x in runs["kern"]) + f"; host time per call "
+          f"{rec['host_ms']:.3f} ms), {rec['tflops']:.1f} TFLOP/s of the bound's flops, "
+          f"{100 * rec['bound_share']:.2f}% of the bound {b_ms:.4f} ms by {b_by} "
+          f"({flops:.4e} flops: 6 products x 2 D x {pairs} visible pairs per (b, h) at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); plain {rec['plain_ms']:.3f} "
+          f"ms; scaled_dot_product_attention backward {rec['library_ms']:.3f} ms (runs "
+          + ", ".join(f"{x:.3f}" for x in runs["sdpa"]) + f"; longest device kernel: "
+          f"{rec['library_kernel']}); device time by grid {rec['device_us']} us; "
+          f"max_abs_err against the plain version {e:.2e}")
+    return rec
+
+
+def bwd_device_us(fn):
+    """Device us of one ``fn()`` in each of flash_attention_bwd's three
+    grids (torch.profiler), or None when the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"flash_attention_bwd_(prep|dq|dkdv)_kernel", e.key)
+        if m and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[m.group(1)] = e.self_device_time_total / e.count
+    return out or None
+
+
 def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain), least of each, beside the bound for ``nbytes`` and ``ops``."""
@@ -2399,6 +2973,10 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:87"),
     "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention.py:87"),
+    # the gradient of that kernel's function: the JAX package has no Pallas
+    # backward (it differentiates src/repro/models/attention.py:136 in XLA)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:87"),
 }
 
 
@@ -2494,6 +3072,17 @@ def main() -> int:
     serve["f32_rel_l2"] = check_serve_f32(launches)      # zeroed per prefill
     torch.cuda.empty_cache()
     lap("9 serve")
+    train, train_state = phase_train(launches)        # zeroed before the launcher
+    lap("17a train")
+    train["packed"] = phase_train_packed(train_state, launches)   # zeroed before
+    lap("17b packed round")
+    profile_train(train_state)
+    del train_state
+    torch.cuda.empty_cache()
+    lap("10 profiles")
+    train["f32"] = phase_train_f32(launches)          # zeroed per round
+    torch.cuda.empty_cache()
+    lap("17c train float32")
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
@@ -2510,7 +3099,8 @@ def main() -> int:
                "bound_by": main_rec["bound_by"],
                "library_ms": main_rec["library_ms"],
                "ptxas": [e for e in PTXAS.get(Path(source).name, [])
-                         if e["entry"].split("<")[0] == f"{name}_kernel"]}
+                         if re.fullmatch(rf"{name}(_prep|_dq|_dkdv)?_kernel",
+                                         e["entry"].split("<")[0])]}
         if name.startswith("flash_attention"):
             rec.update({k: v for k, v in main_rec.items() if k not in rec and not
                         k.endswith("_runs")})
@@ -2522,8 +3112,13 @@ def main() -> int:
                        at_2p24={k: v for k, v in big_rec.items() if k in (
                            "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                            or k.startswith("bound_ms_two_pass")})
+            if name == "quant_pipeline":
+                rec["at_2p24_bf16"] = {k: v for k, v in times["quant_pipeline_bf16"].items()
+                                       if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "bound_share")}
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
+    print(f"[train] summary: {json.dumps(train)}")
     print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[resume] summary: {json.dumps(resume)}")
     print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")

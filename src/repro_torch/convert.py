@@ -2,9 +2,9 @@
 
 The two packages draw different random numbers from the same seed, so to
 compute the same thing they must start from the same arrays.  These
-helpers turn the JAX package's ``FedLTState``, data dict, model parameter
-tree and KV-cache tree (any array type numpy can read) into the port's
-tensors on a device, and back into numpy arrays.  The port's
+helpers turn the JAX package's ``FedLTState``, ``DeployState``, data dict,
+model parameter tree and KV-cache tree (any array type numpy can read)
+into the port's tensors on a device, and back into numpy arrays.  The port's
 :class:`~repro_torch.core.fedlt.FedLTState` has the JAX one's fields in
 the same order, so ``repro.core.fedlt.FedLTState(*fedlt_state_to_numpy(s))``
 rebuilds it; the port's caches have the JAX ones' fields in the same
@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.deploy import DeployState
 from .core.fedlt import FedLTState
 from .core.pytree import tree_map
 from .device import resolve_device
@@ -66,6 +67,27 @@ def fedlt_state_to_numpy(state: FedLTState) -> FedLTState:
     return FedLTState(x=a(state.x), z=a(state.z), c_up=a(state.c_up),
                       z_hat=a(state.z_hat), c_down=a(state.c_down),
                       k=np.asarray(state.k, np.int32))
+
+
+def deploy_state_from_jax(state, device=None) -> DeployState:
+    """A deploy-mode state (fields x, z, c_up, y_hat, c_down, k, leaves as
+    numpy arrays) as the port's :class:`DeployState` on ``device`` (the
+    card by default); ``k`` becomes an int."""
+    dev = resolve_device(device)
+    t = lambda tree: tree_map(lambda x: _tensor(x, dev), tree)
+    return DeployState(x=t(state.x), z=t(state.z), c_up=t(state.c_up),
+                       y_hat=t(state.y_hat), c_down=t(state.c_down),
+                       k=int(np.asarray(state.k)))
+
+
+def deploy_state_to_numpy(state: DeployState) -> DeployState:
+    """The port's deploy state with numpy leaves and ``k`` as an int32
+    scalar: ``repro.core.deploy.DeployState(*deploy_state_to_numpy(s))``
+    rebuilds the JAX package's (bf16 leaves come back as float32)."""
+    a = lambda tree: tree_map(_array, tree)
+    return DeployState(x=a(state.x), z=a(state.z), c_up=a(state.c_up),
+                       y_hat=a(state.y_hat), c_down=a(state.c_down),
+                       k=np.asarray(state.k, np.int32))
 
 
 def model_params_from_jax(params, device=None):

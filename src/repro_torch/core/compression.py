@@ -203,21 +203,38 @@ def _int_dtype(levels: int):
     return torch.uint32
 
 
+#: values per piece of the quantizer's float64 arithmetic (``level_index``,
+#: ``decode_levels``): a leaf of a full-width model with its agent axis
+#: holds up to 5.5e8 values, 4.4 GB per float64 copy
+PIECE = 2**25
+
+
 def quantize_encode(x, levels: int, vmin: float, vmax: float):
     """Integer level indices, clamped to [0, L] (the bytes that cross the
-    link); matches :class:`UniformQuantizer` with clip=True."""
-    idx = level_index(torch.clamp(x, vmin, vmax), levels, vmin, vmax)
-    idx = torch.clamp(idx, 0, levels)
-    if levels > 2**31 - 1:
-        return idx.to(torch.int64).to(torch.uint32)
-    return idx.to(torch.int32).to(_int_dtype(levels))
+    link); matches :class:`UniformQuantizer` with clip=True.  Computed a
+    piece of ``PIECE`` values at a time."""
+    out = torch.empty(x.shape, dtype=_int_dtype(levels), device=x.device)
+    src, dst = x.reshape(-1), out.view(-1)
+    for s in range(0, src.numel(), PIECE):
+        idx = level_index(torch.clamp(src[s:s + PIECE], vmin, vmax), levels, vmin, vmax)
+        idx = torch.clamp(idx, 0, levels)
+        if levels > 2**31 - 1:
+            dst[s:s + PIECE] = idx.to(torch.int64).to(torch.uint32)
+        else:
+            dst[s:s + PIECE] = idx.to(torch.int32).to(out.dtype)
+    return out
 
 
 def quantize_decode(idx, levels: int, vmin: float, vmax: float,
                     dtype=torch.float32):
-    """Level indices (any integer dtype, uint32 included) back to floats."""
+    """Level indices (any integer dtype, uint32 included) back to floats,
+    a piece of ``PIECE`` values at a time."""
     from ..kernels.ref import as_int64  # lazy: kernels import this module
-    return decode_levels(as_int64(idx), levels, vmin, vmax).to(dtype)
+    out = torch.empty(idx.shape, dtype=dtype, device=idx.device)
+    src, dst = idx.reshape(-1), out.view(-1)
+    for s in range(0, src.numel(), PIECE):
+        dst[s:s + PIECE] = decode_levels(as_int64(src[s:s + PIECE]), levels, vmin, vmax)
+    return out
 
 
 def make_compressor(name: str, **kw) -> Compressor:

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu",
-           "sign_pipeline.cu", "flash_attention.cu", "flash_attention_sm90.cu")
+           "sign_pipeline.cu", "flash_attention.cu", "flash_attention_sm90.cu",
+           "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,9 +45,9 @@ KERNELS = {
     # words, vals, n, bits, tiles
     "unpack_bits": ("pack_bits.cu", "repro_unpack_bits", (_P, _P, _I, _I, _I)),
     # msg, cache, words, new_cache, n, bits, tiles, levels, vmin, vmax,
-    # delta, 1/delta
+    # delta, 1/delta, bf16 (msg and cache bf16, else float32)
     "quant_pipeline": ("quant_pipeline.cu", "repro_quant_pipeline",
-                       (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F)),
+                       (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I)),
     # msg, cache, wire, new_cache, n, levels, vmin, vmax, delta, 1/delta
     "quantize_ef": ("quantize_ef.cu", "repro_quantize_ef",
                     (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F)),
@@ -65,6 +66,11 @@ KERNELS = {
     # B, H, Hkv, Sq, Sk, D, padded D, causal, window, scale, softcap
     "flash_attention_sm90": ("flash_attention_sm90.cu", "repro_flash_attention_sm90",
                              (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F)),
+    # q, k, v, dout, dq, dk, dv, lse and delta (scratch), nokey (scratch),
+    # q_pos, k_pos, B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap,
+    # bf16; one call enqueues its three grids and counts as one launch
+    "flash_attention_bwd": ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
+                            (_P,) * 12 + (_I,) * 8 + (_F, _F, _I)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

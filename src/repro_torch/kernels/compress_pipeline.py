@@ -53,9 +53,9 @@ SIGN_CHUNK_VALUES = GROUP * SIGN_COLS * SIGN_CHUNK_QUADS
 SIGN_CHUNKS_PER_TILE = _TILE_VALS // SIGN_CHUNK_VALUES
 
 
-def _check_pair(name: str, msg, cache) -> None:
-    if msg.dtype != torch.float32 or cache.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 msg and cache, got "
+def _check_pair(name: str, msg, cache, dtypes=(torch.float32,)) -> None:
+    if msg.dtype not in dtypes or cache.dtype != msg.dtype:
+        raise TypeError(f"{name} takes msg and cache of one dtype of {dtypes}, got "
                         f"{msg.dtype} and {cache.dtype}")
     if msg.shape != cache.shape or cache.device != msg.device:
         raise ValueError("msg and cache must have one shape and one device")
@@ -66,13 +66,16 @@ def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
     """Fused quantize + EF + pack: (msg, cache) → (wire words, new cache).
 
     ``words`` is a flat uint32 tensor of ``tiles·bits·R·LANES`` words;
-    ``new_cache`` has the shape and dtype of ``msg``.
+    ``new_cache`` has the shape and dtype of ``msg``.  On the card msg and
+    cache are float32 or bf16, one dtype for both: the sweep computes in
+    float32 and writes the new cache in msg's dtype, as the JAX kernel
+    does, so a bf16 model's uplink needs no cast.
     """
     bits = wire_index_bits(levels)
     if msg.device.type == "cpu":
         return ref.quant_pipeline_ref(msg, cache, levels=levels, vmin=vmin,
                                       vmax=vmax)
-    _check_pair("quant_pipeline", msg, cache)
+    _check_pair("quant_pipeline", msg, cache, (torch.float32, torch.bfloat16))
     if levels >= 2**31:
         raise ValueError(f"levels={levels} exceeds the kernel's int range")
     msg, cache = msg.contiguous(), cache.contiguous()
@@ -84,7 +87,8 @@ def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
     new_cache = torch.empty_like(msg)
     delta, recip, _ = quant_constants(levels, vmin, vmax)
     _build.launch("quant_pipeline", msg, cache, words, new_cache, n, bits,
-                  tiles, levels, vmin, vmax, delta, recip)
+                  tiles, levels, vmin, vmax, delta, recip,
+                  int(msg.dtype == torch.bfloat16))
     return words, new_cache
 
 

@@ -37,6 +37,17 @@ nothing falls back from one route to another:
   each at its own tile sizes).  It takes Sk ≤ 2**23.
 
 Both kernels take D ≤ 128.
+
+The gradient: :class:`FlashAttention` is the ``torch.autograd.Function``
+that :func:`flash_attention` (and so ``ops.attention``) goes through.  Its
+forward is the routes above; its backward is :func:`flash_attention_bwd`,
+the plain version for a CPU tensor and ``csrc/flash_attention_bwd.cu``
+(launch name ``flash_attention_bwd``, float32 and bf16) for a tensor on
+the card, with no fallback from one to the other.  The JAX package has no
+Pallas backward (it differentiates its chunked attention in XLA), so this
+kernel is the port's own.  It works on :data:`BWD_BLOCK_Q` by
+:data:`BWD_BLOCK_K` tiles, skipping by :func:`tile_plan`'s rule the pairs
+of tiles with no visible pair.
 """
 from __future__ import annotations
 
@@ -47,8 +58,8 @@ import torch.nn.functional as F
 
 from . import _build, ref
 
-__all__ = ["f32_smem_bytes", "flash_attention", "route", "tile_plan", "tma_layout",
-           "vec_ready"]
+__all__ = ["FlashAttention", "f32_smem_bytes", "flash_attention", "flash_attention_bwd",
+           "route", "tile_plan", "tma_layout", "vec_ready"]
 
 MAX_HEAD_DIM = 128
 #: query rows and keys per tile of ``csrc/flash_attention_sm90.cu`` (BQ, BK)
@@ -62,6 +73,8 @@ SKIP, MASKED, FULL = 0, 1, 2
 #: stages in its ring, floats per row of a K stage (and of P^T), key tiles
 #: planned at a time (a byte each)
 F32_BLOCK_Q, F32_BLOCK_K, F32_STAGES, F32_K_STRIDE, F32_PLAN_TILES = 128, 64, 2, 136, 2048
+#: ``csrc/flash_attention_bwd.cu``: query rows and keys per tile
+BWD_BLOCK_Q = BWD_BLOCK_K = 64
 #: dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 
@@ -109,8 +122,8 @@ def _tile_ranges(pos: torch.Tensor, block: int):
 
 
 def tile_plan(q_pos, k_pos, *, causal: bool, window=None,
-              block_k: int = BLOCK_K) -> torch.Tensor:
-    """(ceil(Sq/BLOCK_Q), ceil(Sk/block_k)) int8: for each query tile and
+              block_k: int = BLOCK_K, block_q: int = BLOCK_Q) -> torch.Tensor:
+    """(ceil(Sq/block_q), ceil(Sk/block_k)) int8: for each query tile and
     key tile, SKIP when no (query, key) pair of the two can be visible,
     FULL when every pair is visible and the key tile lies inside Sk, else
     MASKED.  Decided from the tiles' ranges of positions, not from their
@@ -121,9 +134,10 @@ def tile_plan(q_pos, k_pos, *, causal: bool, window=None,
     The CPU copy of the rule that both kernels apply in each block
     (``tile_kind``): ``csrc/flash_attention_sm90.cu`` with key tiles of
     BLOCK_K, ``csrc/flash_attention.cu`` with F32_BLOCK_K (both take
-    query tiles of 128 rows).  Held against the dense mask by the tests;
-    no route calls it."""
-    qlo, qhi = _tile_ranges(q_pos, BLOCK_Q)
+    query tiles of 128 rows); ``csrc/flash_attention_bwd.cu`` visits the
+    tiles it does not skip, at BWD_BLOCK_Q by BWD_BLOCK_K.  Held against
+    the dense mask by the tests; no route calls it."""
+    qlo, qhi = _tile_ranges(q_pos, block_q)
     klo, khi = _tile_ranges(k_pos, block_k)
     n_kt = klo.numel()
     inside = torch.arange(1, n_kt + 1, device=k_pos.device) * block_k <= k_pos.numel()
@@ -171,15 +185,12 @@ def _positions(pos, n: int, device) -> torch.Tensor:
     return pos.to(torch.int32).contiguous()
 
 
-def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
-                    window=None, softcap=None):
-    """(B, Sq, H, D) attention of q over k/v (B, Sk, Hkv, D); returns
-    (B, Sq, H, D) in q's dtype."""
+def _check_inputs(q, k, v, window, softcap) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be (B, S, H, D), k and v alike")
-    b, sq, h, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hkv < 1 or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch and "
                          "head_dim must agree and H be a multiple of Hkv")
@@ -187,21 +198,62 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
         raise ValueError(f"window must be None or >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be None or > 0, got {softcap}")
-    q_pos = _positions(q_pos, sq, q.device)
-    k_pos = _positions(k_pos, sk, q.device)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
-                                       window=window, softcap=softcap)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+
+
+def _check_card(q, *others) -> None:
+    """What both kernels' routes need of tensors on the card."""
+    if any(t.dtype != q.dtype for t in others):
         raise TypeError(f"flash_attention takes q, k, v of one dtype, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    name = route(q.dtype, q.device)
-    if k.device != q.device or v.device != q.device:
+                        f"{[t.dtype for t in (q, *others)]}")
+    if any(t.device != q.device for t in others):
         raise ValueError("q, k and v must be on one device")
+    b, sq, h, d = q.shape
+    sk = others[0].shape[1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
     if b * h > 65535 or max(sq, sk) >= 2**31 or sk == 0:
         raise ValueError(f"B·H = {b * h} must be <= 65535 and 0 < Sk < 2**31")
+
+
+def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
+                    window=None, softcap=None):
+    """(B, Sq, H, D) attention of q over k/v (B, Sk, Hkv, D); returns
+    (B, Sq, H, D) in q's dtype, differentiable in q, k and v through
+    :class:`FlashAttention`."""
+    _check_inputs(q, k, v, window, softcap)
+    q_pos = _positions(q_pos, q.shape[1], q.device)
+    k_pos = _positions(k_pos, k.shape[1], q.device)
+    return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is :func:`flash_attention`'s route and whose
+    backward is :func:`flash_attention_bwd`: the plain version on the CPU,
+    ``csrc/flash_attention_bwd.cu`` on the card.  It saves q, k, v and the
+    positions, not the output or any softmax statistic: the backward
+    recomputes them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.options = dict(causal=causal, window=window, softcap=softcap)
+        return _forward(q, k, v, q_pos, k_pos, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, q_pos, k_pos, **ctx.options)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _forward(q, k, v, q_pos, k_pos, causal, window, softcap):
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                       window=window, softcap=softcap)
+    _check_card(q, k, v)
+    name = route(q.dtype, q.device)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
@@ -216,6 +268,39 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
                   int(causal), window or 0, 1.0 / math.sqrt(d),
                   float(softcap or 0.0))
     return out
+
+
+def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool = True,
+                        window=None, softcap=None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``
+    (B, Sq, H, D), in the inputs' dtypes.  A CPU tensor takes the plain
+    version; float32 or bf16 on the card, one launch of
+    ``csrc/flash_attention_bwd.cu`` (three grids: the LSE and D pre-pass,
+    dK and dV per key tile, dQ per query tile), computed in float32."""
+    _check_inputs(q, k, v, window, softcap)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
+    q_pos = _positions(q_pos, q.shape[1], q.device)
+    k_pos = _positions(k_pos, k.shape[1], q.device)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, causal=causal,
+                                           window=window, softcap=softcap)
+    _check_card(q, k, v, dout)
+    route(q.dtype, q.device)                 # raises for a dtype no kernel takes
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse, delta = torch.empty((b, h, sq), **f32), torch.empty((b, h, sq), **f32)
+    nokey = torch.empty((b, h, -(-sq // BWD_BLOCK_Q)), dtype=torch.int32, device=q.device)
+    _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, delta, nokey,
+                  q_pos, k_pos, b, h, hkv, sq, sk, d, int(causal), window or 0,
+                  1.0 / math.sqrt(d), float(softcap or 0.0),
+                  int(q.dtype == torch.bfloat16))
+    return dq, dk, dv
 
 
 def _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap) -> None:

@@ -222,9 +222,57 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
     vf = v.to(torch.float32).repeat_interleave(n_rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (1.0 / math.sqrt(q.shape[-1]))
     if softcap is not None:
-        scores = torch.tanh(scores / softcap).mul_(softcap)
+        scores = softcap * torch.tanh(scores / softcap)
     ok = attention_mask(q_pos, k_pos, causal=causal, window=window)
     scores.masked_fill_(~ok, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     del scores
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, *, causal: bool = True,
+                            window=None, softcap=None):
+    """Plain version of
+    :func:`repro_torch.kernels.flash_attention.flash_attention_bwd`: the
+    gradient of :func:`flash_attention_ref` at ``dout``, written out.
+
+    In float32, with t = q·k/√D, s = cap·tanh(t/cap) (softcap; else s = t)
+    and masked pairs at −1e30: the row log-sum-exp as (m, l) with m the
+    row maximum and l = Σ exp(s − m), P = exp(s − m)/l, O = P·V and
+    D = rowsum(dO∘O); then dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − D) on
+    visible pairs (the mask cuts the rest) times the softcap's chain
+    factor 1 − tanh²(t/cap), dQ = dS·K/√D and dK = dSᵀ·Q/√D.  dK and dV
+    of a KV head sum over its group's heads.  A row that sees no key has
+    P = 1/Sk everywhere (the forward's mean of V): it adds dO/Sk to every
+    dV and nothing to dQ or dK.  Returns (dq, dk, dv) in the inputs' dtypes.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = q.to(torch.float32), dout.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    chain = None
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s, chain = th * softcap, 1.0 - th * th
+    ok = attention_mask(q_pos, k_pos, causal=causal, window=window)
+    s = s.masked_fill(~ok, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    del s, e
+    o = torch.einsum("bhqk,bkhd->bhqd", p, vf)
+    delta = (dof.transpose(1, 2) * o).sum(dim=-1, keepdim=True)      # (B, H, Sq, 1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
+    del p, o
+    ds = ds.masked_fill(~ok, 0.0)
+    if chain is not None:
+        ds = ds * chain
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    group = lambda t: t.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)

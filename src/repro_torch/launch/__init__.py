@@ -1,1 +1,2 @@
-"""Launch entry points of the port: serving (``serve``)."""
+"""Launch entry points of the port: serving (``serve``) and training
+(``train``)."""

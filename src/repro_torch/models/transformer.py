@@ -1,22 +1,26 @@
-"""Decoder assembly: embeddings → layer stack → head.
+"""Decoder assembly: embeddings → layer stack → head, + LM loss.
 
 Counterpart of ``repro.models.transformer`` for the attention kinds
 (``attn``, ``attn_local``, ``shared_attn``) and every ``pos_embed``.  The
 parameter and cache trees are the JAX package's: each ``scan_unit`` slot
 is stacked over ``scan_repeats`` along a leading axis, then comes the
 ``tail``.  JAX lowers the stack as one ``lax.scan``; here it is a Python
-loop over the repeats, and there is no ``remat`` (nothing is
-differentiated).  "shared_attn" blocks read one shared parameter set and
-keep a cache of their own per occurrence.
+loop over the repeats.  Without a cache and with autograd recording, each
+scan unit (or each group of ``cfg.remat_group`` units, JAX's two-level
+remat) runs under ``torch.utils.checkpoint``, as JAX wraps the scan body
+in ``jax.checkpoint``: its activations are recomputed in the backward,
+attention's forward kernel included.  "shared_attn" blocks read one shared
+parameter set and keep a cache of their own per occurrence.
 
 Modes:
+  * train   — ``forward(params, cfg, batch)`` / ``lm_loss``  → logits, aux
   * prefill — ``forward(..., cache=init_cache(...))``       → logits, cache
   * decode  — ``forward(..., cache=filled)`` with S=1 tokens → logits, cache
     (the given cache's buffers are updated in place and returned)
-  * forward — ``forward(params, cfg, batch)``                → logits
 
-MoE, Mamba2 and RWKV6 blocks and ``lm_loss`` wait for later slices
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+MoE, Mamba2 and RWKV6 blocks wait for later slices (ROADMAP Queue 1) and
+raise ``NotImplementedError``, and so does ``lm_loss`` on a config that
+holds one.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..core.pytree import tree_map
+from ..core.pytree import tree_leaves, tree_map, tree_unflatten
 from ..device import resolve_device
 from .attention import attention_block, init_attention, init_kv_cache
 from .config import ModelConfig
@@ -40,6 +45,16 @@ def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: the port's transformer runs the attention "
         "kinds (attn, attn_local, shared_attn); see ROADMAP Queue 1")
+
+
+def _check_ported(cfg: ModelConfig, what: str) -> None:
+    """Raise before any work when ``cfg`` holds a block of a later slice."""
+    if cfg.n_experts:
+        raise _not_ported(f"{what} on an MoE config (models/moe.py)")
+    for kind in cfg.scan_unit + cfg.tail:
+        if kind not in ATTN_KINDS:
+            raise _not_ported(f"{what} on a config with {kind} blocks "
+                              f"(models/{kind}.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +169,21 @@ class ForwardOut(NamedTuple):
     aux_loss: torch.Tensor
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` slices along the leading axis of a stacked tree, one tree
+    each.  One ``unbind`` per leaf, so the backward stacks each leaf's
+    gradient once (slicing ``a[r]`` per layer would build a zero-padded
+    full-size gradient per slice)."""
+    parts = [a.unbind(0) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[r] for p in parts]) for r in range(n)]
+
+
 def forward(params, cfg: ModelConfig, batch, cache=None,
-            backend: str = "chunked") -> ForwardOut:
+            backend: str = "chunked", remat: bool = True) -> ForwardOut:
     """batch keys: "tokens" (B,S) integer and/or "extra_embeds" (B,S_e,D)
     prepended (VLM/audio stubs); optional "positions" (3,B,S) for M-RoPE.
+    ``remat``: without a cache and with autograd recording, checkpoint each
+    scan unit (or group of ``cfg.remat_group`` units).
     A given cache is taken over, not copied: the layers write the new
     slots into its buffers in place, and the returned cache holds those
     same buffers with the new length.  (JAX returns a new cache; a copy
@@ -200,13 +226,23 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
     def layer_cache(slot_cache, r):
         return tree_map(lambda a: a if isinstance(a, int) else a[r], slot_cache)
 
-    for r in range(cfg.scan_repeats):
-        for i, kind in enumerate(cfg.scan_unit):
-            p = None if kind == "shared_attn" else tree_map(
-                lambda a: a[r], params["scan"][i])
-            c = None if new_cache is None else layer_cache(new_cache["scan"][i], r)
-            x = _apply_block(p, cfg, kind, x, rope_cs, rope_cs_local,
-                             positions, c, shared, backend)
+    units = _unstack(params["scan"], cfg.scan_repeats)
+    remat = remat and cache is None and torch.is_grad_enabled()
+    g = max(1, min(cfg.remat_group, cfg.scan_repeats)) if remat else 1
+    g = g if cfg.scan_repeats % g == 0 else 1
+
+    def run(x, r0):
+        for r in range(r0, r0 + g):
+            for i, kind in enumerate(cfg.scan_unit):
+                c = None if cache is None else layer_cache(cache["scan"][i], r)
+                x = _apply_block(None if kind == "shared_attn" else units[r][i], cfg,
+                                 kind, x, rope_cs, rope_cs_local, positions, c, shared,
+                                 backend)
+        return x
+
+    for r0 in range(0, cfg.scan_repeats, g):
+        x = (checkpoint(run, x, r0, use_reentrant=False, preserve_rng_state=False)
+             if remat else run(x, r0))
     for i, kind in enumerate(cfg.tail):
         c = None if new_cache is None else new_cache["tail"][i]
         x = _apply_block(params["tail"][i], cfg, kind, x, rope_cs,
@@ -224,5 +260,17 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
                       aux_loss=torch.zeros((), device=dev))
 
 
-def lm_loss(*args, **kwargs):
-    raise _not_ported("lm_loss (training through core/deploy.py)")
+def lm_loss(params, cfg: ModelConfig, batch, backend: str = "chunked",
+            aux_coeff: float = 0.01):
+    """Next-token cross-entropy in float32; labels −1 are ignored.  Plus
+    ``aux_coeff``·aux_loss (0 for the blocks ported so far)."""
+    _check_ported(cfg, "lm_loss")
+    out = forward(params, cfg, batch, backend=backend)
+    logits = out.logits[:, :-1].to(torch.float32)
+    labels = batch["labels"][:, 1:]
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(min=0)[..., None].to(torch.int64))[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    loss = nll.sum() / valid.sum().clamp(min=1)
+    return loss + aux_coeff * out.aux_loss

@@ -16,8 +16,10 @@ from repro_torch.bench import common, fig4_trajectory, sim_scale
 from repro_torch.bench import table1_error_feedback, table2_space_comparison
 from repro_torch.bench import table_fault_tolerance, table_lossy_ef, table_plane_agg
 from repro_torch.configs import ARCHS, smoke_variant
-from repro_torch.data import logistic
-from repro_torch.examples import satellite_constellation
+from repro_torch.core.deploy import DeployFedLT
+from repro_torch.data import logistic, synthetic
+from repro_torch.examples import satellite_constellation, train_federated_lm
+from repro_torch.launch import train
 from repro_torch.models import transformer
 from repro_torch.obs import report
 
@@ -43,7 +45,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 79     # every module of the port
+    assert int(out.stdout.strip()) >= 84     # every module of the port
     for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
                 "models", "configs", "launch", "examples"):
         assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped
@@ -86,11 +88,19 @@ def test_no_jax_or_repro_import(path):
     lambda: table_plane_agg.run_sweep(table_plane_agg.WALKER_ARMS[:1], rounds=1,
                                       n_agents=100, dim=2, m=2),
     lambda: report.convgate(str(ROOT / "CONV_reference.json"), out=io.StringIO()),
+    lambda: train.main(["--arch", "stablelm-1.6b", "--smoke", "--rounds", "1"]),
+    lambda: DeployFedLT(cfg=smoke_variant(ARCHS["stablelm-1.6b"])).init(2),
+    lambda: synthetic.make_batch(smoke_variant(ARCHS["stablelm-1.6b"]),
+                                 synthetic.seeded(0), 1, 8),
+    lambda: train_federated_lm.main(["--rounds", "1"]),
+    lambda: convert.deploy_state_from_jax(None),
 ], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
         "run_canonical", "lossy_round", "round_pipeline", "init_params",
         "init_cache", "model_params_from_jax", "bench_problem", "table1",
         "table2", "fig4", "constellation_example", "table_lossy_ef",
-        "table_fault_tolerance", "table_plane_agg", "convgate"])
+        "table_fault_tolerance", "table_plane_agg", "convgate", "launch_train",
+        "deploy_init", "make_batch", "train_federated_lm_example",
+        "deploy_state_from_jax"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

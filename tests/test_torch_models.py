@@ -265,8 +265,12 @@ def test_blocks_of_later_slices_raise():
         ttf.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.init_cache(smoke_variant(ARCHS["rwkv6-3b"]), 1, 8, device="cpu")
+    # lm_loss is ported for the attention kinds; on an MoE config (or one
+    # with RWKV6 blocks) it still raises, before touching its arguments
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.lm_loss(None, cfg, {})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.lm_loss(None, smoke_variant(ARCHS["rwkv6-3b"]), {})
     unrolled = dataclasses.replace(smoke_variant(ARCHS["stablelm-1.6b"]), scan_unroll=True)
     p = ttf.init_params(unrolled, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
