@@ -10,7 +10,8 @@ into ``build/``, then, each phase failing the run:
 
 1. prints the card's name and power limit (``nvidia-smi``) and each
    kernel's registers, stack frame, spills and static shared memory from
-   the ``-Xptxas -v`` build log;
+   the ``-Xptxas -v`` build log, and holds the float32 attention kernel's
+   and the bf16 backward's dynamic shared memory to their CPU copies;
 2. holds every kernel against its plain PyTorch version on the card, word
    for word and bit for bit, at the paths' shapes, at a ragged shape of
    several tiles and at 2**24 values: the quantizers on inputs with exact
@@ -23,19 +24,28 @@ into ``build/``, then, each phase failing the run:
    bytes (its 4-byte load path) (words equal, scale rtol 1e-6, new cache
    atol 1e-6; the scale bit for bit a numpy model of the kernel's
    fixed-order float64 sum and the new cache bit for bit msg + cache ∓
-   that scale; a second call bit for bit the first); unpack_bits also
+   that scale; a second call bit for bit the first), and on bf16 msg and
+   cache at 100, 70,001 and 2**24 values and on views 2 bytes off 8 (its
+   value-by-value path) (the same, with the bf16 new cache within one
+   rounding of the plain version's and bit for bit bf16(msg + cache ∓
+   the kernel's scale)); unpack_bits also
    from a word buffer one word off 16 bytes (its 4-byte load path); and flash_attention over S in {128, 257, 4353}, D
    in {64, 120, 128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64,
    4096}, softcap in {None, 30} and aligned or offset positions, in
    float32 (2e-5, on the float32 route's kernel, flash_attention.cu) and
    bf16 (one bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the
    sm90 kernel, flash_attention_sm90.cu), each call's route read from the
-   launch counts; flash_attention_bwd (csrc/flash_attention_bwd.cu)
-   against its plain version over S in {128, 257, 2048}, the same D and
-   heads, window in {None, 64}, softcap and offsets, in float32 (1e-4) and
-   bf16 (one rounding of the gradient: 2**-7 |plain| + 1e-3), two calls
-   equal bit for bit, rows that see no key, and FlashAttention's backward
-   on it; quant_pipeline also on bf16 msg and cache; plus cases off the grid on both routes: a ring cache's
+   launch counts; the bf16 forward's saved statistics (each row's
+   log-sum-exp, +inf where it sees no key, and O in float32) against the
+   plain version's (1e-4); the backward against its plain version over S
+   in {128, 257, 2048}, the same D and heads, window in {None, 64},
+   softcap and offsets, in float32 (1e-4, on flash_attention_bwd.cu) and
+   bf16 (one rounding of the gradient: 2**-7 |plain| + 1e-3, on
+   flash_attention_bwd_sm90.cu, after one flash_attention_sm90 launch for
+   the statistics), each call's route read from the launch counts, two
+   calls equal bit for bit, rows that see no key, and FlashAttention's
+   backward on it; quant_pipeline also on bf16 msg and cache; plus cases
+   off the grid on both routes: a ring cache's
    positions (rotated, empty slots at 2**30), a q view with a sliced start
    and one whose base is off 16 bytes (bf16: copied first for TMA;
    float32: read with 4-byte copies), head dims 100, 32 and 16 (and 33
@@ -85,8 +95,10 @@ into ``build/``, then, each phase failing the run:
     (sign_pipeline's is the function's 12.125 B per value, and its
     two-pass design's 20.125 B and 12.125 B + what the L2 cannot hold of
     the second read are printed beside it; flash_attention_sm90 at the
-    serving prefill's shape; flash_attention at the depth-2 float32
-    prefill's, and alone at the serving prefill's shape in float32); flash_attention_sm90's output at the
+    serving prefill's shape, with and without the backward's statistics;
+    flash_attention at the depth-2 float32 prefill's, and alone at the
+    serving prefill's shape in float32; the backward on each route at the
+    training shape, with its device time by grid); flash_attention_sm90's output at the
     path's shape is held against its plain version, one batch row at a
     time, and decode's device time is attributed to the ops that launch
     it and their input shapes;
@@ -143,9 +155,10 @@ into ``build/``, then, each phase failing the run:
     from the launcher's seed) through ``python -m repro_torch.launch.train``'s
     ``main``: 2 agents x batch 2 x 2048 tokens, 2 local epochs, 3 rounds and
     a checkpoint on the last (17a): every loss finite and the last below
-    the first, each round's launches 96 flash_attention_bwd and 192
+    the first, each round's launches 96 flash_attention_bwd_sm90 and 192
     flash_attention_sm90 (24 layers x 2 agents x 2 epochs, the forward
-    twice under remat) and nothing else, the checkpoint restoring bit for
+    twice under remat, the second time with the backward's statistics)
+    and nothing else, the checkpoint restoring bit for
     bit, ms per round and peak memory; then one round with pack_wire=True
     (17b): one quant_pipeline and one unpack_bits launch per leaf of at
     least 32768 values, and the fused uplink equal bit for bit to the
@@ -221,6 +234,7 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2**-7, 1e-4)}
 RING_SLOTS = 4096             # a ring cache of the serving window's size
 SIGN_SIZES = (100, 70_001, BIG_N, 1, 32_769)
 SIGN_OFFSET_N = 70_001        # sign_pipeline on views 4 bytes off 16-byte alignment
+SIGN_BF16_SIZES = (100, 70_001, BIG_N)   # and on bf16 msg and cache
 # serving h2o-danube-3-4b (configs/catalog.py) at full width
 SERVE_ARCH = "h2o-danube-3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 8192, 32
@@ -368,6 +382,7 @@ def phase_build() -> str:
                   f"{e['spill_loads']} B spill loads, {e['smem_static']} B static "
                   "shared memory (ptxas -v)")
     check_f32_smem()
+    check_bwd_sm90_smem()
     return smi
 
 
@@ -387,6 +402,30 @@ def check_f32_smem() -> None:
     print(f"[build] flash_attention.cu dynamic shared memory equals f32_smem_bytes "
           f"for D = 1..{fa.MAX_HEAD_DIM}, at most {max(card.values())} B "
           f"(<= {fa.SMEM_LIMIT}); {card[120]} B at D = 120")
+
+
+def check_bwd_sm90_smem() -> None:
+    """The bf16 backward's dynamic shared memory per block of each grid, as
+    its library reports it for every head dim at the training shape's and
+    a long sequence's plans, against its CPU copy
+    (flash_attention.sm90_bwd_smem_bytes) and the card's 227 KB a block."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    fn = _build._library("flash_attention_bwd_sm90.cu").repro_flash_attention_bwd_sm90_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    off = {}
+    for s in (TRAIN_ATTN["s"], 70_001):
+        for d in range(1, fa.MAX_HEAD_DIM + 1):
+            card = (fn(d, s, s, 0), fn(d, s, s, 1))
+            if card != fa.sm90_bwd_smem_bytes(d, s, s) or max(card) > fa.SMEM_LIMIT:
+                off[(s, d)] = (card, fa.sm90_bwd_smem_bytes(d, s, s))
+    check(not off, f"bf16 backward shared memory (kernel, CPU copy) by (S, D): {off}")
+    print(f"[build] flash_attention_bwd_sm90.cu dynamic shared memory (dK/dV grid, dQ "
+          f"grid) equals sm90_bwd_smem_bytes for D = 1..{fa.MAX_HEAD_DIM} at S = "
+          f"{TRAIN_ATTN['s']} and 70,001; at the training shape "
+          f"{fn(TRAIN_ATTN['d'], TRAIN_ATTN['s'], TRAIN_ATTN['s'], 0)} and "
+          f"{fn(TRAIN_ATTN['d'], TRAIN_ATTN['s'], TRAIN_ATTN['s'], 1)} B")
 
 
 # -- phase 2 ---------------------------------------------------------------
@@ -566,7 +605,7 @@ def sign_model_scale(msg, cache) -> np.float32:
     from repro_torch.kernels.compress_pipeline import (
         SIGN_CHUNK_QUADS, SIGN_CHUNKS_PER_TILE, SIGN_COLS, SIGN_THREADS)
     from repro_torch.kernels.pack_bits import GROUP, LANES, R, n_tiles
-    m, c = (t.detach().reshape(-1).cpu().numpy() for t in (msg, cache))
+    m, c = (t.detach().float().reshape(-1).cpu().numpy() for t in (msg, cache))
     n = m.size
     a = np.zeros(n_tiles(n) * GROUP * R * LANES)
     a[:n] = np.abs(np.add(m, c, dtype=np.float32))
@@ -596,10 +635,12 @@ def sign_model_scale(msg, cache) -> np.float32:
 
 def check_sign_pair(msg, cache, what: str) -> float:
     """sign_pipeline against its plain version: words equal, scale within
-    rtol 1e-6, new cache within atol 1e-6; the scale bit for bit the
-    kernel's fixed-order sum (sign_model_scale) and the new cache bit for
-    bit msg + cache ∓ that scale; returns the largest difference from the
-    plain version."""
+    rtol 1e-6, new cache within atol 1e-6 (bf16: within one rounding,
+    2**-7 |plain| + 1e-6, since the two scales may round a value to
+    neighbouring bf16s); the scale bit for bit the kernel's fixed-order sum
+    (sign_model_scale) and the new cache bit for bit msg + cache ∓ that
+    scale in msg's dtype; returns the largest difference from the plain
+    version."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.compress_pipeline import sign_pipeline
     words, scale, newc = sign_pipeline(msg, cache)
@@ -608,17 +649,20 @@ def check_sign_pair(msg, cache, what: str) -> float:
     check(same_bits(words2, words) and same_bits(scale2, scale) and same_bits(newc2, newc),
           f"sign_pipeline {what}: a second call differs from the first")
     s, s_p = float(scale), float(scale_p)
-    cache_err = float((newc - newc_p).abs().max())
+    diff = (newc.float() - newc_p.float()).abs()
+    cache_err = float(diff.max())
     check(same_bits(words, words_p), f"sign_pipeline {what}: words differ from "
           "its plain version")
     check(abs(s - s_p) <= 1e-6 * abs(s_p), f"sign_pipeline {what}: scale {s} vs "
           f"{s_p}")
-    check(cache_err <= 1e-6, f"sign_pipeline {what}: new cache off by {cache_err}")
+    rtol = 0.0 if msg.dtype == torch.float32 else 2**-7
+    check(bool((diff <= 1e-6 + rtol * newc_p.float().abs()).all()),
+          f"sign_pipeline {what}: new cache off by {cache_err}")
     s_model = sign_model_scale(msg, cache)
     check(np.float32(s).tobytes() == s_model.tobytes(), f"sign_pipeline {what}: "
           f"scale {s!r} is not the fixed-order sum's {float(s_model)!r} bit for bit")
-    cor = msg + cache
-    check(same_bits(newc, cor - torch.where(cor >= 0, 1.0, -1.0) * scale),
+    cor = msg.float() + cache.float()
+    check(same_bits(newc, (cor - torch.where(cor >= 0, 1.0, -1.0) * scale).to(msg.dtype)),
           f"sign_pipeline {what}: new cache is not msg + cache ∓ scale bit for bit")
     return max(int_err(words, words_p), abs(s - s_p), cache_err)
 
@@ -644,6 +688,23 @@ def check_sign_pipeline(rng, err: dict) -> None:
         *views, f"n={SIGN_OFFSET_N} on views 4 bytes off 16"))
     print(f"[kernels] sign_pipeline n={SIGN_OFFSET_N} on msg and cache views 4 bytes "
           "off 16-byte alignment (4-byte loads): == plain version, as above")
+    for n in SIGN_BF16_SIZES + (SIGN_OFFSET_N,):
+        msg, cache = (t.to(torch.bfloat16) for t in sign_inputs(n, rng))
+        what = f"bf16 n={n}"
+        if n == SIGN_OFFSET_N:               # views 2 bytes off 8: value by value
+            views = []
+            for t in (msg, cache):
+                buf = torch.empty(t.numel() + 1, dtype=torch.bfloat16, device=DEV)
+                buf[1:] = t
+                views.append(buf[1:])
+            check(views[0].data_ptr() % 8 == 2, "sign_pipeline: the bf16 view is aligned")
+            msg, cache = views
+            what += " on views 2 bytes off 8"
+        err["sign_pipeline"] = max(err["sign_pipeline"], check_sign_pair(msg, cache, what))
+        print(f"[kernels] sign_pipeline {what}: words == plain version word for word, "
+              "scale within rtol 1e-6 and the fixed-order sum's bits, the bf16 new "
+              "cache within one rounding of the plain version's and bit for bit "
+              "bf16(msg + cache ∓ scale); two calls bit for bit equal")
 
 
 def flash_case(s: int, d: int, h: int, hkv: int, offset: bool, dtype, gen):
@@ -882,18 +943,63 @@ def flash_bwd_check(got, plain, what: str) -> float:
     return max(errs)
 
 
+def check_flash_stats(fa, ref, gen) -> float:
+    """The bf16 forward's saved statistics against the plain version's: the
+    log-sum-exp (log2 units) within 1e-4 where a row sees a key and +inf
+    exactly where it sees none, O in float32 within 1e-4, and the output
+    bit for bit the forward's without them."""
+    worst = 0.0
+    for s, d, h, hkv, k_off in ((128, 64, 4, 4, 0), (257, 120, 32, 8, 0),
+                                (385, 128, 4, 2, 192)):
+        q, k, v, qp, kp = flash_case(s, d, h, hkv, False, torch.bfloat16, gen)
+        kp = kp + k_off
+        for window, cap in ((None, None), (64, 30.0)):
+            (out, lse_pad, o32), made = launched(lambda: fa._forward(
+                q, k, v, qp, kp, True, window, cap, stats=True))
+            check(made == {"flash_attention_sm90": 1}, f"forward with statistics "
+                  f"launched {made}")
+            _, lse_p, o_p = ref.flash_attention_ref(q, k, v, qp, kp, window=window,
+                                                    softcap=cap, stats=True)
+            lse, past = lse_pad[..., :s], lse_pad[..., s:]
+            inf = torch.isinf(lse_p)
+            e = max(float((lse - lse_p)[~inf].abs().max()) if bool((~inf).any()) else 0.0,
+                    float((o32 - o_p).abs().max()))
+            check(lse_pad.shape[-1] == -(-s // fa.BLOCK_Q) * fa.BLOCK_Q
+                  and bool(torch.isposinf(past).all())
+                  and torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
+                  and e <= 1e-4 and same_bits(out, fa._forward(q, k, v, qp, kp, True,
+                                                                window, cap)),
+                  f"forward statistics S={s} D={d} window={window} softcap={cap}: "
+                  f"max_abs_err {e}, or +inf rows (also the padding past Sq) or the "
+                  "output differ")
+            worst = max(worst, e)
+    print(f"[kernels] flash_attention_sm90's statistics for the backward (LSE in log2 "
+          f"units, +inf for rows that see no key and the padding past Sq; O in float32) "
+          f"against the plain "
+          f"version's: max_abs_err {worst:.2e} (within 1e-4); output bit for bit the "
+          "forward's without them")
+    return worst
+
+
 def check_flash_bwd(err: dict) -> None:
-    """flash_attention_bwd (csrc/flash_attention_bwd.cu) against its plain
-    version over the forward grid's cases at S in FLASH_BWD_S, window in
-    FLASH_BWD_WINDOWS, offset positions and keys ahead of the queries (rows
-    that see no key), in float32 and bf16: one launch each, and a second
-    call equal bit for bit.  Then through FlashAttention: a forward on its
-    route and a backward on this kernel, from the launch counts."""
+    """The backward against its plain version over the forward grid's
+    cases at S in FLASH_BWD_S, window in FLASH_BWD_WINDOWS, offset
+    positions and keys ahead of the queries (rows that see no key), in
+    float32 (flash_attention_bwd.cu) and bf16 (flash_attention_bwd_sm90.cu,
+    after one flash_attention_sm90 launch for the statistics): each call's
+    launches read from the counts, and a second call equal bit for bit.
+    Then through FlashAttention: a forward on its route and a backward on
+    the dtype's kernel, from the launch counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=DEV).manual_seed(5)
-    worst = 0.0
+    err["flash_attention_sm90"] = max(err["flash_attention_sm90"],
+                                      check_flash_stats(fa, ref, gen))
+    worst = {dtype: 0.0 for dtype in FLASH_BWD_TOL}
     for dtype, tol in FLASH_BWD_TOL.items():
+        name = fa.bwd_route(dtype, DEV)
+        want = {name: 1} if dtype == torch.float32 else {name: 1,
+                                                          fa.route(dtype, DEV): 1}
         for s in FLASH_BWD_S:
             for d in FLASH_D:
                 for h, hkv in FLASH_HEADS:
@@ -910,16 +1016,15 @@ def check_flash_bwd(err: dict) -> None:
                                         f"softcap={cap} offset={offset}")
                                 got, made = launched(lambda: fa.flash_attention_bwd(
                                     q, k, v, do, qp, kp, **kw))
-                                check(made == {"flash_attention_bwd": 1},
-                                      f"flash_attention_bwd {what} launched {made}")
+                                check(made == want, f"{name} {what} launched {made}")
                                 again = fa.flash_attention_bwd(q, k, v, do, qp, kp, **kw)
                                 check(all(same_bits(a, b) for a, b in zip(got, again)),
-                                      f"flash_attention_bwd {what}: two calls differ")
+                                      f"{name} {what}: two calls differ")
                                 errs.append(flash_bwd_check(
                                     got, ref.flash_attention_bwd_ref(q, k, v, do, qp, kp,
                                                                      **kw), what))
-                    worst = max(worst, *errs)
-                    print(f"[kernels] flash_attention_bwd ({str(dtype)[6:]}) S={s} D={d} "
+                    worst[dtype] = max(worst[dtype], *errs)
+                    print(f"[kernels] {name} ({str(dtype)[6:]}) S={s} D={d} "
                           f"H={h}/{hkv}: max_abs_err of dq, dk, dv per (window, softcap, "
                           f"offset) in {FLASH_BWD_WINDOWS}x{FLASH_CAPS}x(no, yes): "
                           + " ".join(f"{e:.1e}" for e in errs)
@@ -937,20 +1042,23 @@ def check_flash_bwd(err: dict) -> None:
                                 f"{dtype} keys ahead of the queries window={window}")
             check(float(got[0][:, :192].float().abs().max()) == 0.0,
                   f"{dtype}: rows that see no key have a nonzero dq")
-            worst = max(worst, e)
+            worst[dtype] = max(worst[dtype], e)
         # through the autograd Function: forward on the dtype's route, backward here
         qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
         (grads, made) = launched(lambda: torch.autograd.grad(
             fa.flash_attention(qg, kg, vg, qp, ahead, window=64), (qg, kg, vg), do))
-        check(made == {fa.route(dtype, DEV): 1, "flash_attention_bwd": 1},
+        check(made == {fa.route(dtype, DEV): 1, fa.bwd_route(dtype, DEV): 1},
               f"FlashAttention {dtype}: forward and backward launched {made}")
-        worst = max(worst, flash_bwd_check(grads, ref.flash_attention_bwd_ref(
+        worst[dtype] = max(worst[dtype], flash_bwd_check(grads, ref.flash_attention_bwd_ref(
             q, k, v, do, qp, ahead, causal=True, window=64), f"{dtype} FlashAttention"))
-    err["flash_attention_bwd"] = worst
-    print(f"[kernels] flash_attention_bwd: keys ahead of the queries (S=385, rows 0..191 "
-          f"see no key: dq 0 there, dv gains their dO / Sk) and FlashAttention's "
-          f"backward (one {{route}} and one flash_attention_bwd launch) within tolerance "
-          f"in float32 and bf16; max_abs_err over the grid {worst:.3e}")
+    err["flash_attention_bwd"] = worst[torch.float32]
+    err["flash_attention_bwd_sm90"] = worst[torch.bfloat16]
+    print(f"[kernels] flash_attention_bwd (float32) and flash_attention_bwd_sm90 (bf16): "
+          f"keys ahead of the queries (S=385, rows 0..191 see no key: dq 0 there, dv "
+          f"gains their dO / Sk) and FlashAttention's backward (one forward launch on "
+          f"the dtype's route, saving the statistics in bf16, and one backward launch) "
+          f"within tolerance; max_abs_err over the grid {worst[torch.float32]:.3e} "
+          f"(float32), {worst[torch.bfloat16]:.3e} (bf16)")
 
 
 # -- phases 3 and 4: the main path -----------------------------------------
@@ -1785,7 +1893,7 @@ def train_attention_launches(cfg, dtype) -> dict:
     backward, on the dtype's route) and its backward once."""
     from repro_torch.kernels import flash_attention as fa
     n = cfg.n_layers * TRAIN_AGENTS * TRAIN_EPOCHS
-    return {fa.route(dtype, DEV): 2 * n, "flash_attention_bwd": n}
+    return {fa.route(dtype, DEV): 2 * n, fa.bwd_route(dtype, DEV): n}
 
 
 def phase_train(launches: dict) -> dict:
@@ -1833,7 +1941,7 @@ def phase_train(launches: dict) -> dict:
           + ", ".join(f"{x:.4f}" for x in run.losses) + "; ms per round "
           + ", ".join(f"{x:.1f}" for x in out["ms_per_round"])
           + f" (host clock to the loss read back); launches per round {want} "
-          f"(flash_attention_bwd from the card's kernel, never the plain version); "
+          f"(flash_attention_bwd_sm90 from the card's kernel, never the plain version); "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); checkpoint "
           f"round {TRAIN_ROUNDS} restores bit for bit; {total_s:.1f} s with set-up")
     return out, run.state
@@ -2481,12 +2589,17 @@ def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> float:
         print(f"[profile]   {e.self_device_time_total / 1e3 / rounds:8.4f} ms/{unit} "
               f"{e.count / rounds:6.0f}x/{unit} "
               f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:70]}")
-    for e in device:
-        name = next((n for n in SOURCES
-                     if re.search(rf"\b{n}_kernel\b", e.key)), None)
-        if name:
-            print(f"[profile] {tag}: {name}: {e.self_device_time_total / e.count:.2f}"
-                  f" us of device time per launch, {e.count / rounds:.0f}x/{unit}")
+    for e in device:                     # a backward's three grids each by name
+        found = next(((n, m) for n in SOURCES for m in
+                      [re.search(rf"\b{n}(_prep|_dq|_dkdv)?_kernel\b", e.key)] if m), None)
+        if found:
+            name, m = found
+            grid = f" ({m.group(1)[1:]} grid)" if m.group(1) else ""
+            args = re.match(r"<[^>]*>", e.key[m.end():])    # the instantiation
+            grid += f" {args.group(0)}" if args else ""
+            print(f"[profile] {tag}: {name}{grid}: {e.self_device_time_total / e.count:.2f}"
+                  f" us of device time per launch, {e.count / rounds:.0f}x/{unit}, "
+                  f"{e.self_device_time_total / 1e3 / rounds:.3f} ms/{unit}")
     return launches
 
 
@@ -2642,7 +2755,8 @@ def phase_times(rng) -> dict:
         out.setdefault("sign_pipeline", []).append(rec)
     out["flash_attention_sm90"] = [time_flash_sm90()]
     out["flash_attention"] = [time_flash_f32()]
-    out["flash_attention_bwd"] = [time_flash_bwd()]
+    out["flash_attention_bwd_sm90"] = [time_flash_bwd(torch.bfloat16)]
+    out["flash_attention_bwd"] = [time_flash_bwd(torch.float32)]
     return out
 
 
@@ -2740,9 +2854,10 @@ def time_flash_sm90() -> dict:
                                                     causal=True, window=w),
            "kern1": lambda: fa.flash_attention(q[:1], k[:1], v[:1], window=w),
            "kern": lambda: fa.flash_attention(q, k, v, window=w),
+           "kern_stats": lambda: fa._forward(q, k, v, pos, pos, True, w, None, stats=True),
            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                           enable_gqa=True)}
-    runs = time_turns(fns, dict(plain=2, kern1=10, kern=10, sdpa=10))
+    runs = time_turns(fns, dict(plain=2, kern1=10, kern=10, kern_stats=10, sdpa=10))
     ms = min(runs["kern"])
     host_ms = host_ms_per_call(fns["kern"], 10)
     out = fns["kern"]()                  # the path's shape, held row by row
@@ -2753,6 +2868,7 @@ def time_flash_sm90() -> dict:
     del out
     rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "bfloat16",
            "ms": ms, "ms_runs": runs["kern"], "ms_b1": min(runs["kern1"]),
+           "ms_with_stats": min(runs["kern_stats"]), "ms_with_stats_runs": runs["kern_stats"],
            "plain_ms": min(runs["plain"]), "plain_ms_runs": runs["plain"],
            "plain_at": "B=1", "library_ms": min(runs["sdpa"]),
            "library_ms_runs": runs["sdpa"],
@@ -2766,7 +2882,9 @@ def time_flash_sm90() -> dict:
     print(f"[times] flash_attention_sm90 B={b} S={s} H={h}/{hkv} D={d} W={w} bf16: "
           f"kernel {ms:.3f} ms (runs {runs['kern'][0]:.3f}, {runs['kern'][1]:.3f}; "
           f"device {rec['device_us']} us; at B=1 {rec['ms_b1']:.3f}; host time per "
-          f"call {host_ms:.3f} ms), "
+          f"call {host_ms:.3f} ms; with the backward's statistics "
+          f"{rec['ms_with_stats']:.3f} ms, runs "
+          + ", ".join(f"{x:.3f}" for x in runs["kern_stats"]) + "), "
           f"{rec['tflops']:.1f} TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound "
           f"{b_ms:.4f} ms by {b_by} ({flops:.4e} flops over {pairs} visible pairs per "
           f"(b, h) at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); plain at B=1 "
@@ -2863,37 +2981,53 @@ def time_flash_f32() -> dict:
     return rec
 
 
-def time_flash_bwd() -> dict:
-    """flash_attention_bwd at the training path's shape (stablelm-1.6b,
-    B=2, S=2048, H=Hkv=32, D=64, causal, bf16) beside its bound (the five
-    S^2 D products of the gradient plus the log-sum-exp's Q K^T, 2 D flops
-    per visible pair each, at 989 TFLOP/s bf16, against q, k, v and dout
-    read and dq, dk, dv written once), the plain version, and the backward
-    of torch.nn.functional.scaled_dot_product_attention (is_causal; timed
-    only, the port never calls it).  Least of two runs in turns."""
+def time_flash_bwd(dtype) -> dict:
+    """The backward on ``dtype``'s route at the training path's shape
+    (stablelm-1.6b, B=2, S=2048, H=Hkv=32, D=64, causal): bf16 on
+    flash_attention_bwd_sm90 from the statistics the forward saved (as
+    FlashAttention hands them over), float32 on flash_attention_bwd.  Its
+    bound: the S^2 D products the timed call needs, 2 D flops per visible
+    pair each, at the dtype's peak (989 TFLOP/s bf16 on the tensor cores,
+    67 TFLOP/s float32), against its inputs read and dq, dk, dv written
+    once.  bf16 reads the saved statistics (LSE, O in float32), so five
+    products (Q K^T, dO V^T, P^T dO, dS^T Q, dS K), as SDPA's backward,
+    which reads its forward's saved O and LSE; float32 recomputes O for
+    D, a sixth (P V).  Beside it the plain version and the backward of
+    torch.nn.functional.scaled_dot_product_attention (is_causal; timed
+    only, the port never calls it).  Least of two runs in turns.  For
+    bf16 also the forward at this shape with and without the statistics,
+    and what writing them costs a training round in every forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     t = TRAIN_ATTN
-    q, k, v, pos = attention_inputs(t["b"], t["s"], t["h"], t["hkv"], t["d"],
-                                    torch.bfloat16, 6)
-    do = torch.randn(q.shape, device=DEV).to(torch.bfloat16)
-    pairs = int(ref.attention_mask(pos, pos, causal=True).sum())
-    flops = 6 * 2 * t["d"] * pairs * t["b"] * t["h"]
+    name = fa.bwd_route(dtype, DEV)
+    q, k, v, pos = attention_inputs(t["b"], t["s"], t["h"], t["hkv"], t["d"], dtype, 6)
+    do = torch.randn(q.shape, device=DEV).to(dtype)
+    stats = None
     nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
-    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    products = 6
+    if dtype == torch.bfloat16:
+        stats = fa._forward(q, k, v, pos, pos, True, None, None, stats=True)[1:]
+        nbytes += sum(x.numel() * x.element_size() for x in stats)
+        products = 5
+    pairs = int(ref.attention_mask(pos, pos, causal=True).sum())
+    flops = products * 2 * t["d"] * pairs * t["b"] * t["h"]
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    b_ms, b_by = bound(nbytes, flops, peak)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     do_t = do.transpose(1, 2)
     fns = {"plain": lambda: ref.flash_attention_bwd_ref(q, k, v, do, pos, pos),
-           "kern": lambda: fa.flash_attention_bwd(q, k, v, do, pos, pos),
+           "kern": lambda: fa.flash_attention_bwd(q, k, v, do, pos, pos, stats=stats),
            "sdpa": lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
                                                retain_graph=True)}
     runs = time_turns(fns, dict(plain=2, kern=5, sdpa=10))
     ms = min(runs["kern"])
-    got = fns["kern"]()
-    e = flash_bwd_check(got, fns["plain"](), "at the training shape")
-    rec = {"shape": [t["b"], t["s"], t["h"], t["hkv"], t["d"]], "dtype": "bfloat16",
+    got, made = launched(fns["kern"])
+    check(made == {name: 1}, f"{name} at the training shape launched {made}")
+    e = flash_bwd_check(got, fns["plain"](), f"{name} at the training shape")
+    rec = {"shape": [t["b"], t["s"], t["h"], t["hkv"], t["d"]], "dtype": str(dtype)[6:],
            "ms": ms, "ms_runs": runs["kern"], "plain_ms": min(runs["plain"]),
            "plain_ms_runs": runs["plain"], "library_ms": min(runs["sdpa"]),
            "library_ms_runs": runs["sdpa"],
@@ -2903,14 +3037,33 @@ def time_flash_bwd() -> dict:
            "device_us": bwd_device_us(fns["kern"]),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
            "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs,
-           "max_abs_err_path": e}
-    print(f"[times] flash_attention_bwd B={t['b']} S={t['s']} H={t['h']}/{t['hkv']} "
-          f"D={t['d']} causal bf16: kernel {ms:.3f} ms (runs "
+           "max_abs_err_path": e, "products": products}
+    if dtype == torch.bfloat16:
+        fwd = time_turns({"fwd": lambda: fa._forward(q, k, v, pos, pos, True, None, None),
+                          "fwd_stats": lambda: fa._forward(q, k, v, pos, pos, True, None,
+                                                           None, stats=True)},
+                         dict(fwd=10, fwd_stats=10))
+        n = 2 * train_config().n_layers * TRAIN_AGENTS * TRAIN_EPOCHS
+        rec["forward"] = {"ms": min(fwd["fwd"]), "ms_runs": fwd["fwd"],
+                          "ms_with_stats": min(fwd["fwd_stats"]),
+                          "ms_with_stats_runs": fwd["fwd_stats"],
+                          "stats_ms_per_round": n * (min(fwd["fwd_stats"])
+                                                     - min(fwd["fwd"]))}
+        print(f"[times] flash_attention_sm90 at the training shape: "
+              f"{rec['forward']['ms']:.4f} ms without the statistics (runs "
+              + ", ".join(f"{x:.4f}" for x in fwd["fwd"]) + f"), "
+              f"{rec['forward']['ms_with_stats']:.4f} ms with them (runs "
+              + ", ".join(f"{x:.4f}" for x in fwd["fwd_stats"]) + f"); every training "
+              f"forward writes them ({n} a round, remat's first pass too): "
+              f"{rec['forward']['stats_ms_per_round']:.2f} ms a round, half of it for "
+              "the first pass's copy, which checkpoint drops")
+    print(f"[times] {name} B={t['b']} S={t['s']} H={t['h']}/{t['hkv']} D={t['d']} causal "
+          f"{rec['dtype']}: kernel {ms:.3f} ms (runs "
           + ", ".join(f"{x:.3f}" for x in runs["kern"]) + f"; host time per call "
           f"{rec['host_ms']:.3f} ms), {rec['tflops']:.1f} TFLOP/s of the bound's flops, "
           f"{100 * rec['bound_share']:.2f}% of the bound {b_ms:.4f} ms by {b_by} "
-          f"({flops:.4e} flops: 6 products x 2 D x {pairs} visible pairs per (b, h) at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B); plain {rec['plain_ms']:.3f} "
+          f"({flops:.4e} flops: {products} products x 2 D x {pairs} visible pairs per "
+          f"(b, h) at {peak / 1e12:.0f} TFLOP/s; {nbytes} B); plain {rec['plain_ms']:.3f} "
           f"ms; scaled_dot_product_attention backward {rec['library_ms']:.3f} ms (runs "
           + ", ".join(f"{x:.3f}" for x in runs["sdpa"]) + f"; longest device kernel: "
           f"{rec['library_kernel']}); device time by grid {rec['device_us']} us; "
@@ -2919,8 +3072,9 @@ def time_flash_bwd() -> dict:
 
 
 def bwd_device_us(fn):
-    """Device us of one ``fn()`` in each of flash_attention_bwd's three
-    grids (torch.profiler), or None when the profiler records none."""
+    """Device us of one ``fn()`` in each of the backward's three grids
+    (flash_attention_bwd's or flash_attention_bwd_sm90's; torch.profiler),
+    or None when the profiler records none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2929,7 +3083,7 @@ def bwd_device_us(fn):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        m = re.search(r"flash_attention_bwd_(prep|dq|dkdv)_kernel", e.key)
+        m = re.search(r"flash_attention_bwd(?:_sm90)?_(prep|dq|dkdv)_kernel", e.key)
         if m and e.device_type == torch.autograd.DeviceType.CUDA:
             out[m.group(1)] = e.self_device_time_total / e.count
     return out or None
@@ -2974,9 +3128,12 @@ SOURCES = {
     "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention.py:87"),
     # the gradient of that kernel's function: the JAX package has no Pallas
-    # backward (it differentiates src/repro/models/attention.py:136 in XLA)
+    # backward (it differentiates src/repro/models/attention.py:136 in XLA);
+    # float32 on flash_attention_bwd.cu, bf16 on flash_attention_bwd_sm90.cu
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention.py:87"),
+    "flash_attention_bwd_sm90": ("src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+                                 "src/repro/kernels/flash_attention.py:87"),
 }
 
 

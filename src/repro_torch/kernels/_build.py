@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("pack_bits.cu", "quant_pipeline.cu", "quantize_ef.cu", "erasure_mask.cu",
            "sign_pipeline.cu", "flash_attention.cu", "flash_attention_sm90.cu",
-           "flash_attention_bwd.cu")
+           "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -55,22 +55,30 @@ KERNELS = {
     "erasure_mask": ("erasure_mask.cu", "repro_erasure_mask",
                      (_P, _P, _P, _I, _U, _U, _U, _U)),
     # msg, cache, words, new_cache, scale (out), partials (float64 scratch),
-    # n, tiles; one cooperative launch
+    # n, tiles, bf16 (msg and cache bf16, else float32); one cooperative launch
     "sign_pipeline": ("sign_pipeline.cu", "repro_sign_pipeline",
-                      (_P, _P, _P, _P, _P, _P, _I, _I)),
+                      (_P, _P, _P, _P, _P, _P, _I, _I, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
     # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, vec (16-byte copies)
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
-    # B, H, Hkv, Sq, Sk, D, padded D, causal, window, scale, softcap
+    # B, H, Hkv, Sq, Sk, D, padded D, causal, window, scale, softcap, and
+    # the backward's statistics lse and o32 (null for none) and lse's row
     "flash_attention_sm90": ("flash_attention_sm90.cu", "repro_flash_attention_sm90",
-                             (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F)),
+                             (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F, _P, _P, _I)),
     # q, k, v, dout, dq, dk, dv, lse and delta (scratch), nokey (scratch),
-    # q_pos, k_pos, B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap,
-    # bf16; one call enqueues its three grids and counts as one launch
+    # q_pos, k_pos, B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap
+    # (float32 only); one call enqueues its three grids and counts as one
     "flash_attention_bwd": ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
-                            (_P,) * 12 + (_I,) * 8 + (_F, _F, _I)),
+                            (_P,) * 12 + (_I,) * 8 + (_F, _F)),
+    # q, k, v, dout, dq, dk, dv, lse and o32 (the forward's), delta and
+    # nokey (scratch), q_pos, k_pos, the (B, S, H) strides of q, k, v and
+    # dout, B, H, Hkv, Sq, Sk, D, padded D, lse's row, causal, window,
+    # scale, softcap; one call enqueues its three grids and counts as one
+    "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu",
+                                 "repro_flash_attention_bwd_sm90",
+                                 (_P,) * 13 + (_L,) * 12 + (_I,) * 10 + (_F, _F)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

@@ -98,12 +98,14 @@ def sign_pipeline(msg, cache):
 
     ``words`` is a flat uint32 tensor of ``tiles·R·LANES`` words, ``scale``
     a float32 scalar tensor, ``new_cache`` in the shape and dtype of msg.
-    On the card all three come from one launch; msg and cache may be views
-    of any alignment (one off 16 bytes is read with 4-byte loads).
+    On the card all three come from one launch; msg and cache are float32
+    or bf16, one dtype for both: the launch computes in float32 and writes
+    the new cache in msg's dtype, as the JAX kernel does.  They may be views
+    of any alignment (one off a quad's 16 or 8 bytes is read value by value).
     """
     if msg.device.type == "cpu":
         return ref.sign_pipeline_ref(msg, cache)
-    _check_pair("sign_pipeline", msg, cache)
+    _check_pair("sign_pipeline", msg, cache, (torch.float32, torch.bfloat16))
     msg, cache = msg.contiguous(), cache.contiguous()
     n = msg.numel()
     if n == 0:
@@ -117,5 +119,5 @@ def sign_pipeline(msg, cache):
     partials = torch.empty(tiles * SIGN_CHUNKS_PER_TILE, dtype=torch.float64,
                            device=msg.device)
     _build.launch("sign_pipeline", msg, cache, words, new_cache, scale, partials,
-                  n, tiles)
+                  n, tiles, int(msg.dtype == torch.bfloat16))
     return words, scale, new_cache

@@ -1,5 +1,6 @@
-// flash_attention_bwd for sm_90a: the gradient of flash_attention, for
-// float32 and bf16 inputs, computed in float32 on the FMA pipes.
+// flash_attention_bwd for sm_90a: the gradient of flash_attention's float32
+// route, computed in float32 on the FMA pipes (the bf16 route's is
+// flash_attention_bwd_sm90.cu).
 //
 // The JAX package has no Pallas backward: it differentiates its chunked
 // attention (src/repro/models/attention.py:136) in XLA, and its Pallas
@@ -46,7 +47,6 @@
 #include "common.cuh"
 
 #include <climits>
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -65,22 +65,16 @@ struct Params {
 };
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Rows 0 .. BQ - 1 of a (rows, D) slab at ``src`` (row stride ``ss``
 // elements) into ``dst`` as float32 [BQ][DP + 1]; rows at or past
 // ``valid`` and columns at or past D are zero.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss, int valid,
-                                          int D) {
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ss,
+                                          int valid, int D) {
   for (int idx = threadIdx.x; idx < BQ * DP; idx += NT) {
     const int r = idx / DP, c = idx % DP;
-    dst[r * (DP + 1) + c] = r < valid && c < D ? to_f(src[r * ss + c]) : 0.f;
+    dst[r * (DP + 1) + c] = r < valid && c < D ? src[r * ss + c] : 0.f;
   }
 }
 
@@ -150,10 +144,10 @@ __device__ __forceinline__ float half_max(float x) {
 // ---------------------------------------------------------------------------
 // prep: LSE (log2 units) and D per row; thread (ty, tx) holds rows ty + 16 a
 // and, of O, columns tx + 16 c.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-flash_attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ dout,
+flash_attention_bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
                                 float* __restrict__ lse, float* __restrict__ delta,
                                 int* __restrict__ nokey, Params p) {
   constexpr int LD = DP + 1, CW = DP / 16;
@@ -169,11 +163,11 @@ flash_attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k
   const int q0 = qt * BQ;
   const long long qrow = static_cast<long long>(p.H) * p.D;
   const long long krow = static_cast<long long>(p.Hkv) * p.D;
-  const T* kb = k + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
-  const T* vb = v + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
+  const float* kb = k + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
+  const float* vb = v + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
   const long long qoff = (static_cast<long long>(b) * p.Sq + q0) * qrow +
                          static_cast<long long>(h) * p.D;
-  load_tile<T, DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
+  load_tile<DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
 
   int qlo, qhi;
   tile_range(p.q_pos, p.Sq, q0, qlo, qhi);
@@ -199,8 +193,8 @@ flash_attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k
     tile_range(p.k_pos, p.Sk, kt * BK, klo, khi);
     if (!tiles_meet(qlo, qhi, klo, khi, p)) continue;
     __syncthreads();                  // Q has landed; the last tile is read
-    load_tile<T, DP>(kS, kb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
-    load_tile<T, DP>(vS, vb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
+    load_tile<DP>(kS, kb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
+    load_tile<DP>(vS, vb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
     int kp[4];
     bool kin[4];
 #pragma unroll
@@ -278,12 +272,12 @@ flash_attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k
     float dsum = 0.f;
     if (qin[a] && !none[a]) {
       const float inv = 1.f / lsum;
-      const T* drow = dout + (static_cast<long long>(b) * p.Sq + row) * qrow +
+      const float* drow = dout + (static_cast<long long>(b) * p.Sq + row) * qrow +
                       static_cast<long long>(h) * p.D;
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const int col = tx + 16 * c;
-        if (col < p.D) dsum = fmaf(to_f(drow[col]), acc[a][c] * inv, dsum);
+        if (col < p.D) dsum = fmaf(drow[col], acc[a][c] * inv, dsum);
       }
     }
     dsum = half_sum(dsum);
@@ -302,12 +296,12 @@ flash_attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k
 // ---------------------------------------------------------------------------
 // dq: thread (ty, tx) holds query rows ty + 16 a; in the score tiles keys
 // tx + 16 j, in dQ columns tx + 16 c.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, const T* __restrict__ dout,
+flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse,
-                              const float* __restrict__ delta, T* __restrict__ dq,
+                              const float* __restrict__ delta, float* __restrict__ dq,
                               Params p) {
   constexpr int LD = DP + 1, CW = DP / 16;
   extern __shared__ float smem[];
@@ -323,12 +317,12 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const long long qrow = static_cast<long long>(p.H) * p.D;
   const long long krow = static_cast<long long>(p.Hkv) * p.D;
-  const T* kb = k + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
-  const T* vb = v + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
+  const float* kb = k + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
+  const float* vb = v + static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
   const long long qoff = (static_cast<long long>(b) * p.Sq + q0) * qrow +
                          static_cast<long long>(h) * p.D;
-  load_tile<T, DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
-  load_tile<T, DP>(oS, dout + qoff, qrow, p.Sq - q0, p.D);
+  load_tile<DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
+  load_tile<DP>(oS, dout + qoff, qrow, p.Sq - q0, p.D);
 
   int qlo, qhi;
   tile_range(p.q_pos, p.Sq, q0, qlo, qhi);
@@ -352,8 +346,8 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_range(p.k_pos, p.Sk, kt * BK, klo, khi);
     if (!tiles_meet(qlo, qhi, klo, khi, p)) continue;
     __syncthreads();
-    load_tile<T, DP>(kS, kb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
-    load_tile<T, DP>(vS, vb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
+    load_tile<DP>(kS, kb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
+    load_tile<DP>(vS, vb + kt * BK * krow, krow, p.Sk - kt * BK, p.D);
     int kp[4];
     bool kin[4];
 #pragma unroll
@@ -418,11 +412,11 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     if (!qin[a]) continue;
-    T* out = dq + qoff + static_cast<long long>(ty + 16 * a) * qrow;
+    float* out = dq + qoff + static_cast<long long>(ty + 16 * a) * qrow;
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
       const int col = tx + 16 * c;
-      if (col < p.D) store(out + col, acc[a][c] * p.scale);
+      if (col < p.D) out[col] = acc[a][c] * p.scale;
     }
   }
 }
@@ -430,14 +424,14 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // dkdv: thread (ty, tx) holds keys ty + 16 a; in the score tiles query rows
 // tx + 16 i, in dK and dV columns tx + 16 c.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ dout,
+flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta,
-                                const int* __restrict__ nokey, T* __restrict__ dk,
-                                T* __restrict__ dv, Params p) {
+                                const int* __restrict__ nokey, float* __restrict__ dk,
+                                float* __restrict__ dv, Params p) {
   constexpr int LD = DP + 1, CW = DP / 16;
   extern __shared__ float smem[];
   float* kS = smem;                   // [BK][LD]
@@ -458,8 +452,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
   const long long krow = static_cast<long long>(p.Hkv) * p.D;
   const long long koff = (static_cast<long long>(b) * p.Sk + k0) * krow +
                          static_cast<long long>(hk) * p.D;
-  load_tile<T, DP>(kS, k + koff, krow, p.Sk - k0, p.D);
-  load_tile<T, DP>(vS, v + koff, krow, p.Sk - k0, p.D);
+  load_tile<DP>(kS, k + koff, krow, p.Sk - k0, p.D);
+  load_tile<DP>(vS, v + koff, krow, p.Sk - k0, p.D);
 
   int klo, khi;
   tile_range(p.k_pos, p.Sk, k0, klo, khi);
@@ -486,8 +480,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
       __syncthreads();                // K, V have landed; the last tile is read
       const long long qoff = (static_cast<long long>(b) * p.Sq + q0) * qrow +
                              static_cast<long long>(h) * p.D;
-      load_tile<T, DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
-      load_tile<T, DP>(oS, dout + qoff, qrow, p.Sq - q0, p.D);
+      load_tile<DP>(qS, q + qoff, qrow, p.Sq - q0, p.D);
+      load_tile<DP>(oS, dout + qoff, qrow, p.Sq - q0, p.D);
       if (tid < BQ) {
         const bool in = q0 + tid < p.Sq;
         lseS[tid] = in ? lse[bh * p.Sq + q0 + tid] : pos_inf();
@@ -577,8 +571,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
           const int end = min(p.Sq, (qt + 1) * BQ);
           for (int row = qt * BQ; row < end; ++row)
             if (lse[bh * p.Sq + row] == pos_inf())
-              sum += to_f(dout[(static_cast<long long>(b) * p.Sq + row) * qrow +
-                               static_cast<long long>(h) * p.D + tid]);
+              sum += dout[(static_cast<long long>(b) * p.Sq + row) * qrow +
+                          static_cast<long long>(h) * p.D + tid];
         }
       }
     }
@@ -594,8 +588,8 @@ flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k
     for (int c = 0; c < CW; ++c) {
       const int col = tx + 16 * c;
       if (col < p.D) {
-        store(dk + at + col, gk[a][c] * p.scale);
-        store(dv + at + col, gv[a][c] + mean[col]);
+        dk[at + col] = gk[a][c] * p.scale;
+        dv[at + col] = gv[a][c] + mean[col];
       }
     }
   }
@@ -610,74 +604,65 @@ constexpr size_t dkdv_smem() {
   return sizeof(float) * (4 * BQ * (DP + 1) + 2 * BK * PS + 2 * BQ + DP);
 }
 
-template <typename T, int DP>
-cudaError_t launch_all(const T* q, const T* k, const T* v, const T* dout, T* dq, T* dk,
-                       T* dv, float* lse, float* delta, int* nokey, const Params& p, int B,
-                       cudaStream_t st) {
+template <int DP>
+cudaError_t launch_all(const float* q, const float* k, const float* v, const float* dout,
+                       float* dq, float* dk, float* dv, float* lse, float* delta,
+                       int* nokey, const Params& p, int B, cudaStream_t st) {
   cudaError_t err;
-  err = cudaFuncSetAttribute(flash_attention_bwd_prep_kernel<T, DP>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_prep_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(prep_smem<DP>()));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, DP>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dq_smem<DP>()));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, DP>,
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dkdv_smem<DP>()));
   if (err != cudaSuccess) return err;
   const unsigned q_blocks = static_cast<unsigned>(p.n_qt) * B * p.H;
   const unsigned k_blocks = static_cast<unsigned>(p.n_kt) * B * p.Hkv;
-  flash_attention_bwd_prep_kernel<T, DP><<<q_blocks, NT, prep_smem<DP>(), st>>>(
+  flash_attention_bwd_prep_kernel<DP><<<q_blocks, NT, prep_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, nokey, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_dkdv_kernel<T, DP><<<k_blocks, NT, dkdv_smem<DP>(), st>>>(
+  flash_attention_bwd_dkdv_kernel<DP><<<k_blocks, NT, dkdv_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, nokey, dk, dv, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_dq_kernel<T, DP><<<q_blocks, NT, dq_smem<DP>(), st>>>(
+  flash_attention_bwd_dq_kernel<DP><<<q_blocks, NT, dq_smem<DP>(), st>>>(
       q, k, v, dout, lse, delta, dq, p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout,
-                     void* dq, void* dk, void* dv, float* lse, float* delta, int* nokey,
+cudaError_t dispatch(const float* q, const float* k, const float* v, const float* dout,
+                     float* dq, float* dk, float* dv, float* lse, float* delta, int* nokey,
                      const Params& p, int B, cudaStream_t st) {
-  const auto* qt = static_cast<const T*>(q);
-  const auto* kt = static_cast<const T*>(k);
-  const auto* vt = static_cast<const T*>(v);
-  const auto* ot = static_cast<const T*>(dout);
-  auto* dqt = static_cast<T*>(dq);
-  auto* dkt = static_cast<T*>(dk);
-  auto* dvt = static_cast<T*>(dv);
   if (p.D <= 64)
-    return launch_all<T, 64>(qt, kt, vt, ot, dqt, dkt, dvt, lse, delta, nokey, p, B, st);
-  return launch_all<T, 128>(qt, kt, vt, ot, dqt, dkt, dvt, lse, delta, nokey, p, B, st);
+    return launch_all<64>(q, k, v, dout, dq, dk, dv, lse, delta, nokey, p, B, st);
+  return launch_all<128>(q, k, v, dout, dq, dk, dv, lse, delta, nokey, p, B, st);
 }
 
 }  // namespace
 
-// Gradients of flash_attention.  q, dout, dq (B, Sq, H, D) and k, v, dk, dv
-// (B, Sk, Hkv, D), all contiguous, float32 (bf16 = 0) or bf16 (bf16 = 1);
-// q_pos (Sq,) and k_pos (Sk,) int32; scratch lse and delta (B, H, Sq)
-// float32 and nokey (B, H, ceil(Sq / 64)) int32, all written.  window <= 0
-// means none, softcap <= 0 none.  D <= 128; 0 < Sk.  Enqueues three grids.
+// Gradients of flash_attention's float32 route.  q, dout, dq (B, Sq, H, D)
+// and k, v, dk, dv (B, Sk, Hkv, D), all contiguous float32; q_pos (Sq,) and
+// k_pos (Sk,) int32; scratch lse and delta (B, H, Sq) float32 and nokey
+// (B, H, ceil(Sq / 64)) int32, all written.  window <= 0 means none,
+// softcap <= 0 none.  D <= 128; 0 < Sk.  Enqueues three grids.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
     void* dv, void* lse, void* delta, void* nokey, const void* q_pos, const void* k_pos,
     int B, int H, int Hkv, int Sq, int Sk, int D, int causal, int window, float scale,
-    float softcap, int bf16, void* stream) {
+    float softcap, void* stream) {
   const Params p{static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), H, Hkv,
                  H / Hkv, Sq, Sk, D, (Sq + BQ - 1) / BQ, (Sk + BK - 1) / BK, causal, window,
                  scale, softcap};
-  auto* l = static_cast<float*>(lse);
-  auto* dl = static_cast<float*>(delta);
-  auto* nk = static_cast<int*>(nokey);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, l, dl, nk, p, B, st)
-           : dispatch<float>(q, k, v, dout, dq, dk, dv, l, dl, nk, p, B, st));
+  return static_cast<int>(dispatch(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(lse), static_cast<float*>(delta), static_cast<int*>(nokey), p, B,
+      static_cast<cudaStream_t>(stream)));
 }

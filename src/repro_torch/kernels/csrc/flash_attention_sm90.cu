@@ -54,6 +54,11 @@
 // what the sentinel gives it: every score is -1e30, so its softmax is
 // uniform over the Sk keys and its output is the mean of V over them,
 // which the consumers then compute from V in global memory.
+// For the backward (flash_attention_bwd_sm90.cu) the kernel can also write
+// each row's log-sum-exp, m + log2(l) in log2 units (+inf for a row that
+// sees no key), and O in float32 before its bf16 rounding: a second
+// instantiation (STATS) that the launch picks when it is given the
+// buffers, so serving's launches run exactly the code they ran before.
 // Query tiles are taken longest first.  Not done yet: a persistent grid,
 // and overlap of one tile's softmax with the next tile's Q K^T inside a
 // warpgroup (it needs a second set of S registers).
@@ -75,6 +80,7 @@
 // 3.35 TB/s.  The split's extra P.V and the padding of D (120 -> 128 in
 // Q K^T) are this kernel's overhead, not part of the bound.
 #include "common.cuh"
+#include "sm90.cuh"
 
 #include <climits>
 #include <cuda.h>
@@ -82,11 +88,13 @@
 
 namespace {
 
+using namespace sm90;
+
 constexpr int BQ = 128;               // query rows per block: two warpgroups of 64
 constexpr int BK = 128;               // keys per tile
 constexpr int STAGES = 2;             // K/V tiles in flight
 constexpr int THREADS = 384;          // two consumer warpgroups, one producer
-constexpr int BOX = 64;               // columns of D per TMA box: 128 bytes
+constexpr int CONSUMERS = 256;        // the named barriers' threads
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -110,216 +118,6 @@ struct Smem {
   static int bytes(int n_kt) { return PLAN + (n_kt + 15) / 16 * 16 + 1024; }
 };
 
-// -- PTX --------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of the given parity has completed.  A wait of more
-// than 20 s can only be a fault of the pipeline: it traps, so the launch
-// fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > 20000000000ull) __trap();
-  }
-}
-
-// One TMA box of a (D, H, S, B) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int h, int s0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
-         "r"(s0), "r"(b)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving register accesses across a wgmma.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (in 16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// The wgmma products.  Accumulator register i of a thread holds row
-// 16 w + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 c + (i & 1), for
-// warp w of the warpgroup, g = lane / 4 and c = lane % 4.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n120(float (&d)[60], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59"
-      "}, {%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int NV>
-__device__ __forceinline__ void wgmma_pv(float (&o)[NV / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_v) {
-  if constexpr (NV == 64) {
-    wgmma_rs_n64(o, a, desc_v);
-  } else if constexpr (NV == 120) {
-    wgmma_rs_n120(o, a, desc_v);
-  } else {
-    wgmma_rs_n128(o, a, desc_v);
-  }
-}
-
-// Named barrier ``id`` of the two consumer warpgroups (256 threads).
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-// The same, returning whether ``x`` held in any of the 256 threads.
-__device__ __forceinline__ bool named_sync_or(int id, bool x) {
-  uint32_t any;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
-      "bar.red.or.pred q, %2, 256, p;\nselp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(any) : "r"(static_cast<uint32_t>(x)), "r"(id) : "memory");
-  return any != 0;
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
 // Issue S = Q K^T for one warpgroup (64 rows of Q from ``q`` against the
 // BK keys of the K tile at ``k``), D in steps of 16: 32 bytes of a 128-byte
 // swizzled row, then the next 64-column box.  Committed, not waited for.
@@ -333,7 +131,7 @@ __device__ __forceinline__ void qk_issue(float (&s)[BK / 2], uint32_t q, uint32_
 #pragma unroll
   for (int kd = 0; kd < 4 * HALVES; ++kd) {
     const uint32_t col = (kd & 3) * 32, half = kd >> 2;
-    wgmma_ss_n128(s, sw128_desc(q + half * Q_HALF + col, 16, 1024),
+    wgmma_ss<128>(s, sw128_desc(q + half * Q_HALF + col, 16, 1024),
                   sw128_desc(k + half * KV_HALF + col, 16, 1024), kd > 0);
   }
   wgmma_commit();
@@ -347,25 +145,12 @@ struct Params {
   __nv_bfloat16* out;         // (B, Sq, H, D) contiguous
   int H, n_rep, Sq, Sk, D, n_kt, causal, window;
   float scale, softcap;
+  // Last, so that the pairs of ints above stay 8-byte aligned: the
+  // kernel then reads each pair with one constant load (LDC.64).
+  float* lse;                 // the backward's statistics, or null (see the end)
+  float* o32;
+  int lse_stride;
 };
-
-// What a query tile with positions in [qlo, qhi] does with a key tile with
-// positions in [klo, khi]: 0 no pair can be visible, 2 every pair is
-// visible and the tile lies inside Sk (``inside``), else 1.  The CPU copy
-// is flash_attention.py tile_plan.
-__device__ __forceinline__ int tile_kind(int qlo, int qhi, int klo, int khi, bool inside,
-                                         const Params& p) {
-  bool some = true, every = inside;
-  if (p.causal) {
-    some = some && klo <= qhi;
-    every = every && khi <= qlo;
-  }
-  if (p.window > 0) {
-    some = some && static_cast<long long>(khi) > static_cast<long long>(qlo) - p.window;
-    every = every && static_cast<long long>(klo) > static_cast<long long>(qhi) - p.window;
-  }
-  return some ? (every ? 2 : 1) : 0;
-}
 
 // The plan of query tile rows q0 .. q0 + BQ - 1 into ``plan`` (n_kt bytes),
 // by all THREADS threads: warp w takes key tiles w, w + 12, ..., its lanes
@@ -493,13 +278,13 @@ __device__ __forceinline__ void pv_issue(float (&o)[NV / 2],
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t dv = sw128_desc(v + kk * 2048, Smem<HALVES>::KV_HALF, 1024);
-    wgmma_pv<NV>(o, p_hi[kk], dv);
-    wgmma_pv<NV>(o, p_lo[kk], dv);
+    wgmma_rs<NV>(o, p_hi[kk], dv);
+    wgmma_rs<NV>(o, p_lo[kk], dv);
   }
   wgmma_commit();
 }
 
-template <int HALVES, int NV>
+template <int HALVES, int NV, bool STATS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
                             __grid_constant__ const CUtensorMap k_map,
@@ -588,12 +373,12 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
       while (plan[kt] == 0) ++kt;
       int stage = 0;
       uint32_t phase = 0;
-      if (wg == 1) named_arrive(1);
+      if (wg == 1) named_arrive<CONSUMERS>(1);
       mbar_wait(q_full, 0);
-      named_sync(1 + wg);
+      named_sync<CONSUMERS>(1 + wg);
       mbar_wait(k_full, 0);
       qk_issue<HALVES>(s, q_wg, k_s);
-      named_arrive(2 - wg);
+      named_arrive<CONSUMERS>(2 - wg);
       wgmma_wait_all();
       reg_fence(s);
       for (int i = 0; i < n_vis; ++i) {
@@ -602,7 +387,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
         softmax_tile<NV>(s, o, p_hi, p_lo, m, l, p, kt, plan[kt], c, qp, cap);
         // -- this warpgroup's turn: O += P_hi V + P_lo V, then S = Q K^T of
         //    the next tile ----------------------------------------------------
-        named_sync(1 + wg);
+        named_sync<CONSUMERS>(1 + wg);
         mbar_wait(v_full + 8 * stage, phase);
         pv_issue<HALVES, NV>(o, p_hi, p_lo, v_s + stage * HALVES * L::KV_HALF);
         wgmma_wait_all();
@@ -612,12 +397,12 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
         if (i + 1 == n_vis) break;
         mbar_wait(k_full + 8 * stage, phase);
         qk_issue<HALVES>(s, q_wg, k_s + stage * HALVES * L::KV_HALF);
-        named_arrive(2 - wg);
+        named_arrive<CONSUMERS>(2 - wg);
         wgmma_wait_all();
         reg_fence(s);
         kt = next;
       }
-      if (wg == 0) named_arrive(2);      // warpgroup 1 takes the last turn
+      if (wg == 0) named_arrive<CONSUMERS>(2);      // warpgroup 1 takes the last turn
     } else {
       mbar_wait(q_full, 0);              // no bulk copy in flight at exit
     }
@@ -627,7 +412,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
     //    per consumer thread, in 8 running sums --------------------------
     const bool none0 = r0 < p.Sq && m[0] == NEG_INF;
     const bool none1 = r1 < p.Sq && m[1] == NEG_INF;
-    if (named_sync_or(3, none0 || none1)) {
+    if (named_sync_or<CONSUMERS>(3, none0 || none1)) {
       const int col = threadIdx.x;
       if (col < p.D) {
         const __nv_bfloat16* vc = p.v + b * p.v_sb + hk * p.v_sh + col;
@@ -642,7 +427,7 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
         v_mean[col] = ((acc[0] + acc[1]) + (acc[2] + acc[3]) +
                        ((acc[4] + acc[5]) + (acc[6] + acc[7]))) / static_cast<float>(p.Sk);
       }
-      named_sync(3);
+      named_sync<CONSUMERS>(3);
     }
 
     // -- out = O / max(l, 1e-30), cast to bf16 once -------------------------
@@ -672,68 +457,63 @@ flash_attention_sm90_kernel(__grid_constant__ const CUtensorMap q_map,
         }
       }
     }
+
+    // -- the backward's statistics, in the STATS instantiation only (so the
+    //    other one compiles as without them): each row's log-sum-exp in log2
+    //    units, m + log2(l), +inf for a row that sees no key or lies past Sq,
+    //    into row bh of lse (lse_stride floats a row, every row of the tile
+    //    written); and O in float32, before its bf16 rounding, into o32
+    //    (B, Sq, H, D) contiguous ------------------------------------------
+    if constexpr (STATS) {
+      const float inf = __int_as_float(0x7f800000);
+      if (c == 0) {
+        float* lrow = p.lse + static_cast<long long>(bh) * p.lse_stride;
+        lrow[r0] = r0 < p.Sq && !none0 ? m[0] + log2f(l0) : inf;
+        lrow[r1] = r1 < p.Sq && !none1 ? m[1] + log2f(l1) : inf;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = rr ? r1 : r0;
+        if (r >= p.Sq) continue;
+        const float den = rr ? den1 : den0;
+        const bool none = rr ? none1 : none0;
+        float* row = p.o32 + ((static_cast<long long>(b) * p.Sq + r) * p.H + h) * p.D;
+#pragma unroll
+        for (int j = 0; j < NV / 8; ++j) {
+          const int col = 8 * j + 2 * c;
+          const float x0 = none ? v_mean[min(col, 127)] : o[4 * j + 2 * rr] / den;
+          const float x1 = none ? v_mean[min(col + 1, 127)] : o[4 * j + 2 * rr + 1] / den;
+          if ((p.D & 1) == 0 && col + 1 < p.D) {
+            *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+          } else {
+            if (col < p.D) row[col] = x0;
+            if (col + 1 < p.D) row[col + 1] = x1;
+          }
+        }
+      }
+    }
   }
 }
 
 // -- host -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// Tensor map of a (B, S, heads, Dp) bf16 tensor with the given element
-// strides of (B, S, heads), as dimensions (Dp, heads, S, B); boxes of 64
-// columns x 1 head x ``rows`` rows, 128-byte swizzle, zeros out of bounds.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int Dp,
-                     long long sb, long long ss, long long sh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * sh),
-                                 static_cast<cuuint64_t>(2 * ss),
-                                 static_cast<cuuint64_t>(2 * sb)};
-  const cuuint32_t box[4] = {BOX, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                              const_cast<void*>(ptr), dims, strides, box, elem,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+template <int HALVES, int NV, bool STATS>
+cudaError_t launch_as(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                      const Params& p, int n_qt, int bh, cudaStream_t stream) {
+  const int smem = Smem<HALVES>::bytes(p.n_kt);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_sm90_kernel<HALVES, NV, STATS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_attention_sm90_kernel<HALVES, NV, STATS><<<dim3(n_qt, bh), THREADS, smem, stream>>>(
+      qm, km, vm, p);
+  return cudaGetLastError();
 }
 
 template <int HALVES, int NV>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
                    const Params& p, int n_qt, int bh, cudaStream_t stream) {
-  const int smem = Smem<HALVES>::bytes(p.n_kt);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_sm90_kernel<HALVES, NV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_attention_sm90_kernel<HALVES, NV><<<dim3(n_qt, bh), THREADS, smem, stream>>>(
-      qm, km, vm, p);
-  return cudaGetLastError();
+  return p.lse != nullptr ? launch_as<HALVES, NV, true>(qm, km, vm, p, n_qt, bh, stream)
+                          : launch_as<HALVES, NV, false>(qm, km, vm, p, n_qt, bh, stream);
 }
 
 }  // namespace
@@ -745,14 +525,19 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorM
 // out (B, Sq, H, D) bf16 contiguous; q_pos (Sq,) and k_pos (Sk,) int32.
 // window <= 0 means none, softcap <= 0 none.  D <= 128; B * H <= 65535;
 // Sk <= 2**23 (the plan, one byte per key tile, lives in shared memory).
+// lse and o32 are null, or the backward's statistics: lse (B, H,
+// lse_stride) float32 with lse_stride >= Sq a multiple of 128 (every entry
+// written), o32 (B, Sq, H, D) float32 contiguous.
 extern "C" int repro_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* out, const void* q_pos,
     const void* k_pos, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int B, int H, int Hkv, int Sq, int Sk, int D, int Dp, int causal,
-    int window, float scale, float softcap, void* stream) {
+    int window, float scale, float softcap, void* lse, void* o32, int lse_stride,
+    void* stream) {
   if (D < 1 || D > 128 || Dp < D || Dp % 8 != 0 || H % Hkv != 0 || Sk < 1 ||
-      Sk > (1 << 23))
+      Sk > (1 << 23) || (lse != nullptr && (o32 == nullptr || lse_stride < Sq ||
+                                            lse_stride % BQ != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qm, km, vm;
   cudaError_t err = make_map(&qm, q, B, Sq, H, Dp, q_sb, q_ss, q_sh, BQ);
@@ -767,6 +552,9 @@ extern "C" int repro_flash_attention_sm90(
   p.v_ss = v_ss;
   p.v_sh = v_sh;
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.o32 = static_cast<float*>(o32);
+  p.lse_stride = lse_stride;
   p.H = H;
   p.n_rep = H / Hkv;
   p.Sq = Sq;

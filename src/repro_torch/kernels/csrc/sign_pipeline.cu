@@ -16,8 +16,8 @@
 // gives.
 //
 // Bound: bytes.  The function reads msg and cache once (8 bytes per
-// value), writes new_cache (4) and one word per 32 values: 12.125 bytes
-// per value, 0.0607 ms at 2**24 values and 3.35 TB/s.  This design reads
+// float32 value, 4 per bf16 one), writes new_cache (4, or 2) and one word
+// per 32 values: 12.125 bytes per float32 value (6.125 in bf16), 0.0607 ms at 2**24 values and 3.35 TB/s.  This design reads
 // msg and cache a second time once the scale is known (every new_cache
 // depends on it): 20.125 bytes per value from device memory, or
 // 12.125 n + max(0, 8 n - L2) = 17.0 per value at 2**24 where the 50 MB
@@ -50,13 +50,18 @@
 //           H100 that reuse does not show: the time is that of 20 bytes per
 //           value (PERF.md).
 //
-// msg and cache are read with 16-byte loads when msg, cache and new_cache
-// are all 16-byte aligned; a view off that (msg[1:]) takes 4-byte loads
-// and stores (VEC = false), with no copy.  A quad that crosses n is read
-// and written value by value.  The work split and the summation order are
+// msg, cache and new_cache are float32 or bf16, one type for all three
+// (the template T), as the Pallas kernel takes any float msg and cache
+// (:81-89): both passes and the scale compute in float32 (the partials in
+// float64), and new_cache is written in T, rounded to nearest even once.
+// A quad is read with one 16-byte (float32) or 8-byte (bf16) load when msg,
+// cache and new_cache are all aligned to a quad's bytes; a view off that
+// (msg[1:]) takes loads and stores of one value each (VEC = false), with
+// no copy.  A quad that crosses n is read and written value by value.  The work split and the summation order are
 // modelled in numpy by test_torch_kernels.py; chip_smoke.py holds the
 // card's scale to the same order's sum bit for bit.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "bitplanes.cuh"
 
@@ -70,21 +75,52 @@ constexpr int QUAD = 4;                               // columns per thread
 constexpr int CHUNKS_PER_TILE = TILE_COLS / (QUAD * 32);   // 8
 constexpr int BATCH = 8;                              // rows in flight per thread
 
-// four floats at p + idx, 0 past n: one 16-byte load when VEC and the quad
-// lies inside n (STREAM: the last read, evict first)
-template <bool VEC, bool STREAM>
-__device__ __forceinline__ float4 load_quad(const float* __restrict__ p,
-                                            long long idx, long long n) {
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// four values at p + idx as floats, 0 past n: one 16-byte (float32) or
+// 8-byte (bf16) load when VEC and the quad lies inside n (STREAM: the last
+// read, evict first)
+template <typename T, bool VEC, bool STREAM>
+__device__ __forceinline__ float4 load_quad(const T* __restrict__ p, long long idx,
+                                            long long n) {
   if (VEC && idx + QUAD <= n) {
-    const float4* q = reinterpret_cast<const float4*>(p + idx);
-    return STREAM ? __ldcs(q) : __ldcg(q);
+    if constexpr (sizeof(T) == 4) {
+      const float4* q = reinterpret_cast<const float4*>(p + idx);
+      return STREAM ? __ldcs(q) : __ldcg(q);
+    } else {
+      const uint2* q = reinterpret_cast<const uint2*>(p + idx);
+      const uint2 u = STREAM ? __ldcs(q) : __ldcg(q);
+      const float2 a = unpack2(u.x), b = unpack2(u.y);
+      return make_float4(a.x, a.y, b.x, b.y);
+    }
   }
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (idx < n) v.x = p[idx];
-  if (idx + 1 < n) v.y = p[idx + 1];
-  if (idx + 2 < n) v.z = p[idx + 2];
-  if (idx + 3 < n) v.w = p[idx + 3];
+  if (idx < n) v.x = to_f(p[idx]);
+  if (idx + 1 < n) v.y = to_f(p[idx + 1]);
+  if (idx + 2 < n) v.z = to_f(p[idx + 2]);
+  if (idx + 3 < n) v.w = to_f(p[idx + 3]);
   return v;
+}
+
+// a whole quad of new_cache: one streaming store of 16 (float32) or 8
+// (bf16) bytes
+__device__ __forceinline__ void store_quad(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, float4 v) {
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(pack2(v.x, v.y), pack2(v.z, v.w)));
 }
 
 // batches of BATCH rows of chunk c that hold values: GROUP / BATCH but in
@@ -104,10 +140,10 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
-sign_pipeline_kernel(const float* __restrict__ msg, const float* __restrict__ cache,
-                     uint32_t* __restrict__ words, float* __restrict__ new_cache,
+sign_pipeline_kernel(const T* __restrict__ msg, const T* __restrict__ cache,
+                     uint32_t* __restrict__ words, T* __restrict__ new_cache,
                      float* __restrict__ scale_out, double* __restrict__ partials,
                      long long n, long long chunks) {
   __shared__ double warp_part[WARPS];
@@ -130,8 +166,8 @@ sign_pipeline_kernel(const float* __restrict__ msg, const float* __restrict__ ca
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
         const long long idx = base + static_cast<long long>(i0 + u) * TILE_COLS;
-        m[u] = load_quad<VEC, false>(msg, idx, n);
-        k[u] = load_quad<VEC, false>(cache, idx, n);
+        m[u] = load_quad<T, VEC, false>(msg, idx, n);
+        k[u] = load_quad<T, VEC, false>(cache, idx, n);
       }
 #pragma unroll
       for (int u = 0; u < BATCH; ++u) {
@@ -171,8 +207,8 @@ sign_pipeline_kernel(const float* __restrict__ msg, const float* __restrict__ ca
 #pragma unroll
       for (int u = BATCH - 1; u >= 0; --u) {
         const long long idx = base + static_cast<long long>(i0 + u) * TILE_COLS;
-        m[u] = load_quad<VEC, true>(msg, idx, n);
-        k[u] = load_quad<VEC, true>(cache, idx, n);
+        m[u] = load_quad<T, VEC, true>(msg, idx, n);
+        k[u] = load_quad<T, VEC, true>(cache, idx, n);
       }
 #pragma unroll
       for (int u = BATCH - 1; u >= 0; --u) {
@@ -192,13 +228,13 @@ sign_pipeline_kernel(const float* __restrict__ msg, const float* __restrict__ ca
           w.y |= static_cast<uint32_t>(by) << i;
           w.z |= static_cast<uint32_t>(bz) << i;
           w.w |= static_cast<uint32_t>(bw) << i;
-          __stcs(reinterpret_cast<float4*>(new_cache + idx), out);
+          store_quad(new_cache + idx, out);
         } else {                      // value by value; slots past n stay bit 0
           w.x |= static_cast<uint32_t>(bx) << i;
-          new_cache[idx] = out.x;
-          if (idx + 1 < n) { w.y |= static_cast<uint32_t>(by) << i; new_cache[idx + 1] = out.y; }
-          if (idx + 2 < n) { w.z |= static_cast<uint32_t>(bz) << i; new_cache[idx + 2] = out.z; }
-          if (idx + 3 < n) { w.w |= static_cast<uint32_t>(bw) << i; new_cache[idx + 3] = out.w; }
+          store(new_cache + idx, out.x);
+          if (idx + 1 < n) { w.y |= static_cast<uint32_t>(by) << i; store(new_cache + idx + 1, out.y); }
+          if (idx + 2 < n) { w.z |= static_cast<uint32_t>(bz) << i; store(new_cache + idx + 2, out.z); }
+          if (idx + 3 < n) { w.w |= static_cast<uint32_t>(bw) << i; store(new_cache + idx + 3, out.w); }
         }
       }
     }
@@ -206,8 +242,8 @@ sign_pipeline_kernel(const float* __restrict__ msg, const float* __restrict__ ca
   }
 }
 
-template <bool VEC>
-int launch_sign(const float* msg, const float* cache, uint32_t* words, float* new_cache,
+template <typename T, bool VEC>
+int launch_sign(const T* msg, const T* cache, uint32_t* words, T* new_cache,
                 float* scale, double* partials, long long n, long long chunks,
                 cudaStream_t stream) {
   // blocks that fit on the card at once, per device (computed once)
@@ -221,7 +257,7 @@ int launch_sign(const float* msg, const float* cache, uint32_t* words, float* ne
     if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, sign_pipeline_kernel<VEC>, THREADS, 0)))
+             &per_sm, sign_pipeline_kernel<T, VEC>, THREADS, 0)))
       return static_cast<int>(err);
     if (!coop || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
     resident[dev] = sms * per_sm;
@@ -230,30 +266,40 @@ int launch_sign(const float* msg, const float* cache, uint32_t* words, float* ne
   const unsigned grid = static_cast<unsigned>(want < resident[dev] ? want : resident[dev]);
   void* args[] = {&msg, &cache, &words, &new_cache, &scale, &partials, &n, &chunks};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sign_pipeline_kernel<VEC>), dim3(grid),
+      reinterpret_cast<const void*>(sign_pipeline_kernel<T, VEC>), dim3(grid),
       dim3(THREADS), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// msg, cache, new_cache: n float32 (new_cache 16-byte aligned, as from
-// torch.empty); words: tiles * 1024 uint32, all written; scale: one float32,
-// written; partials: tiles * 8 float64 of scratch.  Returns a CUDA error
-// code, cudaErrorNotSupported where the card has no cooperative launch.
-extern "C" int repro_sign_pipeline(const void* msg, const void* cache, void* words,
-                                   void* new_cache, void* scale, void* partials,
-                                   int n, int tiles, void* stream) {
-  static_assert(TILE_COLS == CHUNKS_PER_TILE * 32 * QUAD, "chunks tile a tile");
-  const auto* m = static_cast<const float*>(msg);
-  const auto* k = static_cast<const float*>(cache);
+template <typename T>
+int dispatch(const void* msg, const void* cache, void* words, void* new_cache, void* scale,
+             void* partials, long long n, long long chunks, cudaStream_t st) {
+  const auto* m = static_cast<const T*>(msg);
+  const auto* k = static_cast<const T*>(cache);
   auto* w = static_cast<uint32_t*>(words);
-  auto* nc = static_cast<float*>(new_cache);
+  auto* nc = static_cast<T*>(new_cache);
   auto* s = static_cast<float*>(scale);
   auto* p = static_cast<double*>(partials);
-  const long long chunks = static_cast<long long>(tiles) * CHUNKS_PER_TILE;
   const bool vec = (reinterpret_cast<uintptr_t>(msg) | reinterpret_cast<uintptr_t>(cache) |
-                    reinterpret_cast<uintptr_t>(new_cache)) % 16 == 0;
+                    reinterpret_cast<uintptr_t>(new_cache)) % (QUAD * sizeof(T)) == 0;
+  return vec ? launch_sign<T, true>(m, k, w, nc, s, p, n, chunks, st)
+             : launch_sign<T, false>(m, k, w, nc, s, p, n, chunks, st);
+}
+
+// msg, cache, new_cache: n values of float32 (bf16 = 0) or bf16 (bf16 = 1),
+// new_cache aligned to 16 bytes, as from torch.empty; words: tiles * 1024
+// uint32, all written; scale: one float32, written; partials: tiles * 8
+// float64 of scratch.  Returns a CUDA error code, cudaErrorNotSupported
+// where the card has no cooperative launch.
+extern "C" int repro_sign_pipeline(const void* msg, const void* cache, void* words,
+                                   void* new_cache, void* scale, void* partials,
+                                   int n, int tiles, int bf16, void* stream) {
+  static_assert(TILE_COLS == CHUNKS_PER_TILE * 32 * QUAD, "chunks tile a tile");
+  const long long chunks = static_cast<long long>(tiles) * CHUNKS_PER_TILE;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vec ? launch_sign<true>(m, k, w, nc, s, p, n, chunks, st)
-             : launch_sign<false>(m, k, w, nc, s, p, n, chunks, st);
+  return bf16 ? dispatch<__nv_bfloat16>(msg, cache, words, new_cache, scale, partials, n,
+                                        chunks, st)
+              : dispatch<float>(msg, cache, words, new_cache, scale, partials, n, chunks,
+                                st);
 }

@@ -41,13 +41,30 @@ Both kernels take D ≤ 128.
 The gradient: :class:`FlashAttention` is the ``torch.autograd.Function``
 that :func:`flash_attention` (and so ``ops.attention``) goes through.  Its
 forward is the routes above; its backward is :func:`flash_attention_bwd`,
-the plain version for a CPU tensor and ``csrc/flash_attention_bwd.cu``
-(launch name ``flash_attention_bwd``, float32 and bf16) for a tensor on
-the card, with no fallback from one to the other.  The JAX package has no
-Pallas backward (it differentiates its chunked attention in XLA), so this
-kernel is the port's own.  It works on :data:`BWD_BLOCK_Q` by
-:data:`BWD_BLOCK_K` tiles, skipping by :func:`tile_plan`'s rule the pairs
-of tiles with no visible pair.
+routed by device and dtype as the forward is (:func:`bwd_route`), with no
+fallback from one route to another:
+
+* on the CPU, the plain version in :mod:`.ref`;
+* float32 on the card, ``csrc/flash_attention_bwd.cu`` (launch name
+  ``flash_attention_bwd``): float32 FMAs, three grids (a pre-pass that
+  recomputes each row's log-sum-exp and O, dK/dV per key tile, dQ per
+  query tile) on :data:`BWD_BLOCK_Q` by :data:`BWD_BLOCK_K` tiles;
+* bf16 on the card, ``csrc/flash_attention_bwd_sm90.cu`` (launch name
+  ``flash_attention_bwd_sm90``): TMA and ``wgmma``, with P and dS in two
+  bf16 terms, on the statistics the bf16 forward saves (each row's
+  log-sum-exp and O in float32): a byte-bound pass for D = rowsum(dO∘O),
+  dK/dV per :data:`SM90_BWD_BLOCK` keys over query tiles of
+  :func:`sm90_bwd_block_q` rows, dQ per :data:`SM90_BWD_BLOCK` query rows
+  over key tiles of as many keys; :func:`sm90_bwd_smem_bytes` is its
+  shared memory.
+
+:class:`FlashAttention` asks the forward for those statistics only when
+autograd records the call (grad enabled and an input that needs it) and
+the backward's route reads them (the plain version and the bf16 kernel).
+The JAX package has no Pallas backward (it differentiates its chunked
+attention in XLA), so both backward kernels are the port's own.  Each
+skips, by :func:`tile_plan`'s rule, the pairs of tiles with no visible
+pair.
 """
 from __future__ import annotations
 
@@ -58,8 +75,9 @@ import torch.nn.functional as F
 
 from . import _build, ref
 
-__all__ = ["FlashAttention", "f32_smem_bytes", "flash_attention", "flash_attention_bwd",
-           "route", "tile_plan", "tma_layout", "vec_ready"]
+__all__ = ["FlashAttention", "bwd_route", "f32_smem_bytes", "flash_attention",
+           "flash_attention_bwd", "route", "sm90_bwd_block_q", "sm90_bwd_smem_bytes",
+           "tile_plan", "tma_layout", "vec_ready"]
 
 MAX_HEAD_DIM = 128
 #: query rows and keys per tile of ``csrc/flash_attention_sm90.cu`` (BQ, BK)
@@ -73,8 +91,12 @@ SKIP, MASKED, FULL = 0, 1, 2
 #: stages in its ring, floats per row of a K stage (and of P^T), key tiles
 #: planned at a time (a byte each)
 F32_BLOCK_Q, F32_BLOCK_K, F32_STAGES, F32_K_STRIDE, F32_PLAN_TILES = 128, 64, 2, 136, 2048
-#: ``csrc/flash_attention_bwd.cu``: query rows and keys per tile
+#: ``csrc/flash_attention_bwd.cu`` (float32): query rows and keys per tile
 BWD_BLOCK_Q = BWD_BLOCK_K = 64
+#: ``csrc/flash_attention_bwd_sm90.cu`` (bf16): keys per tile of both grids
+#: and query rows per tile of the dQ grid; the rows of the LSE the forward
+#: saves are padded to :data:`BLOCK_Q`
+SM90_BWD_BLOCK = 64
 #: dynamic shared memory one block may take on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 
@@ -88,6 +110,29 @@ def f32_smem_bytes(d: int) -> int:
     floats = (F32_BLOCK_Q * -(-d // 8) * 8 + F32_STAGES * F32_BLOCK_K * F32_K_STRIDE
               + F32_STAGES * F32_BLOCK_K * v_cols)
     return 4 * floats + F32_PLAN_TILES
+
+
+def sm90_bwd_block_q(d: int) -> int:
+    """Query rows per tile of the bf16 backward's dK/dV grid at head dim
+    ``d``: 64 for D <= 64, else 32 (dK and dV of D = 128 take 128 of a
+    thread's registers)."""
+    return 64 if d <= 64 else 32
+
+
+def sm90_bwd_smem_bytes(d: int, sq: int, sk: int):
+    """(dK/dV grid, dQ grid) shared memory of one block of the bf16
+    backward: the resident tiles (K and V, or Q and dO), two-stage rings of
+    the others (and the dK/dV grid's LSE and D rows), the barriers, the
+    no-key rows' dO sum, the plan (a byte per tile, rounded to 16) and
+    1024 bytes of alignment.  The CPU copy of ``DkdvSmem``/``DqSmem`` in
+    ``csrc/flash_attention_bwd_sm90.cu``."""
+    halves, bq, box = (1 if d <= 64 else 2), sm90_bwd_block_q(d), SM90_BWD_BLOCK * 128
+    stages, bars = 2, 8 * (1 + 2 * 2)
+    plan = lambda n: -(-n // 16) * 16
+    dkdv = (2 * halves * box + 2 * stages * halves * bq * 128 + 2 * stages * bq * 4
+            + bars + 4 * 128 + plan(-(-sq // bq)) + 1024)
+    dq = 2 * halves * box + 2 * stages * halves * box + bars + plan(-(-sk // 64)) + 1024
+    return dkdv, dq
 
 
 def vec_ready(t: torch.Tensor) -> bool:
@@ -111,6 +156,14 @@ def route(dtype: torch.dtype, device) -> str:
                     f"got {dtype}")
 
 
+def bwd_route(dtype: torch.dtype, device) -> str:
+    """What :func:`flash_attention_bwd` runs for q, k, v of ``dtype`` on
+    ``device``: ``"plain"`` or the launch name of its kernel."""
+    fwd = route(dtype, device)
+    return {"plain": "plain", "flash_attention": "flash_attention_bwd",
+            "flash_attention_sm90": "flash_attention_bwd_sm90"}[fwd]
+
+
 def _tile_ranges(pos: torch.Tensor, block: int):
     """(min, max) of ``pos`` over each tile of ``block`` entries (int64)."""
     n_tiles = -(-pos.numel() // block)
@@ -131,12 +184,14 @@ def tile_plan(q_pos, k_pos, *, causal: bool, window=None,
     empty slots at 2**30); for runs of consecutive positions no tile with a
     visible pair is MASKED needlessly and none without one is visited.
 
-    The CPU copy of the rule that both kernels apply in each block
+    The CPU copy of the rule that the kernels apply in each block
     (``tile_kind``): ``csrc/flash_attention_sm90.cu`` with key tiles of
     BLOCK_K, ``csrc/flash_attention.cu`` with F32_BLOCK_K (both take
     query tiles of 128 rows); ``csrc/flash_attention_bwd.cu`` visits the
-    tiles it does not skip, at BWD_BLOCK_Q by BWD_BLOCK_K.  Held against
-    the dense mask by the tests; no route calls it."""
+    tiles it does not skip, at BWD_BLOCK_Q by BWD_BLOCK_K;
+    ``csrc/flash_attention_bwd_sm90.cu`` at sm90_bwd_block_q(D) by
+    SM90_BWD_BLOCK (dK/dV) and SM90_BWD_BLOCK by SM90_BWD_BLOCK (dQ).
+    Held against the dense mask by the tests; no route calls it."""
     qlo, qhi = _tile_ranges(q_pos, block_q)
     klo, khi = _tile_ranges(k_pos, block_k)
     n_kt = klo.numel()
@@ -223,83 +278,151 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     _check_inputs(q, k, v, window, softcap)
     q_pos = _positions(q_pos, q.shape[1], q.device)
     k_pos = _positions(k_pos, k.shape[1], q.device)
-    return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap)
+    # the statistics, for a backward that reads them (the float32 kernel
+    # recomputes its own)
+    stats = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+             and bwd_route(q.dtype, q.device) != "flash_attention_bwd")
+    return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap, stats)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is :func:`flash_attention`'s route and whose
-    backward is :func:`flash_attention_bwd`: the plain version on the CPU,
-    ``csrc/flash_attention_bwd.cu`` on the card.  It saves q, k, v and the
-    positions, not the output or any softmax statistic: the backward
-    recomputes them."""
+    backward is :func:`flash_attention_bwd`.  It saves q, k, v and the
+    positions, and, when ``stats`` (autograd records the call and the
+    backward's route reads them), the forward's per-row log-sum-exp and O
+    in float32; the float32 kernel's backward recomputes them instead."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
-        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap, stats):
         ctx.options = dict(causal=causal, window=window, softcap=softcap)
-        return _forward(q, k, v, q_pos, k_pos, causal, window, softcap)
+        if not stats:
+            ctx.save_for_backward(q, k, v, q_pos, k_pos)
+            return _forward(q, k, v, q_pos, k_pos, causal, window, softcap)
+        out, lse, o32 = _forward(q, k, v, q_pos, k_pos, causal, window, softcap,
+                                 stats=True)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, lse, o32)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, q_pos, k_pos = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, dout, q_pos, k_pos, **ctx.options)
-        return dq, dk, dv, None, None, None, None, None
+        q, k, v, q_pos, k_pos, *stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, q_pos, k_pos,
+                                         stats=tuple(stats) or None, **ctx.options)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _forward(q, k, v, q_pos, k_pos, causal, window, softcap):
+def _forward(q, k, v, q_pos, k_pos, causal, window, softcap, stats: bool = False):
+    """The forward's route; with ``stats`` (the plain version and the bf16
+    kernel) returns ``(out, lse, o)`` as :func:`ref.flash_attention_ref`
+    does, except that on the card ``lse`` is (B, H, Sq rounded up to
+    BLOCK_Q), +inf past Sq: the rows the bf16 backward reads.  Its
+    readers take the first Sq."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
-                                       window=window, softcap=softcap)
+                                       window=window, softcap=softcap, stats=stats)
     _check_card(q, k, v)
     name = route(q.dtype, q.device)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if sq == 0:
-        return out
     if name == "flash_attention":
-        _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap)
+        if sq:
+            _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap)
         return out
     if sk > MAX_SM90_KEYS:
         raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
-    (q, q_st), (k, k_st), (v, v_st) = (tma_layout(t) for t in (q, k, v))
-    _build.launch("flash_attention_sm90", q, k, v, out, q_pos, k_pos,
-                  *q_st, *k_st, *v_st, b, h, hkv, sq, sk, d, q.shape[-1],
-                  int(causal), window or 0, 1.0 / math.sqrt(d),
-                  float(softcap or 0.0))
+    lse = o32 = None
+    if stats:
+        lse = torch.empty((b, h, -(-sq // BLOCK_Q) * BLOCK_Q), dtype=torch.float32,
+                          device=q.device)
+        o32 = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    if sq:
+        (q, q_st), (k, k_st), (v, v_st) = (tma_layout(t) for t in (q, k, v))
+        _build.launch("flash_attention_sm90", q, k, v, out, q_pos, k_pos,
+                      *q_st, *k_st, *v_st, b, h, hkv, sq, sk, d, q.shape[-1],
+                      int(causal), window or 0, 1.0 / math.sqrt(d),
+                      float(softcap or 0.0), lse, o32, 0 if lse is None else lse.shape[-1])
+    if stats:
+        return out, lse, o32
     return out
 
 
 def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool = True,
-                        window=None, softcap=None):
+                        window=None, softcap=None, stats=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``
-    (B, Sq, H, D), in the inputs' dtypes.  A CPU tensor takes the plain
-    version; float32 or bf16 on the card, one launch of
-    ``csrc/flash_attention_bwd.cu`` (three grids: the LSE and D pre-pass,
-    dK and dV per key tile, dQ per query tile), computed in float32."""
+    (B, Sq, H, D), in the inputs' dtypes, by :func:`bwd_route`: the plain
+    version for a CPU tensor; on the card one launch of
+    ``csrc/flash_attention_bwd.cu`` for float32 (three grids, computed in
+    float32) or of ``csrc/flash_attention_bwd_sm90.cu`` for bf16 (three
+    grids on the tensor cores).
+
+    ``stats`` is the forward's ``(lse, o)`` (``_forward(..., stats=True)``,
+    which :class:`FlashAttention` saves).  The plain version and the bf16
+    kernel read it; without it they first run their forward for it (on the
+    card one ``flash_attention_sm90`` launch), so a call gives the bits
+    that FlashAttention's backward gives.  The float32 kernel always
+    recomputes."""
     _check_inputs(q, k, v, window, softcap)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
     q_pos = _positions(q_pos, q.shape[1], q.device)
     k_pos = _positions(k_pos, k.shape[1], q.device)
-    if q.device.type == "cpu":
+    if q.device.type != "cpu":
+        _check_card(q, k, v, dout)
+    name = bwd_route(q.dtype, q.device)
+    if stats is None and name != "flash_attention_bwd":
+        stats = _forward(q, k, v, q_pos, k_pos, causal, window, softcap, stats=True)[1:]
+    if name == "plain":
         return ref.flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, causal=causal,
-                                           window=window, softcap=softcap)
-    _check_card(q, k, v, dout)
-    route(q.dtype, q.device)                 # raises for a dtype no kernel takes
+                                           window=window, softcap=softcap, stats=stats)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if sq == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return (torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v))
+    if name == "flash_attention_bwd":
+        q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        lse, delta = torch.empty((b, h, sq), **f32), torch.empty((b, h, sq), **f32)
+        nokey = torch.empty((b, h, -(-sq // BWD_BLOCK_Q)), dtype=torch.int32,
+                            device=q.device)
+        _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, delta, nokey,
+                      q_pos, k_pos, b, h, hkv, sq, sk, d, int(causal), window or 0,
+                      1.0 / math.sqrt(d), float(softcap or 0.0))
+        return dq, dk, dv
+    return _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats)
+
+
+def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if sk > MAX_SM90_KEYS:
+        raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
+    smem = sm90_bwd_smem_bytes(d, sq, sk)
+    tiles = (-(-sq // BLOCK_Q) * BLOCK_Q // SM90_BWD_BLOCK, -(-sk // SM90_BWD_BLOCK))
+    if max(smem) > SMEM_LIMIT or max(tiles) > 65535:
+        raise ValueError(f"Sq = {sq}, Sk = {sk}: past the bf16 backward's limits (its "
+                         f"plans take {smem} B of shared memory, at most {SMEM_LIMIT}; "
+                         f"{tiles} tiles of 64 rows, at most 65535 each)")
+    lse, o32 = stats
+    if not (lse.shape == (b, h, -(-sq // BLOCK_Q) * BLOCK_Q) and lse.is_contiguous()
+            and lse.dtype == torch.float32):
+        raise ValueError("stats: the log-sum-exp must be the bf16 forward's own, "
+                         f"(B, H, Sq rounded up to {BLOCK_Q}) float32 contiguous")
+    o32 = o32.contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
-    lse, delta = torch.empty((b, h, sq), **f32), torch.empty((b, h, sq), **f32)
-    nokey = torch.empty((b, h, -(-sq // BWD_BLOCK_Q)), dtype=torch.int32, device=q.device)
-    _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, delta, nokey,
-                  q_pos, k_pos, b, h, hkv, sq, sk, d, int(causal), window or 0,
-                  1.0 / math.sqrt(d), float(softcap or 0.0),
-                  int(q.dtype == torch.bfloat16))
+    delta = torch.empty(lse.shape, **f32)
+    nokey = torch.empty((b, h, lse.shape[-1] // SM90_BWD_BLOCK), dtype=torch.int32,
+                        device=q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    (q, q_st), (k, k_st), (v, v_st), (dout, do_st) = (tma_layout(t)
+                                                      for t in (q, k, v, dout))
+    _build.launch("flash_attention_bwd_sm90", q, k, v, dout, dq, dk, dv, lse, o32, delta,
+                  nokey, q_pos, k_pos, *q_st, *k_st, *v_st, *do_st, b, h, hkv, sq, sk, d,
+                  q.shape[-1], lse.shape[-1], int(causal), window or 0,
+                  1.0 / math.sqrt(d), float(softcap or 0.0))
     return dq, dk, dv
 
 

@@ -205,8 +205,12 @@ def attention_mask(q_pos, k_pos, *, causal: bool, window=None):
     return ok
 
 
+#: log2(e): the kernels keep each row's log-sum-exp in log2 units
+LOG2E = 1.4426950408889634
+
+
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
-                        window=None, softcap=None):
+                        window=None, softcap=None, stats: bool = False):
     """Plain version of
     :func:`repro_torch.kernels.flash_attention.flash_attention`.
 
@@ -215,6 +219,12 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
     the Pallas kernel does (``flash_attention.py:55-56, :73``): scores
     ``q·k/√D`` in float32, ``cap·tanh(s/cap)``, masked pairs set to −1e30,
     softmax, P·V in float32, and the output cast to ``q.dtype`` once.
+
+    With ``stats``, returns ``(out, lse, o)``: what the backward reads
+    instead of recomputing, as the bf16 kernel writes it.  ``lse`` (B, H,
+    Sq) float32 is each row's log-sum-exp over its visible keys in log2
+    units (the natural one times log2(e)), +inf for a row that sees no
+    key; ``o`` (B, Sq, H, D) is the output in float32, before its cast.
     """
     n_rep = q.shape[2] // k.shape[2]
     qf = q.to(torch.float32)
@@ -225,13 +235,20 @@ def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal: bool = True,
         scores = softcap * torch.tanh(scores / softcap)
     ok = attention_mask(q_pos, k_pos, causal=causal, window=window)
     scores.masked_fill_(~ok, NEG_INF)
+    lse = None
+    if stats:
+        lse = torch.logsumexp(scores, dim=-1) * LOG2E
+        lse.masked_fill_(~ok.any(dim=-1), math.inf)
     probs = torch.softmax(scores, dim=-1)
     del scores
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    if stats:
+        return o.to(q.dtype), lse, o
+    return o.to(q.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, *, causal: bool = True,
-                            window=None, softcap=None):
+                            window=None, softcap=None, stats=None):
     """Plain version of
     :func:`repro_torch.kernels.flash_attention.flash_attention_bwd`: the
     gradient of :func:`flash_attention_ref` at ``dout``, written out.
@@ -245,6 +262,12 @@ def flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, *, causal: bool = True,
     of a KV head sum over its group's heads.  A row that sees no key has
     P = 1/Sk everywhere (the forward's mean of V): it adds dO/Sk to every
     dV and nothing to dQ or dK.  Returns (dq, dk, dv) in the inputs' dtypes.
+
+    ``stats``, the forward's ``(lse, o)`` (:func:`flash_attention_ref` with
+    ``stats=True``, or the bf16 kernel's, whose ``lse`` has its rows padded
+    past Sq: only the first Sq are read), replaces the recomputed
+    statistics, as in the bf16 kernel: P = 2**(s·log2(e) − lse) on visible
+    pairs and D from that o.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -259,16 +282,25 @@ def flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, *, causal: bool = True,
         th = torch.tanh(s / softcap)
         s, chain = th * softcap, 1.0 - th * th
     ok = attention_mask(q_pos, k_pos, causal=causal, window=window)
-    s = s.masked_fill(~ok, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = e / e.sum(dim=-1, keepdim=True)
-    del s, e
-    o = torch.einsum("bhqk,bkhd->bhqd", p, vf)
+    if stats is None:
+        s = s.masked_fill(~ok, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        p = e / e.sum(dim=-1, keepdim=True)
+        del s, e
+        o = torch.einsum("bhqk,bkhd->bhqd", p, vf)
+        p_dv = p
+    else:
+        lse, o = stats
+        lse = lse[..., :sq].to(torch.float32)
+        p = torch.exp2(s * LOG2E - lse[..., None]).masked_fill(~ok, 0.0)
+        del s
+        o = o.to(torch.float32).transpose(1, 2)
+        p_dv = torch.where(ok.any(dim=-1)[:, None], p, 1.0 / sk)
     delta = (dof.transpose(1, 2) * o).sum(dim=-1, keepdim=True)      # (B, H, Sq, 1)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_dv, dof)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
-    del p, o
+    del p, p_dv, o
     ds = ds.masked_fill(~ok, 0.0)
     if chain is not None:
         ds = ds * chain

@@ -15,6 +15,8 @@ and rows that see keys (ROADMAP Queue 3).  Offset positions and rows
 that see no key (the mean of V over all keys, which the kernels keep)
 are held against ``attention_xla`` and the plain forward's autograd.
 """
+import math
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,8 @@ import pytest
 import torch
 
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
-from repro.models.attention import attention_chunked, attention_xla
+from repro.models.attention import (_mask_value, _repeat_kv, _softcap, attention_chunked,
+                                    attention_xla)
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 
@@ -174,6 +177,278 @@ def test_training_shape_visits_the_causal_band():
     assert int((plan != tfa.SKIP).sum()) == 32 * 33 // 2
 
 
+@pytest.mark.parametrize("bq", [tfa.sm90_bwd_block_q(64), tfa.sm90_bwd_block_q(128)])
+@pytest.mark.parametrize("name,q_pos,k_pos,causal,window", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_sm90_bwd_tile_plan_skips_only_hidden_tiles(name, q_pos, k_pos, causal, window,
+                                                    bq):
+    """The bf16 backward's rule at its tiles: query tiles of
+    sm90_bwd_block_q(D) rows (64, or 32 for D > 64) by SM90_BWD_BLOCK keys
+    in the dK/dV grid, SM90_BWD_BLOCK by SM90_BWD_BLOCK in the dQ grid.
+    A skipped pair of tiles holds no visible pair, every pair with one is
+    visited, and a FULL pair is visible throughout."""
+    qp, kp = torch.from_numpy(q_pos).int(), torch.from_numpy(k_pos).int()
+    bk = tfa.SM90_BWD_BLOCK
+    plan = tfa.tile_plan(qp, kp, causal=causal, window=window, block_q=bq, block_k=bk)
+    mask = ref.attention_mask(qp, kp, causal=causal, window=window)
+    assert plan.shape == (-(-len(q_pos) // bq), -(-len(k_pos) // bk))
+    for qt in range(plan.shape[0]):
+        for kt in range(plan.shape[1]):
+            block = mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk]
+            assert (int(plan[qt, kt]) != tfa.SKIP) == bool(block.any()), (qt, kt)
+            if int(plan[qt, kt]) == tfa.FULL:
+                assert bool(block.all()) and block.shape[1] == bk, (qt, kt)
+
+
+def test_sm90_training_shape_visits_the_causal_band():
+    """At the training path's shape (S = 2048, D = 64, causal) both grids of
+    the bf16 backward visit the causal band's 528 of 1024 pairs of 64 x 64
+    tiles, 32 of them on the diagonal with the mask."""
+    pos = torch.arange(2048, dtype=torch.int32)
+    blk = tfa.SM90_BWD_BLOCK
+    plan = tfa.tile_plan(pos, pos, causal=True, block_q=tfa.sm90_bwd_block_q(64),
+                         block_k=blk)
+    assert tfa.sm90_bwd_block_q(64) == blk == 64
+    assert int((plan != tfa.SKIP).sum()) == 32 * 33 // 2
+    assert int((plan == tfa.MASKED).sum()) == 32
+
+
+def test_sm90_bwd_shared_memory_fits_at_every_head_dim():
+    """The bf16 backward's two grids at every D <= 128 at the training
+    shape's plans (S = 2048): within the 227 KB a block may take, and two
+    blocks to an SM (each with the 1 KB the card reserves a block) within
+    the SM's 228 KB; D = 64 and 128 by their parts."""
+    for d in range(1, tfa.MAX_HEAD_DIM + 1):
+        dkdv, dq = tfa.sm90_bwd_smem_bytes(d, 2048, 2048)
+        assert max(dkdv, dq) <= tfa.SMEM_LIMIT, d
+        assert 2 * (max(dkdv, dq) + 1024) <= 233_472, d
+    plan = lambda n: -(-n // 16) * 16
+    # K, V; the Q and dO rings; their LSE and D rows; barriers, no-key sum,
+    # plan; and for dQ: Q, dO; the K, V ring; barriers, plan
+    assert tfa.sm90_bwd_smem_bytes(64, 2048, 2048) == (
+        2 * 8192 + 2 * 2 * 8192 + 2 * 2 * 64 * 4 + 40 + 512 + plan(32) + 1024,
+        2 * 8192 + 2 * 2 * 8192 + 40 + plan(32) + 1024)
+    assert tfa.sm90_bwd_smem_bytes(128, 2048, 2048) == (
+        2 * 16384 + 2 * 2 * 8192 + 2 * 2 * 32 * 4 + 40 + 512 + plan(64) + 1024,
+        2 * 16384 + 2 * 2 * 16384 + 40 + plan(32) + 1024)
+    assert all(tfa.sm90_bwd_smem_bytes(d, 700, 900) == tfa.sm90_bwd_smem_bytes(
+        -(-d // 8) * 8, 700, 900) for d in range(1, 129))
+    assert max(tfa.sm90_bwd_smem_bytes(128, 2**23, 2**23)) > tfa.SMEM_LIMIT
+
+
+# -- the forward's statistics (the bf16 backward reads them) -----------------
+
+@pytest.mark.parametrize("name,sq,sk,h,hkv,d,window,softcap,qo,ko", CASES, ids=IDS)
+def test_plain_forward_lse_is_logsumexp_of_jax_scores(name, sq, sk, h, hkv, d, window,
+                                                      softcap, qo, ko):
+    """The plain forward's saved log-sum-exp, in log2 units, times ln 2
+    equals jax.nn.logsumexp of the JAX package's masked scores
+    (attention_xla's: q·k/√D, softcap, the −1e30 mask) on rows that see a
+    key, and is +inf on rows that see none; its O in float32 is the output
+    before the cast."""
+    q, k, v, _ = _inputs(sq, sk, h, hkv, d, 20 + IDS.index(name))
+    qp, kp = np.arange(sq, dtype=np.int32) + qo, np.arange(sk, dtype=np.int32) + ko
+    n_rep = h // hkv
+    scores = jnp.einsum("bqhd,bkhd->bhqk", q, _repeat_kv(jnp.asarray(k), n_rep))
+    scores = _mask_value(_softcap(scores / np.sqrt(d), softcap), qp, kp, window)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    out, lse, o = ref.flash_attention_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(qp),
+        torch.from_numpy(kp), window=window, softcap=softcap, stats=True)
+    seen = (kp[None, :] <= qp[:, None])
+    if window is not None:
+        seen &= kp[None, :] > qp[:, None] - window
+    seen = seen.any(axis=1)
+    assert lse.shape == (2, h, sq) and lse.dtype == torch.float32
+    got = lse.numpy() * np.log(2.0)
+    np.testing.assert_allclose(got[..., seen], want[..., seen], rtol=0, atol=1e-5)
+    assert np.isposinf(lse.numpy()[..., ~seen]).all() and (~seen).any() == name.startswith(
+        "no-key")
+    assert o.dtype == torch.float32 and torch.equal(o.to(out.dtype), out)
+
+
+@pytest.mark.parametrize("name,sq,sk,h,hkv,d,window,softcap,qo,ko", CASES, ids=IDS)
+def test_bwd_ref_with_saved_stats_equals_recomputing(name, sq, sk, h, hkv, d, window,
+                                                     softcap, qo, ko):
+    """flash_attention_bwd_ref on the forward's saved (LSE, O) equals the
+    version that recomputes them within 1e-6 (relative, and absolute near
+    0: P = 2**(s·log2(e) − LSE) and exp(s − m)/l part by a few float32
+    ulps), rows that see no key included (their dO/Sk in every dV,
+    nothing in dQ or dK)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(sq, sk, h, hkv, d,
+                                                        30 + IDS.index(name)))
+    qp = torch.arange(sq, dtype=torch.int32) + qo
+    kp = torch.arange(sk, dtype=torch.int32) + ko
+    kw = dict(window=window, softcap=softcap)
+    _, lse, o = ref.flash_attention_ref(q, k, v, qp, kp, stats=True, **kw)
+    saved = ref.flash_attention_bwd_ref(q, k, v, do, qp, kp, stats=(lse, o), **kw)
+    recomputed = ref.flash_attention_bwd_ref(q, k, v, do, qp, kp, **kw)
+    for g, w in zip(saved, recomputed):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,sq,sk,h,hkv,d,window,softcap,qo,ko", CASES, ids=IDS)
+def test_bwd_ref_reads_the_first_sq_rows_of_a_padded_lse(name, sq, sk, h, hkv, d, window,
+                                                         softcap, qo, ko):
+    """The bf16 forward hands the backward its log-sum-exp padded to a
+    multiple of BLOCK_Q rows with +inf past Sq; flash_attention_bwd_ref
+    given that padded LSE returns the bits it returns on the plain
+    forward's (B, H, Sq) one."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(sq, sk, h, hkv, d,
+                                                        40 + IDS.index(name)))
+    qp = torch.arange(sq, dtype=torch.int32) + qo
+    kp = torch.arange(sk, dtype=torch.int32) + ko
+    kw = dict(window=window, softcap=softcap)
+    _, lse, o = ref.flash_attention_ref(q, k, v, qp, kp, stats=True, **kw)
+    rows = -(-sq // tfa.BLOCK_Q) * tfa.BLOCK_Q
+    padded = torch.nn.functional.pad(lse, (0, rows - sq), value=math.inf)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, qp, kp, stats=(lse, o), **kw)
+    got = ref.flash_attention_bwd_ref(q, k, v, do, qp, kp, stats=(padded, o), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _saved_by_function(q, k, v, recording: bool):
+    """Run FlashAttention on the CPU and return the shapes of the tensors
+    autograd saved and the ``stats`` flags the forward was called with."""
+    flags, saved = [], []
+    forward = tfa._forward
+
+    def spy(*args, **kw):
+        flags.append(kw.get("stats", False))
+        return forward(*args, **kw)
+
+    tfa._forward = spy
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+            with torch.set_grad_enabled(recording):
+                tfa.flash_attention(q, k, v, window=16)
+    finally:
+        tfa._forward = forward
+    return flags, saved
+
+
+def test_function_saves_stats_only_when_autograd_records():
+    """With grad enabled and an input that needs it, FlashAttention asks
+    the forward for (LSE, O) and saves them beside q, k, v and the
+    positions; under torch.no_grad(), or with no input that needs grad,
+    the forward computes no statistics and nothing is saved."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(40, 40, 4, 2, 8, 11))
+    qg = q.clone().requires_grad_()
+    flags, saved = _saved_by_function(qg, k, v, recording=True)
+    assert flags == [True]
+    assert saved == [(2, 40, 4, 8), (2, 40, 2, 8), (2, 40, 2, 8), (40,), (40,),
+                     (2, 4, 40), (2, 40, 4, 8)]
+    assert _saved_by_function(qg, k, v, recording=False) == ([False], [])
+    assert _saved_by_function(q, k, v, recording=True) == ([False], [])
+
+
+def test_remat_writes_stats_in_both_passes_and_reads_the_recompute():
+    """Under torch.utils.checkpoint(use_reentrant=False), as the model's
+    remat runs each layer, the first pass records with grad enabled too:
+    both it and the backward's recompute ask the forward for (LSE, O).
+    The first pass's copy is dropped by checkpoint's saved-tensor hook;
+    the backward reads the recompute's, and its gradient equals the
+    gradient taken without remat."""
+    from torch.utils.checkpoint import checkpoint
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(40, 40, 4, 2, 8, 12))
+    flags, forward = [], tfa._forward
+
+    def spy(*args, **kw):
+        flags.append(kw.get("stats", False))
+        return forward(*args, **kw)
+
+    def run(q, k, v):
+        return tfa.flash_attention(q, k, v, window=16)
+
+    grads = []
+    for remat in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flags.clear()
+        tfa._forward = spy
+        try:
+            out = checkpoint(run, *leaves, use_reentrant=False) if remat else run(*leaves)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        finally:
+            tfa._forward = forward
+        assert flags == ([True, True] if remat else [True])
+    for g, w in zip(*grads):
+        assert torch.equal(g, w)
+
+
+# -- the bf16 kernel's operand rounding --------------------------------------
+
+def _emulate_bwd_sm90(q, k, v, do, q_pos, k_pos, *, split_p: bool, split_ds: bool,
+                      window=None, softcap=None):
+    """flash_attention_bwd_sm90's arithmetic on the CPU: bf16 Q, K, V and
+    dO, products exact and summed in float32 (as wgmma sums them), P and
+    dS from the forward's saved (LSE, O), each either as hi + lo in bf16
+    or rounded once, and each gradient rounded to bf16 once."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    _, lse, o = ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                        softcap=softcap, stats=True)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kf, vf = (t.repeat_interleave(n_rep, dim=2) for t in (kf, vf))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / np.sqrt(d)
+    chain = 1.0
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s, chain = softcap * t, 1.0 - t * t
+    ok = ref.attention_mask(q_pos, k_pos, causal=True, window=window)
+    p = torch.exp2(s * ref.LOG2E - lse[..., None]).masked_fill(~ok, 0.0)
+    delta = (dof * o).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta) * chain
+
+    def operand(x, split):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    dv = sum(torch.einsum("bhqk,bqhd->bkhd", t, dof) for t in operand(p, split_p))
+    dk = sum(torch.einsum("bhqk,bqhd->bkhd", t, qf) for t in operand(ds, split_ds))
+    dq = sum(torch.einsum("bhqk,bkhd->bqhd", t, kf) for t in operand(ds, split_ds))
+    group = lambda t: t.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    none = ~ok.any(dim=-1)
+    dv_none = (dof[:, none].sum(1) / sk).reshape(b, hkv, n_rep, d).sum(2)
+    return ((dq / np.sqrt(d)).to(torch.bfloat16),
+            group(dk / np.sqrt(d)).to(torch.bfloat16),
+            (group(dv) + dv_none[:, None]).to(torch.bfloat16))
+
+
+def _bwd_out_of_limit(got, plain) -> list:
+    """Elements of (dq, dk, dv) outside the bf16 check's limit,
+    |kernel − plain| <= 2**-7·|plain| + 1e-3."""
+    return [int(((g.float() - w.float()).abs() > 1e-3 + 2**-7 * w.float().abs()).sum())
+            for g, w in zip(got, plain)]
+
+
+@pytest.mark.parametrize("s,d,h,hkv,window,softcap",
+                         [(128, 64, 4, 4, None, None), (257, 64, 4, 4, 64, 30.0),
+                          (257, 128, 4, 2, None, None), (200, 120, 4, 2, None, 30.0)])
+def test_split_p_and_ds_keep_the_gradient_within_one_rounding(s, d, h, hkv, window,
+                                                               softcap):
+    """The bf16 backward's operands: with P and dS each as P_hi + P_lo in
+    bf16 the gradient stays within one bf16 rounding of the plain
+    version's, |kernel − plain| <= 2**-7·|plain| + 1e-3 (the card's check);
+    with P rounded once to bf16 dV leaves it, and with dS rounded once dQ
+    or dK does."""
+    rng = np.random.default_rng(s + d + h)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        torch.bfloat16)
+    q, k, v, do = arr(2, s, h, d), arr(2, s, hkv, d), arr(2, s, hkv, d), arr(2, s, h, d)
+    pos = torch.arange(s, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    plain = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos, **kw)
+    emulate = lambda sp, sd: _bwd_out_of_limit(
+        _emulate_bwd_sm90(q, k, v, do, pos, pos, split_p=sp, split_ds=sd, **kw), plain)
+    assert emulate(True, True) == [0, 0, 0]
+    assert emulate(False, True)[2] > 0
+    out = emulate(True, False)
+    assert out[2] == 0 and out[0] + out[1] > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_keeps_the_inputs_dtype(dtype):
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(40, 40, 4, 2, 8, 9))
@@ -189,19 +464,22 @@ def test_bwd_keeps_the_inputs_dtype(dtype):
                                              (torch.bfloat16, 2**-7, 1e-3)])
 def test_cuda_flash_attention_bwd_matches_plain(dtype, rtol, atol):
     """The CUDA backward against its plain version on the card, one launch
-    per call, two calls equal bit for bit, and FlashAttention's backward
-    on it (float32 within 1e-4, bf16 within one rounding of the
-    gradient)."""
+    of the dtype's kernel per call (flash_attention_bwd for float32,
+    flash_attention_bwd_sm90 for bf16), two calls equal bit for bit
+    (float32 within 1e-4, bf16 within one rounding of the gradient)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    name_bwd = tfa.bwd_route(dtype, "cuda")
+    assert name_bwd == {torch.float32: "flash_attention_bwd",
+                        torch.bfloat16: "flash_attention_bwd_sm90"}[dtype]
     for name, sq, sk, h, hkv, d, window, softcap, qo, ko in CASES:
         q, k, v, do = (torch.from_numpy(a).cuda().to(dtype)
                        for a in _inputs(sq, sk, h, hkv, d, 4))
         qp = torch.arange(sq, dtype=torch.int32, device="cuda") + qo
         kp = torch.arange(sk, dtype=torch.int32, device="cuda") + ko
-        before = ops.launch_counts()["flash_attention_bwd"]
+        before = ops.launch_counts()[name_bwd]
         got = tfa.flash_attention_bwd(q, k, v, do, qp, kp, window=window, softcap=softcap)
-        assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+        assert ops.launch_counts()[name_bwd] == before + 1
         again = tfa.flash_attention_bwd(q, k, v, do, qp, kp, window=window, softcap=softcap)
         want = ref.flash_attention_bwd_ref(q, k, v, do, qp, kp, window=window,
                                            softcap=softcap)

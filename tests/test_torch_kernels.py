@@ -309,6 +309,32 @@ def test_sign_pipeline_matches_pallas(n):
     assert bits[:4].all()
 
 
+@pytest.mark.parametrize("n", [100, 70_001])
+def test_sign_pipeline_bf16_matches_pallas(n):
+    """bf16 msg and cache, as a bf16 model's uplink hands them over: the
+    port and the Pallas kernel both compute in float32 and write the new
+    cache in bf16.  Words equal, scale within rtol 1e-6, and each new cache
+    bit for bit bf16(corrected ∓ its own scale), so the two are equal but
+    where the two float32 means (torch's and XLA's orders) round a value to
+    neighbouring bf16s."""
+    msg, cache = sign_inputs(n, seed=n + 2)
+    mj, cj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (msg, cache))
+    mt, ct = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+              for a in (mj, cj))
+    words_t, scale_t, newc_t = ops.sign_pipeline(mt, ct)
+    words_j, scale_j, newc_j = jcp.sign_pipeline(mj, cj, interpret=True)
+    assert newc_t.dtype == torch.bfloat16 and newc_j.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_np(words_t), np.asarray(words_j))
+    assert scale_t.dtype == torch.float32
+    np.testing.assert_allclose(float(scale_t), float(scale_j), rtol=1e-6)
+    cor = mt.float() + ct.float()
+    for got, scale in ((newc_t, scale_t), (torch.from_numpy(
+            np.asarray(newc_j.astype(jnp.float32))).to(torch.bfloat16),
+            torch.tensor(float(scale_j)))):
+        want = (cor - torch.where(cor >= 0, scale, -scale)).to(torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 def test_sign_pipeline_2d_and_checks():
     msg, cache = (torch.from_numpy(a).reshape(7, -1) for a in sign_inputs(7 * 300, 3))
     words, scale, newc = ops.sign_pipeline(msg, cache)
@@ -319,6 +345,9 @@ def test_sign_pipeline_2d_and_checks():
     with pytest.raises(TypeError):
         tcp.sign_pipeline(torch.zeros(4, dtype=torch.float64, device="meta"),
                           torch.zeros(4, dtype=torch.float64, device="meta"))
+    with pytest.raises(TypeError):          # one dtype for msg and cache
+        tcp.sign_pipeline(torch.zeros(4, dtype=torch.bfloat16, device="meta"),
+                          torch.zeros(4, device="meta"))
     with pytest.raises(ValueError):
         tcp.sign_pipeline(torch.zeros(4, device="meta"), torch.zeros(5, device="meta"))
 
@@ -421,6 +450,41 @@ def test_cuda_sign_pipeline_matches_plain():
         assert torch.equal(w2.view(torch.int32), w.view(torch.int32))
         assert torch.equal(s2.view(torch.int32), s.view(torch.int32))
         assert torch.equal(c2.view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_pipeline_bf16_matches_plain():
+    """The CUDA sign_pipeline on bf16 msg and cache against its plain
+    version on the card: words word for word, the scale within rtol 1e-6
+    and bit for bit the numpy model's fixed-order sum of the float32
+    values, the bf16 new cache bit for bit bf16(msg + cache ∓ that scale)
+    and within one bf16 rounding of the plain version's; at 100, 70,001
+    and 2**24 values and on views 2 bytes off 8 (value by value), two calls
+    bit for bit the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    for n, offset in ((100, 0), (70_001, 0), (2**24, 0), (70_001, 1)):
+        m_np, c_np = sign_inputs(n, n + 3)
+        msg, cache = (torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), a]))
+                      .cuda().to(torch.bfloat16)[offset:] for a in (m_np, c_np))
+        assert (msg.data_ptr() % 8 == 0) == (offset == 0)
+        w, s, c = tcp.sign_pipeline(msg, cache)
+        w_r, s_r, c_r = ref.sign_pipeline_ref(msg, cache)
+        assert c.dtype == torch.bfloat16
+        assert torch.equal(w.view(torch.int32), w_r.view(torch.int32))
+        assert abs(float(s) - float(s_r)) <= 1e-6 * abs(float(s_r))
+        mf, cf = (t.float().cpu().numpy() for t in (msg, cache))
+        s_model = _sign_model_scale(mf, cf)
+        assert np.float32(s.item()).tobytes() == s_model.tobytes()
+        cor = msg.float() + cache.float()
+        want = (cor - torch.where(cor >= 0, s, -s)).to(torch.bfloat16)
+        assert torch.equal(c.view(torch.int16), want.view(torch.int16))
+        assert bool(((c.float() - c_r.float()).abs()
+                     <= 1e-6 + 2**-7 * c_r.float().abs()).all())
+        w2, s2, c2 = tcp.sign_pipeline(msg, cache)
+        assert torch.equal(w2.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(s2.view(torch.int32), s.view(torch.int32))
+        assert torch.equal(c2.view(torch.int16), c.view(torch.int16))
 
 
 @pytest.mark.cuda
