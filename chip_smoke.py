@@ -202,6 +202,8 @@ PAPER = dict(n_agents=100, m=500, dim=100)   # benchmarks/common.py PAPER, ε=50
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 dense tensor cores; a float32 product
+TF32_TERMS = 3                # as three TF32 products keeps float32 accuracy
 MAIN_N = 100 * 100            # the fused uplink: (N, d) = (100, 100)
 AGENT_N = 100                 # one agent's uplink, d = 100
 BIG_N = 2**24
@@ -383,6 +385,8 @@ def phase_build() -> str:
                   "shared memory (ptxas -v)")
     check_f32_smem()
     check_bwd_sm90_smem()
+    check_f32_bwd_smem()
+    check_f32_bwd_sass(paths["flash_attention_bwd.cu"])
     return smi
 
 
@@ -402,6 +406,51 @@ def check_f32_smem() -> None:
     print(f"[build] flash_attention.cu dynamic shared memory equals f32_smem_bytes "
           f"for D = 1..{fa.MAX_HEAD_DIM}, at most {max(card.values())} B "
           f"(<= {fa.SMEM_LIMIT}); {card[120]} B at D = 120")
+
+
+def check_f32_bwd_smem() -> None:
+    """The float32 backward's dynamic shared memory per block of each grid,
+    as its library reports it for every head dim, against its CPU copy
+    (flash_attention.f32_bwd_smem_bytes) and the card's 227 KB a block."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    fn = _build._library("flash_attention_bwd.cu").repro_flash_attention_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    off = {}
+    for d in range(1, fa.MAX_HEAD_DIM + 1):
+        card = (fn(d, 0), fn(d, 1))
+        if card != fa.f32_bwd_smem_bytes(d) or max(card) > fa.SMEM_LIMIT:
+            off[d] = (card, fa.f32_bwd_smem_bytes(d))
+    check(not off, f"float32 backward shared memory (kernel, CPU copy) by D: {off}")
+    print(f"[build] flash_attention_bwd.cu dynamic shared memory (dK/dV grid, dQ grid) "
+          f"equals f32_bwd_smem_bytes for D = 1..{fa.MAX_HEAD_DIM}: {fn(64, 0)} and "
+          f"{fn(64, 1)} B at D <= 64, {fn(128, 0)} and {fn(128, 1)} B above")
+
+
+def check_f32_bwd_sass(lib) -> None:
+    """The float32 backward runs on the tensor cores: ``cuobjdump -sass`` of
+    its library shows TF32 HMMA instructions in its dK/dV and dQ grids, and
+    the library needs no other library than the C runtime's (no cuBLAS or
+    cuDNN: ``ldd``)."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : \S*(flash_attention_bwd_(?:prep|dkdv|dq)_kernel)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"\bHMMA\S*TF32", line):
+            hmma[fn] = hmma.get(fn, 0) + 1
+    needed = subprocess.run(["ldd", str(lib)], capture_output=True, text=True).stdout
+    libs = sorted({m.group(1) for m in re.finditer(r"^\s*(\S+)", needed, re.M)})
+    check(all(hmma.get(f"flash_attention_bwd_{g}_kernel", 0) > 0 for g in ("dkdv", "dq"))
+          and not any(x in needed for x in ("cublas", "cudnn", "torch")),
+          f"float32 backward: TF32 HMMA instructions by kernel {hmma}; needs {libs}")
+    print(f"[build] flash_attention_bwd.cu SASS: TF32 HMMA instructions by kernel {hmma} "
+          f"(HMMA.1688.F32.TF32: mma.sync m16n8k8, three per float32 product); the "
+          f"library needs {libs}: no cuBLAS, cuDNN or torch")
 
 
 def check_bwd_sm90_smem() -> None:
@@ -943,21 +992,23 @@ def flash_bwd_check(got, plain, what: str) -> float:
     return max(errs)
 
 
-def check_flash_stats(fa, ref, gen) -> float:
-    """The bf16 forward's saved statistics against the plain version's: the
-    log-sum-exp (log2 units) within 1e-4 where a row sees a key and +inf
-    exactly where it sees none, O in float32 within 1e-4, and the output
-    bit for bit the forward's without them."""
+def check_flash_stats(fa, ref, gen, dtype) -> float:
+    """The saved statistics of ``dtype``'s forward route against the plain
+    version's: the log-sum-exp (log2 units) within 1e-4 where a row sees a
+    key and +inf exactly where it sees none (and past Sq), O in float32
+    within 1e-4 (on the float32 route O is the output itself), and the
+    output bit for bit the forward's without them."""
+    name = fa.route(dtype, DEV)
     worst = 0.0
     for s, d, h, hkv, k_off in ((128, 64, 4, 4, 0), (257, 120, 32, 8, 0),
                                 (385, 128, 4, 2, 192)):
-        q, k, v, qp, kp = flash_case(s, d, h, hkv, False, torch.bfloat16, gen)
+        q, k, v, qp, kp = flash_case(s, d, h, hkv, False, dtype, gen)
         kp = kp + k_off
         for window, cap in ((None, None), (64, 30.0)):
             (out, lse_pad, o32), made = launched(lambda: fa._forward(
                 q, k, v, qp, kp, True, window, cap, stats=True))
-            check(made == {"flash_attention_sm90": 1}, f"forward with statistics "
-                  f"launched {made}")
+            check(made == {name: 1}, f"{name}: forward with statistics launched {made}")
+            check(dtype != torch.float32 or o32 is out, f"{name}: O is not the output")
             _, lse_p, o_p = ref.flash_attention_ref(q, k, v, qp, kp, window=window,
                                                     softcap=cap, stats=True)
             lse, past = lse_pad[..., :s], lse_pad[..., s:]
@@ -969,15 +1020,15 @@ def check_flash_stats(fa, ref, gen) -> float:
                   and torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
                   and e <= 1e-4 and same_bits(out, fa._forward(q, k, v, qp, kp, True,
                                                                 window, cap)),
-                  f"forward statistics S={s} D={d} window={window} softcap={cap}: "
+                  f"{name} forward statistics S={s} D={d} window={window} softcap={cap}: "
                   f"max_abs_err {e}, or +inf rows (also the padding past Sq) or the "
                   "output differ")
             worst = max(worst, e)
-    print(f"[kernels] flash_attention_sm90's statistics for the backward (LSE in log2 "
-          f"units, +inf for rows that see no key and the padding past Sq; O in float32) "
-          f"against the plain "
-          f"version's: max_abs_err {worst:.2e} (within 1e-4); output bit for bit the "
-          "forward's without them")
+    print(f"[kernels] {name}'s statistics for the backward (LSE in log2 units, +inf "
+          f"for rows that see no key and the padding past Sq; O in float32"
+          + (", the output itself" if dtype == torch.float32 else "") + ") against "
+          f"the plain version's: max_abs_err {worst:.2e} (within 1e-4); output bit for "
+          "bit the forward's without them")
     return worst
 
 
@@ -985,21 +1036,22 @@ def check_flash_bwd(err: dict) -> None:
     """The backward against its plain version over the forward grid's
     cases at S in FLASH_BWD_S, window in FLASH_BWD_WINDOWS, offset
     positions and keys ahead of the queries (rows that see no key), in
-    float32 (flash_attention_bwd.cu) and bf16 (flash_attention_bwd_sm90.cu,
-    after one flash_attention_sm90 launch for the statistics): each call's
-    launches read from the counts, and a second call equal bit for bit.
-    Then through FlashAttention: a forward on its route and a backward on
-    the dtype's kernel, from the launch counts."""
+    float32 (flash_attention_bwd.cu, after one flash_attention launch for
+    the statistics) and bf16 (flash_attention_bwd_sm90.cu, after one
+    flash_attention_sm90 launch): each call's launches read from the
+    counts, and a second call equal bit for bit.  Then through
+    FlashAttention: a forward on its route and a backward on the dtype's
+    kernel, from the launch counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=DEV).manual_seed(5)
-    err["flash_attention_sm90"] = max(err["flash_attention_sm90"],
-                                      check_flash_stats(fa, ref, gen))
+    for dtype in FLASH_BWD_TOL:
+        name = fa.route(dtype, DEV)
+        err[name] = max(err[name], check_flash_stats(fa, ref, gen, dtype))
     worst = {dtype: 0.0 for dtype in FLASH_BWD_TOL}
     for dtype, tol in FLASH_BWD_TOL.items():
         name = fa.bwd_route(dtype, DEV)
-        want = {name: 1} if dtype == torch.float32 else {name: 1,
-                                                          fa.route(dtype, DEV): 1}
+        want = {name: 1, fa.route(dtype, DEV): 1}
         for s in FLASH_BWD_S:
             for d in FLASH_D:
                 for h, hkv in FLASH_HEADS:
@@ -1056,7 +1108,7 @@ def check_flash_bwd(err: dict) -> None:
     print(f"[kernels] flash_attention_bwd (float32) and flash_attention_bwd_sm90 (bf16): "
           f"keys ahead of the queries (S=385, rows 0..191 see no key: dq 0 there, dv "
           f"gains their dO / Sk) and FlashAttention's backward (one forward launch on "
-          f"the dtype's route, saving the statistics in bf16, and one backward launch) "
+          f"the dtype's route, saving the statistics, and one backward launch) "
           f"within tolerance; max_abs_err over the grid {worst[torch.float32]:.3e} "
           f"(float32), {worst[torch.bfloat16]:.3e} (bf16)")
 
@@ -1890,7 +1942,9 @@ def train_batch(cfg, round_idx: int) -> dict:
 def train_attention_launches(cfg, dtype) -> dict:
     """Attention launches of one round: each of the layers' forwards twice
     per epoch and agent (the forward, and remat's recompute in the
-    backward, on the dtype's route) and its backward once."""
+    backward, on the dtype's route, both writing the backward's
+    statistics) and its backward once, reading the recompute's (no further
+    forward launch)."""
     from repro_torch.kernels import flash_attention as fa
     n = cfg.n_layers * TRAIN_AGENTS * TRAIN_EPOCHS
     return {fa.route(dtype, DEV): 2 * n, fa.bwd_route(dtype, DEV): n}
@@ -2100,7 +2154,8 @@ def grads_with_zeroed(cfg, params, batch, which: int) -> list:
 def phase_train_f32(launches: dict) -> dict:
     """17c: stablelm-1.6b at full width, depth 2, float32, from one state:
     lm_loss's gradient with the kernels (backend chunked: flash_attention
-    forward, flash_attention_bwd backward) against plain attention
+    forward writing the statistics, flash_attention_bwd backward reading
+    them, three TF32 products per float32 product) against plain attention
     differentiated by autograd (backend xla), every leaf within
     TRAIN_GRAD_RTOL of its largest plain value, while a backward that
     zeroes dq, dk or dv fails that check (the control); then one round with
@@ -2753,6 +2808,19 @@ def phase_times(rng) -> dict:
               f"the second read, {sign_two_pass_bytes(n, l2) / n:.3f} B per value: "
               f"{two_pass_l2:.6f} ms ({100 * two_pass_l2 / rec['ms']:.1f}%)")
         out.setdefault("sign_pipeline", []).append(rec)
+    # and on bf16 msg and cache at 2**24: the function reads 4 B and writes
+    # 2 B per value and one word per 32 values; the two passes read msg and
+    # cache twice (10.125 B per value)
+    msg, cache = (t.to(torch.bfloat16) for t in sign_inputs(BIG_N, rng))
+    rec = time_record("sign_pipeline", BIG_N, 1, lambda: sign_pipeline(msg, cache),
+                      lambda: ref.sign_pipeline_ref(msg, cache), 20, 6.125 * BIG_N, 8 * BIG_N)
+    rec["bound_ms_two_pass"] = bound(10.125 * BIG_N, 8 * BIG_N)[0]
+    print(f"[times] sign_pipeline   n={BIG_N:9d} bf16: the bound is the function's 6.125 "
+          f"B per value; the two passes' 10.125 B per value take "
+          f"{rec['bound_ms_two_pass']:.6f} ms "
+          f"({100 * rec['bound_ms_two_pass'] / rec['ms']:.1f}% of the kernel's time)")
+    out["sign_pipeline_bf16"] = rec
+    del msg, cache
     out["flash_attention_sm90"] = [time_flash_sm90()]
     out["flash_attention"] = [time_flash_f32()]
     out["flash_attention_bwd_sm90"] = [time_flash_bwd(torch.bfloat16)]
@@ -2913,9 +2981,11 @@ def attention_work(q, k, v, pos, w, ops_per_s):
 def time_flash_f32() -> dict:
     """flash_attention's float32 route (flash_attention.cu) at the depth-2
     float32 prefill's shape (B=1, S=5000, H=32, Hkv=8, D=120, W=4096),
-    beside its bound (float32 operations at 67 TFLOP/s: its inputs are
-    float32), the plain version and scaled_dot_product_attention in
-    float32 on the same inputs; then the kernel alone at the serving
+    also with the backward's statistics, beside its bound (its float32
+    products as three TF32 products each at 495 TFLOP/s, the least the
+    card could take for them at float32 accuracy; at the FMA rate, 67
+    TFLOP/s, beside it), the plain version and scaled_dot_product_attention
+    in float32 on the same inputs; then the kernel alone at the serving
     prefill's shape in float32 (B=4, S=8192): there the plain version and
     SDPA's float32 path would hold 4 x 32 x 8192**2 float32 scores, 34 GB."""
     import torch.nn.functional as F
@@ -2925,41 +2995,52 @@ def time_flash_f32() -> dict:
     b, s, h, hkv, d, w = (1, CHECK_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                           cfg.sliding_window)
     q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.float32, 3)
-    pairs, flops, nbytes, b_ms, b_by = attention_work(q, k, v, pos, w, FP32_OPS_PER_S)
+    pairs, flops, nbytes, b_ms, b_by = attention_work(q, k, v, pos, w,
+                                                      TF32_OPS_PER_S / TF32_TERMS)
+    fma_ms = bound(nbytes, flops, FP32_OPS_PER_S)[0]
     mask = ref.attention_mask(pos, pos, causal=True, window=w)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fns = {"plain": lambda: ref.flash_attention_ref(q, k, v, pos, pos, causal=True,
                                                     window=w),
            "kern": lambda: fa.flash_attention(q, k, v, window=w),
+           "kern_stats": lambda: fa._forward(q, k, v, pos, pos, True, w, None, stats=True),
            "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                           enable_gqa=True)}
-    runs = time_turns(fns, dict(plain=3, kern=10, sdpa=3))
+    runs = time_turns(fns, dict(plain=3, kern=10, kern_stats=10, sdpa=3))
     ms = min(runs["kern"])
     rec = {"shape": [b, s, h, hkv, d], "window": w, "dtype": "float32", "ms": ms,
-           "ms_runs": runs["kern"], "plain_ms": min(runs["plain"]),
+           "ms_runs": runs["kern"], "ms_with_stats": min(runs["kern_stats"]),
+           "ms_with_stats_runs": runs["kern_stats"], "plain_ms": min(runs["plain"]),
            "plain_ms_runs": runs["plain"], "plain_at": f"B={b}",
            "library_ms": min(runs["sdpa"]), "library_ms_runs": runs["sdpa"],
            "library": "torch.nn.functional.scaled_dot_product_attention",
            "library_kernel": library_kernel_name(fns["sdpa"]),
            "device_us": kernel_device_us(fns["kern"], "flash_attention"),
            "host_ms": host_ms_per_call(fns["kern"], 10),
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-           "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_ms_fma": fma_ms, "bytes": nbytes,
+           "flops": flops, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
+           "bound_share_fma": fma_ms / ms, "pairs_per_head": pairs,
            "smem_bytes": fa.f32_smem_bytes(d)}
     print(f"[times] flash_attention B={b} S={s} H={h}/{hkv} D={d} W={w} float32: "
           f"kernel {ms:.3f} ms (runs {runs['kern'][0]:.3f}, {runs['kern'][1]:.3f}; "
-          f"device {rec['device_us']} us; host time per call {rec['host_ms']:.3f} ms), "
+          f"device {rec['device_us']} us; host time per call {rec['host_ms']:.3f} ms; "
+          f"with the backward's statistics {rec['ms_with_stats']:.3f} ms, runs "
+          + ", ".join(f"{x:.3f}" for x in runs["kern_stats"]) + f"), "
           f"{rec['tflops']:.2f} TFLOP/s, "
           f"{100 * rec['bound_share']:.1f}% of the bound {b_ms:.4f} ms by {b_by} "
-          f"({flops:.4e} flops at {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s float32; "
-          f"{nbytes} B); plain {rec['plain_ms']:.3f} ms; scaled_dot_product_attention "
+          f"({flops:.4e} flops as {TF32_TERMS} TF32 products each at "
+          f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes} B), "
+          f"{100 * rec['bound_share_fma']:.1f}% of {fma_ms:.4f} ms at the FMA rate "
+          f"({FP32_OPS_PER_S / 1e12:.0f} TFLOP/s); plain {rec['plain_ms']:.3f} ms; "
+          f"scaled_dot_product_attention "
           f"float32 {rec['library_ms']:.3f} ms (longest device kernel: "
           f"{rec['library_kernel']}); {rec['smem_bytes']} B of shared memory per block")
     del q, k, v, qt, kt, vt, mask, fns
     torch.cuda.empty_cache()
     b, s = SERVE_BATCH, SERVE_PROMPT
     q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.float32, 4)
-    pairs, flops, nbytes, s_ms, s_by = attention_work(q, k, v, pos, w, FP32_OPS_PER_S)
+    pairs, flops, nbytes, s_ms, s_by = attention_work(q, k, v, pos, w,
+                                                      TF32_OPS_PER_S / TF32_TERMS)
     serve_runs = [time_ms(lambda: fa.flash_attention(q, k, v, window=w), iters=3,
                           warmup=1) for _ in range(2)]
     out = fa.flash_attention(q[:1, -256:], k[:1], v[:1], pos[-256:], pos, window=w)
@@ -2983,16 +3064,16 @@ def time_flash_f32() -> dict:
 
 def time_flash_bwd(dtype) -> dict:
     """The backward on ``dtype``'s route at the training path's shape
-    (stablelm-1.6b, B=2, S=2048, H=Hkv=32, D=64, causal): bf16 on
-    flash_attention_bwd_sm90 from the statistics the forward saved (as
-    FlashAttention hands them over), float32 on flash_attention_bwd.  Its
-    bound: the S^2 D products the timed call needs, 2 D flops per visible
-    pair each, at the dtype's peak (989 TFLOP/s bf16 on the tensor cores,
-    67 TFLOP/s float32), against its inputs read and dq, dk, dv written
-    once.  bf16 reads the saved statistics (LSE, O in float32), so five
-    products (Q K^T, dO V^T, P^T dO, dS^T Q, dS K), as SDPA's backward,
-    which reads its forward's saved O and LSE; float32 recomputes O for
-    D, a sixth (P V).  Beside it the plain version and the backward of
+    (stablelm-1.6b, B=2, S=2048, H=Hkv=32, D=64, causal), from the
+    statistics the forward saved (as FlashAttention hands them over):
+    bf16 on flash_attention_bwd_sm90, float32 on flash_attention_bwd.  Its
+    bound: the five S^2 D products the call needs from the saved LSE and O
+    (Q K^T, dO V^T, P^T dO, dS^T Q, dS K; SDPA's backward, too, reads its
+    forward's saved O and LSE), 2 D flops per visible pair each, at the
+    dtype's peak (989 TFLOP/s bf16 on the tensor cores; float32 as three
+    TF32 products each at 495 TFLOP/s, with the FMA rate, 67 TFLOP/s,
+    beside it), against its inputs read and dq, dk, dv written once.
+    Beside it the plain version and the backward of
     torch.nn.functional.scaled_dot_product_attention (is_causal; timed
     only, the port never calls it).  Least of two runs in turns.  For
     bf16 also the forward at this shape with and without the statistics,
@@ -3004,17 +3085,15 @@ def time_flash_bwd(dtype) -> dict:
     name = fa.bwd_route(dtype, DEV)
     q, k, v, pos = attention_inputs(t["b"], t["s"], t["h"], t["hkv"], t["d"], dtype, 6)
     do = torch.randn(q.shape, device=DEV).to(dtype)
-    stats = None
-    nbytes = q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
-    products = 6
-    if dtype == torch.bfloat16:
-        stats = fa._forward(q, k, v, pos, pos, True, None, None, stats=True)[1:]
-        nbytes += sum(x.numel() * x.element_size() for x in stats)
-        products = 5
+    stats = fa._forward(q, k, v, pos, pos, True, None, None, stats=True)[1:]
+    nbytes = (q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+              + sum(x.numel() * x.element_size() for x in stats))
+    products = 5
     pairs = int(ref.attention_mask(pos, pos, causal=True).sum())
     flops = products * 2 * t["d"] * pairs * t["b"] * t["h"]
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else TF32_OPS_PER_S / TF32_TERMS
     b_ms, b_by = bound(nbytes, flops, peak)
+    fma_ms = bound(nbytes, flops, FP32_OPS_PER_S)[0] if dtype == torch.float32 else None
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     do_t = do.transpose(1, 2)
@@ -3038,6 +3117,8 @@ def time_flash_bwd(dtype) -> dict:
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
            "tflops": flops / ms / 1e9, "bound_share": b_ms / ms, "pairs_per_head": pairs,
            "max_abs_err_path": e, "products": products}
+    if fma_ms is not None:
+        rec.update(bound_ms_fma=fma_ms, bound_share_fma=fma_ms / ms)
     if dtype == torch.bfloat16:
         fwd = time_turns({"fwd": lambda: fa._forward(q, k, v, pos, pos, True, None, None),
                           "fwd_stats": lambda: fa._forward(q, k, v, pos, pos, True, None,
@@ -3063,7 +3144,11 @@ def time_flash_bwd(dtype) -> dict:
           f"{rec['host_ms']:.3f} ms), {rec['tflops']:.1f} TFLOP/s of the bound's flops, "
           f"{100 * rec['bound_share']:.2f}% of the bound {b_ms:.4f} ms by {b_by} "
           f"({flops:.4e} flops: {products} products x 2 D x {pairs} visible pairs per "
-          f"(b, h) at {peak / 1e12:.0f} TFLOP/s; {nbytes} B); plain {rec['plain_ms']:.3f} "
+          f"(b, h) at {peak / 1e12:.0f} TFLOP/s"
+          + (f" ({TF32_TERMS} TF32 products each at {TF32_OPS_PER_S / 1e12:.0f}); at the "
+             f"FMA rate ({FP32_OPS_PER_S / 1e12:.0f} TFLOP/s) {fma_ms:.4f} ms, "
+             f"{100 * fma_ms / ms:.2f}%" if fma_ms is not None else "")
+          + f"; {nbytes} B); plain {rec['plain_ms']:.3f} "
           f"ms; scaled_dot_product_attention backward {rec['library_ms']:.3f} ms (runs "
           + ", ".join(f"{x:.3f}" for x in runs["sdpa"]) + f"; longest device kernel: "
           f"{rec['library_kernel']}); device time by grid {rec['device_us']} us; "
@@ -3269,10 +3354,10 @@ def main() -> int:
                        at_2p24={k: v for k, v in big_rec.items() if k in (
                            "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
                            or k.startswith("bound_ms_two_pass")})
-            if name == "quant_pipeline":
-                rec["at_2p24_bf16"] = {k: v for k, v in times["quant_pipeline_bf16"].items()
+            if name in ("quant_pipeline", "sign_pipeline"):
+                rec["at_2p24_bf16"] = {k: v for k, v in times[f"{name}_bf16"].items()
                                        if k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "bound_share")}
+                                                "bound_share", "bound_ms_two_pass")}
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[train] summary: {json.dumps(train)}")

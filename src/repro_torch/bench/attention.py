@@ -1,14 +1,18 @@
-"""Time of flash_attention's bf16 route at the serving path's shape on the card.
+"""Time of flash_attention's forward on the card, at a path's shape.
 
-    PYTHONPATH=src python src/repro_torch/bench/attention.py [--repeats 10]
+    PYTHONPATH=src python src/repro_torch/bench/attention.py [--dtype bfloat16]
+        [--repeats 10]
     PYTHONPATH=src python src/repro_torch/bench/attention.py \\
-        --against OTHER/src [--turns 5] [--repeats 10]
+        --against OTHER/src [--dtype float32] [--turns 5] [--repeats 10]
 
-The shape is h2o-danube-3-4b's prefill attention: B=4, S=8192, H=32,
-Hkv=8, D=120, causal, window 4096.  q, k and v are drawn in bf16 on the
-card from a seed; three calls warm up, then ``repeats`` runs each time
-``iters`` calls back to back with CUDA events (ms per call: the wrapper's
-host time hides behind the kernels, as in a prefill).  Prints one JSON
+bf16 (the default) times the route of h2o-danube-3-4b's prefill
+attention: B=4, S=8192, H=32, Hkv=8, D=120, causal, window 4096.
+float32 times the float32 route at the depth-2 float32 prefill's shape
+(``chip_smoke.py``'s serving check): B=1, S=5000, the same heads and
+window.  q, k and v are drawn on the card from a seed in the dtype; three
+calls warm up, then ``repeats`` runs each time ``iters`` calls back to
+back with CUDA events (ms per call: the wrapper's host time hides behind
+the kernels, as in a prefill).  Prints one JSON
 line: the least and the median ms, every run, the launches of one call
 and the card's name and power limit.  It calls only ``flash_attention``,
 which every version of the port has, so the same file times an older
@@ -35,7 +39,8 @@ from pathlib import Path
 
 import torch
 
-SHAPE = dict(b=4, s=8192, h=32, hkv=8, d=120, window=4096)
+SHAPES = {"bfloat16": dict(b=4, s=8192, h=32, hkv=8, d=120, window=4096),
+          "float32": dict(b=1, s=5000, h=32, hkv=8, d=120, window=4096)}
 
 
 def card() -> str:
@@ -48,15 +53,15 @@ def card() -> str:
         return "unknown"
 
 
-def time_forward(repeats: int, iters: int, seed: int = 0) -> dict:
+def time_forward(dtype: str, repeats: int, iters: int, seed: int = 0) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention
-    t = SHAPE
+    t = SHAPES[dtype]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((t["b"], t["s"], t["h"], t["d"]), generator=gen, device="cuda")
     k, v = (torch.randn((t["b"], t["s"], t["hkv"], t["d"]), generator=gen, device="cuda")
             for _ in range(2))
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    q, k, v = (x.to(getattr(torch, dtype)) for x in (q, k, v))
     call = lambda: flash_attention(q, k, v, window=t["window"])
     for _ in range(3):
         out = call()
@@ -76,12 +81,12 @@ def time_forward(repeats: int, iters: int, seed: int = 0) -> dict:
         runs.append(start.elapsed_time(end) / iters)
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("flash_attention's output is not finite")
-    return {"shape": t, "iters": iters, "ms": min(runs),
+    return {"shape": t, "dtype": dtype, "iters": iters, "ms": min(runs),
             "median_ms": statistics.median(runs), "runs_ms": runs, "launches": launches,
             "card": card()}
 
 
-def compare(other: Path, turns: int, repeats: int, iters: int) -> dict:
+def compare(other: Path, dtype: str, turns: int, repeats: int, iters: int) -> dict:
     here = Path(__file__).resolve().parents[2]
     versions = {"this": here, "other": other.resolve()}
     runs = {name: [] for name in versions}
@@ -91,8 +96,8 @@ def compare(other: Path, turns: int, repeats: int, iters: int) -> dict:
         medians = []
         for name in order:
             env = dict(os.environ, PYTHONPATH=str(versions[name]))
-            proc = subprocess.run([sys.executable, __file__, "--repeats", str(repeats),
-                                   "--iters", str(iters)],
+            proc = subprocess.run([sys.executable, __file__, "--dtype", dtype,
+                                   "--repeats", str(repeats), "--iters", str(iters)],
                                   env=env, capture_output=True, text=True, check=True)
             rec = json.loads(proc.stdout.strip().splitlines()[-1])
             rec.update(version=name, src=str(versions[name]))
@@ -107,11 +112,14 @@ def compare(other: Path, turns: int, repeats: int, iters: int) -> dict:
                    "median_ms": statistics.median(x for r in recs for x in r["runs_ms"]),
                    "least_ms": min(r["ms"] for r in recs), "processes": len(recs),
                    "pairs_won": wins[name]}
-            for name, recs in runs.items()} | {"pairs": 2 * turns, "card": card()}
+            for name, recs in runs.items()} | {"dtype": dtype, "pairs": 2 * turns,
+                                               "card": card()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=sorted(SHAPES), default="bfloat16",
+                    help="the route and its path's shape")
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--against", type=Path, default=None,
@@ -121,9 +129,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("attention.py needs a CUDA device")
     if args.against is not None:
-        print(json.dumps(compare(args.against, args.turns, args.repeats, args.iters)))
+        print(json.dumps(compare(args.against, args.dtype, args.turns, args.repeats,
+                                 args.iters)))
         return 0
-    print(json.dumps(time_forward(args.repeats, args.iters)))
+    print(json.dumps(time_forward(args.dtype, args.repeats, args.iters)))
     return 0
 
 

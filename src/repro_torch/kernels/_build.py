@@ -59,19 +59,21 @@ KERNELS = {
     "sign_pipeline": ("sign_pipeline.cu", "repro_sign_pipeline",
                       (_P, _P, _P, _P, _P, _P, _I, _I, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
-    # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, vec (16-byte copies)
+    # B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap, vec (16-byte
+    # copies), and the backward's statistics lse (null for none) and its row
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
-                        (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I)),
+                        (_P,) * 6 + (_L,) * 9 + (_I,) * 8 + (_F, _F, _I, _P, _I)),
     # q, k, v, out, q_pos, k_pos, the (B, S, H) strides of q, k and v,
     # B, H, Hkv, Sq, Sk, D, padded D, causal, window, scale, softcap, and
     # the backward's statistics lse and o32 (null for none) and lse's row
     "flash_attention_sm90": ("flash_attention_sm90.cu", "repro_flash_attention_sm90",
                              (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F, _P, _P, _I)),
-    # q, k, v, dout, dq, dk, dv, lse and delta (scratch), nokey (scratch),
-    # q_pos, k_pos, B, H, Hkv, Sq, Sk, D, causal, window, scale, softcap
-    # (float32 only); one call enqueues its three grids and counts as one
+    # q, k, v, dout, dq, dk, dv, lse and o (the forward's), delta and nokey
+    # (scratch), q_pos, k_pos, B, H, Hkv, Sq, Sk, D, lse's row, causal,
+    # window, scale, softcap (float32 only); one call enqueues its three
+    # grids and counts as one
     "flash_attention_bwd": ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
-                            (_P,) * 12 + (_I,) * 8 + (_F, _F)),
+                            (_P,) * 13 + (_I,) * 9 + (_F, _F)),
     # q, k, v, dout, dq, dk, dv, lse and o32 (the forward's), delta and
     # nokey (scratch), q_pos, k_pos, the (B, S, H) strides of q, k, v and
     # dout, B, H, Hkv, Sq, Sk, D, padded D, lse's row, causal, window,

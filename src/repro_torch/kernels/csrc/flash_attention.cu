@@ -73,6 +73,14 @@
 // it with the per-element mask, 2 with every pair visible and no mask.
 // The plan lands in shared memory a window of PLAN_TILES key tiles at a
 // time.  Query tiles are taken longest first, over every head.
+//
+// For the backward (csrc/flash_attention_bwd.cu) a second instantiation
+// (STATS), which the launch picks when it is given an ``lse`` buffer,
+// also writes each row's log-sum-exp in log2 units, m + log2(l), +inf for
+// a row that sees no key and for the rows past Sq, into rows of
+// lse_stride floats; O needs no copy, the output is O in float32.  Its
+// arguments come after the others, so the instantiation without them
+// compiles as it did before they existed.
 #include "common.cuh"
 
 #include <climits>
@@ -210,12 +218,13 @@ __device__ __forceinline__ void plan_tiles(unsigned char* plan, int base, int ql
 // scores, lane pair kg = (lane % 16) / 2 takes keys kg + 8 j, lane dh =
 // lane % 2 of it chunks dh, dh + 2, ... of D and then rows 4 dh + r (r < 4);
 // in the output, lane cg = lane % 16 takes columns 64 g + 4 cg + e.
-template <int NV, bool VEC>
+template <int NV, bool VEC, bool STATS>
 __global__ void __launch_bounds__(NT, 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o, Params p,
                        Strides qs, Strides ks, Strides vs, int H, int n_rep, int D,
-                       float scale, float softcap) {
+                       float scale, float softcap, float* __restrict__ lse,
+                       int lse_stride) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int QS = q_stride(D), VS = v_stride(NV);
@@ -502,21 +511,48 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
+
+  // -- the backward's statistics, in the STATS instantiation only: lane 0
+  //    of each half warp writes its rows' log-sum-exp, every row of the
+  //    tile (row bh of lse, lse_stride floats a row) ------------------------
+  if constexpr (STATS) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_row = __shfl_sync(0xffffffffu, m[i & 3], half | (i >> 2));
+      const int r = q0 + rg + 16 * i;
+      if (cg == 0)
+        lse[static_cast<long long>(bh) * lse_stride + r] =
+            r < p.Sq && !none[i] ? m_row + log2f(l_row[i]) : __int_as_float(0x7f800000);
+    }
+  }
+}
+
+template <int NV, bool VEC, bool STATS>
+cudaError_t launch_as(const float* q, const float* k, const float* v, float* o,
+                      const Params& p, Strides qs, Strides ks, Strides vs, int B, int H,
+                      int Hkv, int D, float scale, float softcap, float* lse,
+                      int lse_stride, cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, NV);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<NV, VEC, STATS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((p.Sq + BQ - 1) / BQ) * B * H;
+  flash_attention_kernel<NV, VEC, STATS><<<blocks, NT, smem, stream>>>(
+      q, k, v, o, p, qs, ks, vs, H, H / Hkv, D, scale, softcap, lse, lse_stride);
+  return cudaGetLastError();
 }
 
 template <int NV, bool VEC>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    const Params& p, Strides qs, Strides ks, Strides vs, int B, int H,
-                   int Hkv, int D, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, NV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NV, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((p.Sq + BQ - 1) / BQ) * B * H;
-  flash_attention_kernel<NV, VEC><<<blocks, NT, smem, stream>>>(
-      q, k, v, o, p, qs, ks, vs, H, H / Hkv, D, scale, softcap);
-  return cudaGetLastError();
+                   int Hkv, int D, float scale, float softcap, float* lse, int lse_stride,
+                   cudaStream_t stream) {
+  return lse != nullptr
+             ? launch_as<NV, VEC, true>(q, k, v, o, p, qs, ks, vs, B, H, Hkv, D, scale,
+                                        softcap, lse, lse_stride, stream)
+             : launch_as<NV, VEC, false>(q, k, v, o, p, qs, ks, vs, B, H, Hkv, D, scale,
+                                         softcap, lse, lse_stride, stream);
 }
 
 }  // namespace
@@ -532,13 +568,19 @@ extern "C" int repro_flash_attention_smem_bytes(int D) {
 // (B, Sq, H, D) contiguous float32; q_pos (Sq,) and k_pos (Sk,) int32.
 // window <= 0 means none, softcap <= 0 none.  vec != 0: every base is
 // 16-byte aligned and D and every stride a multiple of 4 (16-byte copies),
-// else 4-byte copies.  D <= 128; 0 < Sk; B * H <= 65535.
+// else 4-byte copies.  D <= 128; 0 < Sk; B * H <= 65535.  lse is null, or
+// the backward's statistics: (B, H, lse_stride) float32 with lse_stride >=
+// Sq a multiple of 128, every entry written.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, const void* q_pos,
     const void* k_pos, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, int B, int H, int Hkv, int Sq, int Sk, int D,
-    int causal, int window, float scale, float softcap, int vec, void* stream) {
+    int causal, int window, float scale, float softcap, int vec, void* lse,
+    int lse_stride, void* stream) {
+  if (lse != nullptr && (lse_stride < Sq || lse_stride % BQ != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* lf = static_cast<float*>(lse);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const Params p{static_cast<const int*>(q_pos), static_cast<const int*>(k_pos), Sq, Sk,
                  (Sk + BK - 1) / BK, causal, window};
@@ -549,9 +591,13 @@ extern "C" int repro_flash_attention(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
     return static_cast<int>(
-        vec ? launch<1, true>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, st)
-            : launch<1, false>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, st));
+        vec ? launch<1, true>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap,
+                              lf, lse_stride, st)
+            : launch<1, false>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap,
+                               lf, lse_stride, st));
   return static_cast<int>(
-      vec ? launch<2, true>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, st)
-          : launch<2, false>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, st));
+      vec ? launch<2, true>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, lf,
+                            lse_stride, st)
+          : launch<2, false>(qf, kf, vf, of, p, qs, ks, vs, B, H, Hkv, D, scale, softcap, lf,
+                             lse_stride, st));
 }

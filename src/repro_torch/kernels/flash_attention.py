@@ -46,9 +46,14 @@ fallback from one route to another:
 
 * on the CPU, the plain version in :mod:`.ref`;
 * float32 on the card, ``csrc/flash_attention_bwd.cu`` (launch name
-  ``flash_attention_bwd``): float32 FMAs, three grids (a pre-pass that
-  recomputes each row's log-sum-exp and O, dK/dV per key tile, dQ per
-  query tile) on :data:`BWD_BLOCK_Q` by :data:`BWD_BLOCK_K` tiles;
+  ``flash_attention_bwd``): ``mma.sync`` on the tensor cores, each float32
+  product as three TF32 products (x = hi + lo, a·b as a_lo·b_hi +
+  a_hi·b_lo + a_hi·b_hi), through ``cp.async`` rings, on the statistics
+  the float32 forward saves (each row's log-sum-exp; O is its output): a
+  byte-bound pass for D = rowsum(dO∘O), dK/dV per :data:`BWD_BLOCK_K` keys
+  over query tiles of :data:`BWD_KV_BLOCK_Q` rows, dQ per
+  :data:`BWD_BLOCK_Q` query rows over key tiles of :data:`BWD_BLOCK_K`;
+  :func:`f32_bwd_smem_bytes` is its shared memory;
 * bf16 on the card, ``csrc/flash_attention_bwd_sm90.cu`` (launch name
   ``flash_attention_bwd_sm90``): TMA and ``wgmma``, with P and dS in two
   bf16 terms, on the statistics the bf16 forward saves (each row's
@@ -59,12 +64,11 @@ fallback from one route to another:
   shared memory.
 
 :class:`FlashAttention` asks the forward for those statistics only when
-autograd records the call (grad enabled and an input that needs it) and
-the backward's route reads them (the plain version and the bf16 kernel).
-The JAX package has no Pallas backward (it differentiates its chunked
-attention in XLA), so both backward kernels are the port's own.  Each
-skips, by :func:`tile_plan`'s rule, the pairs of tiles with no visible
-pair.
+autograd records the call (grad enabled and an input that needs it);
+every backward route reads them.  The JAX package has no Pallas backward
+(it differentiates its chunked attention in XLA), so both backward
+kernels are the port's own.  Each skips, by :func:`tile_plan`'s rule,
+the pairs of tiles with no visible pair.
 """
 from __future__ import annotations
 
@@ -75,9 +79,10 @@ import torch.nn.functional as F
 
 from . import _build, ref
 
-__all__ = ["FlashAttention", "bwd_route", "f32_smem_bytes", "flash_attention",
-           "flash_attention_bwd", "route", "sm90_bwd_block_q", "sm90_bwd_smem_bytes",
-           "tile_plan", "tma_layout", "vec_ready"]
+__all__ = ["FlashAttention", "bwd_route", "f32_bwd_smem_bytes",
+           "f32_smem_bytes", "flash_attention", "flash_attention_bwd", "route",
+           "sm90_bwd_block_q", "sm90_bwd_smem_bytes", "tile_plan", "tma_layout",
+           "vec_ready"]
 
 MAX_HEAD_DIM = 128
 #: query rows and keys per tile of ``csrc/flash_attention_sm90.cu`` (BQ, BK)
@@ -91,8 +96,11 @@ SKIP, MASKED, FULL = 0, 1, 2
 #: stages in its ring, floats per row of a K stage (and of P^T), key tiles
 #: planned at a time (a byte each)
 F32_BLOCK_Q, F32_BLOCK_K, F32_STAGES, F32_K_STRIDE, F32_PLAN_TILES = 128, 64, 2, 136, 2048
-#: ``csrc/flash_attention_bwd.cu`` (float32): query rows and keys per tile
+#: ``csrc/flash_attention_bwd.cu`` (float32): query rows per block of the
+#: dQ grid, keys per block of the dK/dV grid and per tile of the dQ grid's
+#: ring, and query rows per tile of the dK/dV grid's ring
 BWD_BLOCK_Q = BWD_BLOCK_K = 64
+BWD_KV_BLOCK_Q = 32
 #: ``csrc/flash_attention_bwd_sm90.cu`` (bf16): keys per tile of both grids
 #: and query rows per tile of the dQ grid; the rows of the LSE the forward
 #: saves are padded to :data:`BLOCK_Q`
@@ -110,6 +118,20 @@ def f32_smem_bytes(d: int) -> int:
     floats = (F32_BLOCK_Q * -(-d // 8) * 8 + F32_STAGES * F32_BLOCK_K * F32_K_STRIDE
               + F32_STAGES * F32_BLOCK_K * v_cols)
     return 4 * floats + F32_PLAN_TILES
+
+
+def f32_bwd_smem_bytes(d: int):
+    """(dK/dV grid, dQ grid) shared memory of one block of the float32
+    backward at head dim ``d``: rows of D rounded up to 64 or 128, plus 4
+    floats (no bank conflicts); K and V and two-stage rings of Q and dO
+    and of their LSE and D rows, then the no-key rows' dO sum; Q and dO and
+    two-stage rings of K and V.  The CPU copy of ``dkdv_floats`` and
+    ``dq_floats`` in ``csrc/flash_attention_bwd.cu``."""
+    dp = 64 if d <= 64 else 128
+    ld, bq, stages = dp + 4, BWD_KV_BLOCK_Q, 2
+    dkdv = 2 * BWD_BLOCK_K * ld + 2 * stages * bq * ld + 2 * stages * bq + dp
+    dq = 2 * BWD_BLOCK_Q * ld + 2 * stages * BWD_BLOCK_K * ld
+    return 4 * dkdv, 4 * dq
 
 
 def sm90_bwd_block_q(d: int) -> int:
@@ -187,10 +209,11 @@ def tile_plan(q_pos, k_pos, *, causal: bool, window=None,
     The CPU copy of the rule that the kernels apply in each block
     (``tile_kind``): ``csrc/flash_attention_sm90.cu`` with key tiles of
     BLOCK_K, ``csrc/flash_attention.cu`` with F32_BLOCK_K (both take
-    query tiles of 128 rows); ``csrc/flash_attention_bwd.cu`` visits the
-    tiles it does not skip, at BWD_BLOCK_Q by BWD_BLOCK_K;
-    ``csrc/flash_attention_bwd_sm90.cu`` at sm90_bwd_block_q(D) by
-    SM90_BWD_BLOCK (dK/dV) and SM90_BWD_BLOCK by SM90_BWD_BLOCK (dQ).
+    query tiles of 128 rows); ``csrc/flash_attention_bwd.cu`` at
+    BWD_KV_BLOCK_Q by BWD_BLOCK_K (dK/dV) and BWD_BLOCK_Q by BWD_BLOCK_K
+    (dQ); ``csrc/flash_attention_bwd_sm90.cu`` at
+    sm90_bwd_block_q(D) by SM90_BWD_BLOCK (dK/dV) and SM90_BWD_BLOCK by
+    SM90_BWD_BLOCK (dQ).
     Held against the dense mask by the tests; no route calls it."""
     qlo, qhi = _tile_ranges(q_pos, block_q)
     klo, khi = _tile_ranges(k_pos, block_k)
@@ -278,19 +301,17 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
     _check_inputs(q, k, v, window, softcap)
     q_pos = _positions(q_pos, q.shape[1], q.device)
     k_pos = _positions(k_pos, k.shape[1], q.device)
-    # the statistics, for a backward that reads them (the float32 kernel
-    # recomputes its own)
-    stats = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-             and bwd_route(q.dtype, q.device) != "flash_attention_bwd")
+    # the statistics, which every backward route reads
+    stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap, stats)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is :func:`flash_attention`'s route and whose
     backward is :func:`flash_attention_bwd`.  It saves q, k, v and the
-    positions, and, when ``stats`` (autograd records the call and the
-    backward's route reads them), the forward's per-row log-sum-exp and O
-    in float32; the float32 kernel's backward recomputes them instead."""
+    positions, and, when ``stats`` (autograd records the call), the
+    forward's per-row log-sum-exp and O in float32, which every backward
+    route reads (on the float32 route O is the output itself, saved once)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap, stats):
@@ -312,11 +333,11 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _forward(q, k, v, q_pos, k_pos, causal, window, softcap, stats: bool = False):
-    """The forward's route; with ``stats`` (the plain version and the bf16
-    kernel) returns ``(out, lse, o)`` as :func:`ref.flash_attention_ref`
-    does, except that on the card ``lse`` is (B, H, Sq rounded up to
-    BLOCK_Q), +inf past Sq: the rows the bf16 backward reads.  Its
-    readers take the first Sq."""
+    """The forward's route; with ``stats`` returns ``(out, lse, o)`` as
+    :func:`ref.flash_attention_ref` does, except that on the card ``lse``
+    is (B, H, Sq rounded up to BLOCK_Q), +inf past Sq: the rows the
+    backward kernels read (the plain one takes the first Sq).  On the
+    float32 route ``o`` is ``out`` itself."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                        window=window, softcap=softcap, stats=stats)
@@ -325,16 +346,17 @@ def _forward(q, k, v, q_pos, k_pos, causal, window, softcap, stats: bool = False
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if name == "flash_attention":
-        if sq:
-            _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap)
-        return out
-    if sk > MAX_SM90_KEYS:
-        raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
     lse = o32 = None
     if stats:
         lse = torch.empty((b, h, -(-sq // BLOCK_Q) * BLOCK_Q), dtype=torch.float32,
                           device=q.device)
+    if name == "flash_attention":
+        if sq:
+            _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap, lse)
+        return (out, lse, out) if stats else out
+    if sk > MAX_SM90_KEYS:
+        raise ValueError(f"Sk = {sk}: the bf16 route takes at most {MAX_SM90_KEYS} keys")
+    if stats:
         o32 = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
     if sq:
         (q, q_st), (k, k_st), (v, v_st) = (tma_layout(t) for t in (q, k, v))
@@ -352,16 +374,17 @@ def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool =
     """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``
     (B, Sq, H, D), in the inputs' dtypes, by :func:`bwd_route`: the plain
     version for a CPU tensor; on the card one launch of
-    ``csrc/flash_attention_bwd.cu`` for float32 (three grids, computed in
-    float32) or of ``csrc/flash_attention_bwd_sm90.cu`` for bf16 (three
-    grids on the tensor cores).
+    ``csrc/flash_attention_bwd.cu`` for float32 (three grids on the tensor
+    cores, three TF32 products per float32 product) or of
+    ``csrc/flash_attention_bwd_sm90.cu`` for bf16 (three grids on the
+    tensor cores, P and dS in two bf16 terms).
 
     ``stats`` is the forward's ``(lse, o)`` (``_forward(..., stats=True)``,
-    which :class:`FlashAttention` saves).  The plain version and the bf16
-    kernel read it; without it they first run their forward for it (on the
-    card one ``flash_attention_sm90`` launch), so a call gives the bits
-    that FlashAttention's backward gives.  The float32 kernel always
-    recomputes."""
+    which :class:`FlashAttention` saves).  Every route reads it; without it
+    a call first runs the forward for it (on the card one launch of the
+    dtype's forward kernel, ``flash_attention`` or
+    ``flash_attention_sm90``), so a call gives the bits that
+    FlashAttention's backward gives."""
     _check_inputs(q, k, v, window, softcap)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must have q's shape {tuple(q.shape)}")
@@ -370,7 +393,7 @@ def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool =
     if q.device.type != "cpu":
         _check_card(q, k, v, dout)
     name = bwd_route(q.dtype, q.device)
-    if stats is None and name != "flash_attention_bwd":
+    if stats is None:
         stats = _forward(q, k, v, q_pos, k_pos, causal, window, softcap, stats=True)[1:]
     if name == "plain":
         return ref.flash_attention_bwd_ref(q, k, v, dout, q_pos, k_pos, causal=causal,
@@ -379,21 +402,29 @@ def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool =
     sk, hkv = k.shape[1], k.shape[2]
     if sq == 0:
         return (torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v))
+    lse, o32 = stats
+    if not (lse.shape == (b, h, -(-sq // BLOCK_Q) * BLOCK_Q) and lse.is_contiguous()
+            and lse.dtype == torch.float32 and o32.shape == q.shape
+            and o32.dtype == torch.float32):
+        raise ValueError("stats: the forward's own, a log-sum-exp (B, H, Sq rounded up "
+                         f"to {BLOCK_Q}) float32 contiguous and O {tuple(q.shape)} float32")
+    o32 = o32.contiguous()
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    # no-key counts per 64 rows (both kernels' prep blocks)
+    nokey = torch.empty((b, h, lse.shape[-1] // 64), dtype=torch.int32, device=q.device)
     if name == "flash_attention_bwd":
         q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        f32 = dict(dtype=torch.float32, device=q.device)
-        lse, delta = torch.empty((b, h, sq), **f32), torch.empty((b, h, sq), **f32)
-        nokey = torch.empty((b, h, -(-sq // BWD_BLOCK_Q)), dtype=torch.int32,
-                            device=q.device)
-        _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, delta, nokey,
-                      q_pos, k_pos, b, h, hkv, sq, sk, d, int(causal), window or 0,
-                      1.0 / math.sqrt(d), float(softcap or 0.0))
+        _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, o32, delta,
+                      nokey, q_pos, k_pos, b, h, hkv, sq, sk, d, lse.shape[-1],
+                      int(causal), window or 0, 1.0 / math.sqrt(d), float(softcap or 0.0))
         return dq, dk, dv
-    return _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats)
+    return _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, lse, o32,
+                            delta, nokey)
 
 
-def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats):
+def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, lse, o32,
+                     delta, nokey):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if sk > MAX_SM90_KEYS:
@@ -404,16 +435,6 @@ def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats
         raise ValueError(f"Sq = {sq}, Sk = {sk}: past the bf16 backward's limits (its "
                          f"plans take {smem} B of shared memory, at most {SMEM_LIMIT}; "
                          f"{tiles} tiles of 64 rows, at most 65535 each)")
-    lse, o32 = stats
-    if not (lse.shape == (b, h, -(-sq // BLOCK_Q) * BLOCK_Q) and lse.is_contiguous()
-            and lse.dtype == torch.float32):
-        raise ValueError("stats: the log-sum-exp must be the bf16 forward's own, "
-                         f"(B, H, Sq rounded up to {BLOCK_Q}) float32 contiguous")
-    o32 = o32.contiguous()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty(lse.shape, **f32)
-    nokey = torch.empty((b, h, lse.shape[-1] // SM90_BWD_BLOCK), dtype=torch.int32,
-                        device=q.device)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -426,10 +447,11 @@ def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, stats
     return dq, dk, dv
 
 
-def _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap) -> None:
+def _launch_f32(q, k, v, out, q_pos, k_pos, causal, window, softcap, lse=None) -> None:
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     _build.launch("flash_attention", q, k, v, out, q_pos, k_pos,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1],
                   q.shape[3], int(causal), window or 0, 1.0 / math.sqrt(q.shape[3]),
-                  float(softcap or 0.0), int(all(vec_ready(t) for t in (q, k, v))))
+                  float(softcap or 0.0), int(all(vec_ready(t) for t in (q, k, v))),
+                  lse, 0 if lse is None else lse.shape[-1])

@@ -177,6 +177,47 @@ def test_training_shape_visits_the_causal_band():
     assert int((plan != tfa.SKIP).sum()) == 32 * 33 // 2
 
 
+@pytest.mark.parametrize("name,q_pos,k_pos,causal,window", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_f32_bwd_kv_tile_plan_skips_only_hidden_tiles(name, q_pos, k_pos, causal, window):
+    """The float32 backward's dK/dV grid at its tiles (BWD_KV_BLOCK_Q query
+    rows by BWD_BLOCK_K keys): a skipped pair of tiles holds no visible
+    pair, every pair with one is visited, and a FULL pair is visible
+    throughout."""
+    qp, kp = torch.from_numpy(q_pos).int(), torch.from_numpy(k_pos).int()
+    bq, bk = tfa.BWD_KV_BLOCK_Q, tfa.BWD_BLOCK_K
+    plan = tfa.tile_plan(qp, kp, causal=causal, window=window, block_q=bq, block_k=bk)
+    mask = ref.attention_mask(qp, kp, causal=causal, window=window)
+    assert plan.shape == (-(-len(q_pos) // bq), -(-len(k_pos) // bk))
+    for qt in range(plan.shape[0]):
+        for kt in range(plan.shape[1]):
+            block = mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk]
+            assert (int(plan[qt, kt]) != tfa.SKIP) == bool(block.any()), (qt, kt)
+            if int(plan[qt, kt]) == tfa.FULL:
+                assert bool(block.all()) and block.shape[1] == bk, (qt, kt)
+
+
+def test_f32_bwd_shared_memory_fits_at_every_head_dim():
+    """The float32 backward's two grids at every D <= 128: within the 227
+    KB a block may take, two blocks to an SM at D <= 64 (each with the 1 KB
+    the card reserves a block), and the parts of its layout: rows of D
+    rounded up to 64 or 128 floats plus 4."""
+    for d in range(1, tfa.MAX_HEAD_DIM + 1):
+        dkdv, dq = tfa.f32_bwd_smem_bytes(d)
+        assert max(dkdv, dq) <= tfa.SMEM_LIMIT, d
+        if d <= 64:
+            assert 2 * (max(dkdv, dq) + 1024) <= 233_472, d
+        assert tfa.f32_bwd_smem_bytes(d) == tfa.f32_bwd_smem_bytes(64 if d <= 64 else 128)
+    # K, V; the Q and dO ring; its LSE and D rows; the no-key sum.  Q, dO;
+    # the K, V ring
+    assert tfa.f32_bwd_smem_bytes(64) == (
+        4 * (2 * 64 * 68 + 2 * 2 * 32 * 68 + 2 * 2 * 32 + 64),
+        4 * (2 * 64 * 68 + 2 * 2 * 64 * 68))
+    assert tfa.f32_bwd_smem_bytes(128) == (
+        4 * (2 * 64 * 132 + 2 * 2 * 32 * 132 + 2 * 2 * 32 + 128),
+        4 * (2 * 64 * 132 + 2 * 2 * 64 * 132))
+
+
 @pytest.mark.parametrize("bq", [tfa.sm90_bwd_block_q(64), tfa.sm90_bwd_block_q(128)])
 @pytest.mark.parametrize("name,q_pos,k_pos,causal,window", PLAN_CASES,
                          ids=[c[0] for c in PLAN_CASES])
@@ -329,12 +370,14 @@ def _saved_by_function(q, k, v, recording: bool):
     return flags, saved
 
 
-def test_function_saves_stats_only_when_autograd_records():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_function_saves_stats_only_when_autograd_records(dtype):
     """With grad enabled and an input that needs it, FlashAttention asks
     the forward for (LSE, O) and saves them beside q, k, v and the
-    positions; under torch.no_grad(), or with no input that needs grad,
+    positions, on both routes (the float32 one too: its backward kernel
+    reads them); under torch.no_grad(), or with no input that needs grad,
     the forward computes no statistics and nothing is saved."""
-    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(40, 40, 4, 2, 8, 11))
+    q, k, v, _ = (torch.from_numpy(a).to(dtype) for a in _inputs(40, 40, 4, 2, 8, 11))
     qg = q.clone().requires_grad_()
     flags, saved = _saved_by_function(qg, k, v, recording=True)
     assert flags == [True]
@@ -344,15 +387,16 @@ def test_function_saves_stats_only_when_autograd_records():
     assert _saved_by_function(q, k, v, recording=True) == ([False], [])
 
 
-def test_remat_writes_stats_in_both_passes_and_reads_the_recompute():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_remat_writes_stats_in_both_passes_and_reads_the_recompute(dtype):
     """Under torch.utils.checkpoint(use_reentrant=False), as the model's
     remat runs each layer, the first pass records with grad enabled too:
-    both it and the backward's recompute ask the forward for (LSE, O).
-    The first pass's copy is dropped by checkpoint's saved-tensor hook;
-    the backward reads the recompute's, and its gradient equals the
-    gradient taken without remat."""
+    both it and the backward's recompute ask the forward for (LSE, O), in
+    either dtype.  The first pass's copy is dropped by checkpoint's
+    saved-tensor hook; the backward reads the recompute's, and its
+    gradient equals the gradient taken without remat."""
     from torch.utils.checkpoint import checkpoint
-    q, k, v, do = (torch.from_numpy(a) for a in _inputs(40, 40, 4, 2, 8, 12))
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _inputs(40, 40, 4, 2, 8, 12))
     flags, forward = [], tfa._forward
 
     def spy(*args, **kw):
@@ -447,6 +491,131 @@ def test_split_p_and_ds_keep_the_gradient_within_one_rounding(s, d, h, hkv, wind
     assert emulate(False, True)[2] > 0
     out = emulate(True, False)
     assert out[2] == 0 and out[0] + out[1] > 0
+
+
+# -- the float32 kernel's arithmetic: three TF32 products per product -------
+
+def _tf32_rna(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 of finite float32 values: 10 bits of mantissa, to
+    nearest with ties away from zero; add half of the last kept bit to the
+    magnitude and clear the 13 bits below it (the sign bit is apart, so
+    the carry rounds the magnitude up; a carry out of the mantissa raises
+    the exponent).  The CUDA kernel computes it the same way."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+# (input bits, cvt.rna.tf32.f32 bits)
+TF32_CASES = [
+    (0x3F800000, 0x3F800000),   # 1.0: kept
+    (0x3F800FFF, 0x3F800000),   # just below half of the last kept bit: down
+    (0x3F801000, 0x3F802000),   # a tie: away from zero
+    (0xBF801000, 0xBF802000),   # a negative tie: away from zero
+    (0x3F803000, 0x3F804000),   # a tie above an odd kept bit: away, not to even
+    (0x3F801001, 0x3F802000),   # just above half: up
+    (0x3FFFF000, 0x40000000),   # 1.99951...: the carry raises the exponent
+    (0x00001000, 0x00002000),   # a subnormal tie
+    (0x80000000, 0x80000000),   # -0.0
+]
+
+
+@pytest.mark.parametrize("x,want", TF32_CASES, ids=[f"{x:08x}" for x, _ in TF32_CASES])
+def test_tf32_rna_model_on_hand_picked_bits(x, want):
+    got = _tf32_rna(np.array([x], dtype=np.uint32).view(np.float32))
+    assert int(got.view(np.uint32)[0]) == want
+
+
+def test_tf32_rna_keeps_ten_bits_within_half_an_ulp():
+    """On many values: the low 13 bits are zero, the error is at most half
+    of 2**-10 of the value's binade, and x - hi is exact in float32, so
+    hi + lo splits x with lo's own rounding the only loss."""
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(100_000) * 10.0 ** rng.integers(-6, 6, 100_000)).astype(np.float32)
+    hi = _tf32_rna(x)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+    ulp = np.ldexp(np.float32(1.0), np.frexp(x)[1] - 11).astype(np.float32)
+    assert (np.abs(x.astype(np.float64) - hi) <= ulp / 2).all()
+    rest = x - hi
+    assert (rest.astype(np.float64) == x.astype(np.float64) - hi.astype(np.float64)).all()
+    lo = _tf32_rna(rest)
+    err = np.abs(x.astype(np.float64) - hi.astype(np.float64) - lo.astype(np.float64))
+    assert (err <= 2.0 ** -21 * np.abs(x.astype(np.float64))).all()
+
+
+def _tf32_terms(a: torch.Tensor, terms: int):
+    """a as TF32 parts for ``terms`` products: (hi, lo) when each product
+    takes the small terms, else (hi,)."""
+    hi = torch.from_numpy(_tf32_rna(a.numpy()))
+    return hi, torch.from_numpy(_tf32_rna((a - hi).numpy()))
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """einsum(eq, a, b) as the kernel computes it: a_lo·b_hi + a_hi·b_lo +
+    a_hi·b_hi (terms=3), the small terms first, each product of TF32
+    values exact in float32 and summed in float32; terms=2 drops a_lo·b_hi
+    and terms=1 keeps a_hi·b_hi alone (the controls)."""
+    (ah, al), (bh, bl) = _tf32_terms(a, terms), _tf32_terms(b, terms)
+    parts = {3: [(al, bh), (ah, bl)], 2: [(ah, bl)], 1: []}[terms] + [(ah, bh)]
+    out = torch.zeros(())
+    for x, y in parts:
+        out = out + torch.einsum(eq, x, y)
+    return out
+
+
+def _emulate_bwd_f32(q, k, v, do, q_pos, k_pos, *, terms: int, window=None, softcap=None):
+    """flash_attention_bwd.cu's arithmetic on the CPU: P = 2**(s·log2(e) −
+    LSE) from the forward's saved LSE, D from its O, and every product (S =
+    Q Kᵀ, dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K) in ``terms`` TF32
+    products (:func:`_tf32_product`)."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    _, lse, o = ref.flash_attention_ref(q, k, v, q_pos, k_pos, window=window,
+                                        softcap=softcap, stats=True)
+    kf, vf = (t.repeat_interleave(n_rep, dim=2) for t in (k, v))
+    s = _tf32_product("bqhd,bkhd->bhqk", q, kf, terms) / np.sqrt(d)
+    chain = 1.0
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s, chain = softcap * t, 1.0 - t * t
+    ok = ref.attention_mask(q_pos, k_pos, causal=True, window=window)
+    p = torch.exp2(s * ref.LOG2E - lse[..., None]).masked_fill(~ok, 0.0)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (_tf32_product("bqhd,bkhd->bhqk", do, vf, terms) - delta) * chain
+    dv = _tf32_product("bhqk,bqhd->bkhd", p, do, terms)
+    dk = _tf32_product("bhqk,bqhd->bkhd", ds, q, terms)
+    dq = _tf32_product("bhqk,bkhd->bqhd", ds, kf, terms)
+    group = lambda t: t.reshape(b, sk, hkv, n_rep, d).sum(dim=3)
+    none = ~ok.any(dim=-1)
+    dv_none = (do[:, none].sum(1) / sk).reshape(b, hkv, n_rep, d).sum(2)
+    return dq / np.sqrt(d), group(dk / np.sqrt(d)), group(dv) + dv_none[:, None]
+
+
+# the card's check of the float32 backward against its plain version
+# (chip_smoke.py FLASH_BWD_TOL[torch.float32]): |kernel − plain| <= 1e-4
+F32_BWD_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("s,d,h,hkv,window,softcap",
+                         [(2048, 16, 2, 1, None, None), (2048, 8, 2, 2, 512, 30.0),
+                          (300, 64, 2, 1, 64, 30.0), (257, 120, 2, 2, None, None)])
+def test_three_tf32_terms_keep_the_float32_tolerance(s, d, h, hkv, window, softcap):
+    """The float32 backward's products as three TF32 products each stay
+    within the card's 1e-4 of the plain version's gradient, at S up to
+    2048 (narrow heads), with softcap and window cases; with one TF32
+    product each (10 bits of mantissa), or two (a's own rounding kept),
+    some gradient leaves it."""
+    rng = np.random.default_rng(s + d + h)
+    arr = lambda *shape: torch.from_numpy(rng.standard_normal(shape, np.float32))
+    q, k, v, do = arr(1, s, h, d), arr(1, s, hkv, d), arr(1, s, hkv, d), arr(1, s, h, d)
+    pos = torch.arange(s, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    plain = ref.flash_attention_bwd_ref(q, k, v, do, pos, pos, **kw)
+    err = lambda terms: max(float((g - w).abs().max()) for g, w in zip(
+        _emulate_bwd_f32(q, k, v, do, pos, pos, terms=terms, **kw), plain))
+    assert err(3) <= F32_BWD_ATOL
+    assert err(2) > F32_BWD_ATOL
+    assert err(1) > F32_BWD_ATOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
