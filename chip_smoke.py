@@ -166,8 +166,20 @@ into ``build/``, then, each phase failing the run:
     profiled round; and the model at depth 2 in float32 (17c), one round
     with compression off through the kernels against plain attention
     (autograd), every state leaf within rtol 1e-4 / atol 1e-5.
+18. runs the benchmark harness (``repro_torch.bench``) at its tiny size on
+    the card and emits it with the mega-1000 trace into build/bench_out/:
+    every registered benchmark ran, the emitted files name the card, every
+    gated metric of the committed baseline (``src/repro_torch/bench/
+    baseline``) is present and finite, pack_bits, unpack_bits,
+    quantize_ef, quant_pipeline and erasure_mask each launched (counts
+    printed on a [bench] line, not added to the main paths' counts), the
+    port's ``obs check`` passes on the trace (a subprocess) and
+    ``profile_round --check-equivalence`` on mega-1000 exits 0; then it
+    prints ``compare``'s table against the baseline, which gates nothing
+    here (the host's speed moves between calls).
 
-Phases 11–16 run after phase 8, phase 17 after phase 9.  The launch
+Phases 11–16 run after phase 8, phase 17 after phase 9, phase 18 after
+phase 17.  The launch
 counts are zeroed just before each main-path run (phases 3–4, each run of
 phase 5, each chain run of phase 7, phase 8, each cell of phase 12 and
 phase 13, each resumed run of phase 14, each card run of phase 15, the
@@ -2238,6 +2250,71 @@ def profile_train(state) -> None:
                   f"train {TRAIN_ARCH} bf16 round (2 agents x 2 x {TRAIN_SEQ})")
 
 
+# -- phase 18: the benchmark harness -------------------------------------------
+
+BENCH_OUT = BUILD / "bench_out"
+#: the kernels the harness's tiny run must launch
+BENCH_KERNELS = ("pack_bits", "unpack_bits", "quantize_ef", "quant_pipeline",
+                 "erasure_mask")
+
+
+def phase_bench() -> dict:
+    """``run_benchmarks(tiny=True)`` on the card, emitted with the trace
+    into BENCH_OUT and checked; ``compare``'s table printed, not gated."""
+    from repro_torch.bench import compare, profile_round
+    from repro_torch.bench.__main__ import emit, emit_trace
+    from repro_torch.bench.registry import BENCHMARKS, run_benchmarks
+    from repro_torch.device import device_label
+    from repro_torch.kernels import ops
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    ops.reset_launch_counts()
+    results = run_benchmarks(tiny=True, device=DEV)
+    counts = ops.launch_counts()
+    print(f"[bench] launches in the tiny run: {counts}")
+    check(all(counts[k] > 0 for k in BENCH_KERNELS),
+          f"a kernel of the harness never launched: {counts}")
+    ran = sorted(b for group in results.values() for b in group)
+    check(ran == sorted(BENCHMARKS), f"benchmarks ran {ran}, registered "
+          f"{sorted(BENCHMARKS)}")
+    label = device_label(torch.device(DEV))
+    check("NVIDIA" in label, f"the run's device label {label!r} names no card")
+    emit(results, str(BENCH_OUT), True, label)
+    emit_trace(str(BENCH_OUT))
+    cli = obs_cli_start("check", str(BENCH_OUT / "TRACE_mega-1000.jsonl"))
+    gated = 0
+    for group in compare.GROUPS:
+        base = compare.load(compare.BASELINE_DIR, group)
+        new = compare.load(str(BENCH_OUT), group)
+        check(json.loads(Path(compare.bench_path(str(BENCH_OUT), group))
+                         .read_text())["device"] == label,
+              f"BENCH_{group}.json does not name the card")
+        for bench, metrics in base.items():
+            for m, d in metrics.items():
+                if d["gate"]:
+                    v = new.get(bench, {}).get(m, {}).get("value")
+                    check(v is not None and math.isfinite(v), f"gated metric "
+                          f"{bench}/{m} missing or not finite in the tiny run: {v}")
+                    gated += 1
+    check(gated > 0, f"the committed baseline under {compare.BASELINE_DIR} "
+          "has no gated metric")
+    rc = profile_round.main(["--scenario", "mega-1000", "--rounds", "3",
+                             "--check-equivalence"])
+    check(rc == 0, f"profile_round --check-equivalence exited {rc}")
+    rc, stdout, stderr = obs_cli_wait(cli)
+    check(rc == 0, f"obs check on the bench trace exited {rc}: "
+          f"{stdout[-2000:]}{stderr[-2000:]}")
+    passed, verdicts = compare.compare_dirs(str(BENCH_OUT), compare.BASELINE_DIR)
+    print(compare.format_report(verdicts, 0.2))
+    print(f"[bench] compare against {compare.BASELINE_DIR}: "
+          f"{'passed' if passed else 'REGRESSED'} (not gated here); "
+          f"{gated} gated metrics present and finite; obs check ok; "
+          "fast == oracle on mega-1000")
+    return {"launches": {k: counts[k] for k in BENCH_KERNELS},
+            "compare_passed": passed, "gated": gated,
+            "metrics": {b: {m: d["value"] for m, d in ms.items()}
+                        for group in results.values() for b, ms in group.items()}}
+
+
 # -- phase 9: serving h2o-danube-3-4b -----------------------------------------
 
 def serve_config(**changes):
@@ -3328,6 +3405,8 @@ def main() -> int:
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
+    bench = phase_bench()                # counts zeroed; not a main path
+    lap("18 bench")
     times = phase_times(rng)
     lap("10 times")
 
@@ -3365,6 +3444,7 @@ def main() -> int:
     print(f"[resume] summary: {json.dumps(resume)}")
     print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")
     print(f"[convgate] summary: {json.dumps(convgate)}")
+    print(f"[bench] summary: {json.dumps(bench)}")
     PHASE_S.pop("_t")
     print(f"[time] seconds by phase: "
           f"{', '.join(f'{k} {v:.1f}' for k, v in PHASE_S.items())}")

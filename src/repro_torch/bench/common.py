@@ -32,6 +32,37 @@ COMPRESSORS = {
 }
 
 
+def assert_fast_oracle_equivalent(eng_fast, eng_oracle, msg_bytes, *,
+                                  rounds=3, async_deliveries=100):
+    """Drive both engines through the same sync trajectory and an async
+    stream and assert identical Delivery timelines — the fast engine's
+    acceptance contract, shared by ``sim_scale.bench_fast_round`` and
+    ``profile_round --check-equivalence`` so the contract lives in ONE
+    place.  Delivery is an eq dataclass: ``==`` compares every field
+    (engine records always carry finite windows, so NaN can't defeat the
+    comparison).  Raises ``AssertionError`` on the first difference, also
+    under ``python -O``.  Returns the fast engine's RoundResults; both
+    engines come back warm.
+    """
+    t_f = t_o = 0.0
+    results = []
+    for r in range(rounds):
+        rf = eng_fast.run_round(t_f, msg_bytes)
+        ro = eng_oracle.run_round(t_o, msg_bytes)
+        if not (rf.deliveries == ro.deliveries and rf.duration == ro.duration
+                and (rf.mask == ro.mask).all()):
+            raise AssertionError(
+                f"fast path diverged from the heapq oracle (sync round {r})")
+        t_f += rf.duration
+        t_o += ro.duration
+        results.append(rf)
+    d_f = eng_fast.run_async(0.0, msg_bytes, n_deliveries=async_deliveries)
+    d_o = eng_oracle.run_async(0.0, msg_bytes, n_deliveries=async_deliveries)
+    if d_f != d_o:
+        raise AssertionError("fast path diverged from the heapq oracle (async)")
+    return results
+
+
 def problem(seed=0, scale=1.0, device=None):
     """(data, loss, x̄, n_agents) of the paper's problem, cut by ``scale``
     in agents and samples per agent; on the card unless ``device``."""

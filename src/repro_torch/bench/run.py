@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``benchmarks/run.py``, with the sections
 the port has: Table 1, the lossy-channel and fault-tolerance tables,
-Fig. 4 and Table 2.  Prints
+Fig. 4, Table 2, sim scaling, the kernel micro-benchmarks and the wire
+codec bench.  The reference's last section, the dry-run roofline, waits
+for the port of ``launch/dryrun.py``.  Prints
 ``name,us_per_call,derived`` CSV lines.  ``--full`` runs the paper-scale
 versions (minutes); the default quick mode checks the same qualitative
 claims at reduced scale.  Runs on the card.
@@ -32,8 +34,9 @@ def main() -> None:
             traceback.print_exc()
             failures.append(name)
 
-    from . import fig4_trajectory, table1_error_feedback, table2_space_comparison
-    from . import table_fault_tolerance, table_lossy_ef
+    from . import fig4_trajectory, kernel_bench, sim_scale, table1_error_feedback
+    from . import table2_space_comparison, table_fault_tolerance
+    from . import table_lossy_ef, wire_bench
 
     section("Table 1: error feedback ablation",
             lambda: table1_error_feedback.main(quick=quick))
@@ -45,6 +48,11 @@ def main() -> None:
             lambda: fig4_trajectory.main(quick=quick))
     section("Table 2: constellation comparison",
             lambda: table2_space_comparison.main(quick=quick))
+    section("Sim scaling: contact plan + 1000-sat engine",
+            lambda: sim_scale.main(quick=quick))
+    section("Kernel micro-benchmarks", kernel_bench.main)
+    section("Wire codec bench: pack throughput + byte accounting",
+            lambda: wire_bench.main(tiny=quick))
 
     if failures:
         print("\nFAILED sections:", failures)

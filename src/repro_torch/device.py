@@ -6,6 +6,8 @@ caller passes it, as the tests do.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -36,3 +38,35 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def _holds_cuda(x) -> bool:
+    """Whether ``x`` is, or holds in its tuples, lists and dicts, a CUDA
+    tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.is_cuda
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return any(_holds_cuda(v) for v in x)
+    return False
+
+
+def block_until_ready(x) -> None:
+    """Wait for the card's queued work when ``x`` holds a CUDA tensor
+    (``torch.cuda.synchronize()``); a no-op for host values.  The port's
+    ``jax.block_until_ready``."""
+    if _holds_cuda(x):
+        torch.cuda.synchronize()
+
+
+def device_label(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, or ``"cpu"``: what a
+    recorded time is written beside."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[device.index or 0].strip()

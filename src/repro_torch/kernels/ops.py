@@ -5,8 +5,11 @@ version for a tensor on the CPU, and runs under
 ``torch.profiler.record_function("repro.kernels.<name>")`` so it shows
 up named in a profiler trace.  With an active :mod:`repro_torch.obs`
 tracer each call also records a host-side ``kernel`` record and a
-``kernel.<name>`` phase, as the JAX package's dispatchers do; disabled,
-that costs one module attribute read and a ``None`` check.  The kernels
+``kernel.<name>`` phase, as the JAX package's dispatchers do, and, when
+the tracer's meta sets ``prof_sync``, a ``kernel.<name>[device]`` record
+and phase timed around ``torch.cuda.synchronize()`` (the device's share;
+~0 for a CPU tensor, where nothing is queued); disabled, that costs one
+module attribute read and a ``None`` check.  The kernels
 count their own launches (:data:`._build.launches`); read them with
 :func:`launch_counts` and zero them with :func:`reset_launch_counts`.
 """
@@ -17,6 +20,7 @@ import time
 
 from torch.profiler import record_function
 
+from ..device import block_until_ready
 from ..obs.trace import active as _obs_active
 from . import _build
 from .compress_pipeline import quant_pipeline as _quant_pipeline
@@ -45,6 +49,15 @@ def _annotated(fn):
         trc.raw({"kind": "kernel", "name": name,
                  "t_host": t0 - trc._t0_host, "dur_host": dur})
         trc.prof.add("kernel." + name, dur)
+        if trc.prof.sync_device:
+            # the dispatch above times the host's launch only; this wait
+            # (opt-in, prof_sync meta) is the device's share
+            t1 = time.perf_counter()
+            block_until_ready(out)
+            dur_sync = time.perf_counter() - t1
+            trc.raw({"kind": "kernel", "name": name + "[device]",
+                     "t_host": t1 - trc._t0_host, "dur_host": dur_sync})
+            trc.prof.add("kernel." + name + "[device]", dur_sync)
         trc.metrics.counter("kernel_dispatches").add(1.0, name=name)
         return out
 

@@ -14,9 +14,12 @@ slower, never *which stage*.  This module rides the existing
   (``window_fit``), channel/ARQ commits (``tx_commit``), batched async
   routing (``dispatch`` / ``window_query``, fast path) and per-dispatch
   route choice (``route``, oracle) — plus kernel dispatches
-  (``kernel.<name>`` leaves via :mod:`repro_torch.kernels.ops`, host
-  dispatch time only).  Nesting is tracked with an explicit stack, so
-  each occurrence lands on its full *path* (``event_loop/window_fit``);
+  (``kernel.<name>`` leaves via :mod:`repro_torch.kernels.ops`, with an
+  optional ``kernel.<name>[device]`` leaf timed around
+  ``torch.cuda.synchronize()`` when ``sync_device`` is set, so host
+  dispatch and device compute are separated).  Nesting is tracked with
+  an explicit stack, so each occurrence lands on its full *path*
+  (``event_loop/window_fit``);
   the per-call cost is two ``perf_counter`` reads and a dict update,
   which keeps the whole layer inside the <5% ``sim.trace_overhead``
   budget at mega-1000;
@@ -78,11 +81,12 @@ class PhaseAcc:
     the next round's nesting.
     """
 
-    __slots__ = ("_stack", "_acc")
+    __slots__ = ("_stack", "_acc", "sync_device")
 
-    def __init__(self):
+    def __init__(self, sync_device: bool = False):
         self._stack: List[tuple] = []     # (path_tuple, t0) frames
         self._acc: Dict[tuple, list] = {}  # path -> [count, total_s]
+        self.sync_device = bool(sync_device)
 
     def begin(self, name: str) -> None:
         st = self._stack

@@ -119,8 +119,11 @@ class Tracer:
         self.events: List[dict] = []
         self.metrics = Metrics()
         # phase-attribution accumulator (repro_torch.obs.prof); the engines
-        # read it once per round alongside active()
-        self.prof = PhaseAcc()
+        # read it once per round alongside active().  prof_sync=True in
+        # the meta also times a torch.cuda.synchronize() after each kernel
+        # dispatch (the host/device split; it changes timing, not results,
+        # so keep it out of gated benches)
+        self.prof = PhaseAcc(sync_device=bool(meta.get("prof_sync")))
         self.path = path
         self.meta = meta
         self.stream_every = stream_every

@@ -26,11 +26,14 @@ from benchmarks import table2_space_comparison as jt2
 from repro_torch import convert
 from repro_torch.bench import common as tcommon
 from repro_torch.bench import fig4_trajectory as tfig4
+from repro_torch.bench import kernel_bench as tkernel
 from repro_torch.bench import run as trun
+from repro_torch.bench import sim_scale as tsim
 from repro_torch.bench import table1_error_feedback as tt1
 from repro_torch.bench import table2_space_comparison as tt2
 from repro_torch.bench import table_fault_tolerance as tfault
 from repro_torch.bench import table_lossy_ef as tlossy
+from repro_torch.bench import wire_bench as twire
 from repro_torch.data import logistic as tl
 
 
@@ -133,9 +136,17 @@ def test_csv_lines_and_the_driver(same_problem, monkeypatch, capsys):
     for mod in (tt1, tlossy, tfault, tfig4, tt2):
         monkeypatch.setattr(mod, "main", lambda quick, mod=mod: calls.append(
             (mod.__name__, quick)))
+    # the sections after Table 2, with benchmarks/run.py's arguments
+    monkeypatch.setattr(tsim, "main", lambda quick: calls.append(
+        (tsim.__name__, quick)))
+    monkeypatch.setattr(tkernel, "main", lambda: calls.append(
+        (tkernel.__name__, None)))
+    monkeypatch.setattr(twire, "main", lambda tiny: calls.append(
+        (twire.__name__, tiny)))
     monkeypatch.setattr("sys.argv", ["run"])
     trun.main()
     assert calls == [(tt1.__name__, True), (tlossy.__name__, True),
                      (tfault.__name__, True), (tfig4.__name__, True),
-                     (tt2.__name__, True)]
+                     (tt2.__name__, True), (tsim.__name__, True),
+                     (tkernel.__name__, None), (twire.__name__, True)]
     assert "all benchmark sections completed" in capsys.readouterr().out
