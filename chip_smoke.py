@@ -30,7 +30,8 @@ into ``build/``, then, each phase failing the run:
    rounding of the plain version's and bit for bit bf16(msg + cache ∓
    the kernel's scale)); unpack_bits also
    from a word buffer one word off 16 bytes (its 4-byte load path); and flash_attention over S in {128, 257, 4353}, D
-   in {64, 120, 128}, (H, Hkv) in {(4, 4), (32, 8)}, window in {None, 64,
+   in {64, 80, 120, 128} (80: zamba2's shared attention), (H, Hkv) in
+   {(4, 4), (32, 8)}, window in {None, 64,
    4096}, softcap in {None, 30} and aligned or offset positions, in
    float32 (2e-5, on the float32 route's kernel, flash_attention.cu) and
    bf16 (one bf16 rounding of the output: 2**-7 |plain| + 1e-4, on the
@@ -177,15 +178,43 @@ into ``build/``, then, each phase failing the run:
     ``profile_round --check-equivalence`` on mega-1000 exits 0; then it
     prints ``compare``'s table against the baseline, which gates nothing
     here (the host's speed moves between calls).
+19. runs the MoE, Mamba2 and RWKV6 families (``models/moe.py``,
+    ``mamba2.py``, ``rwkv6.py``) at full width in bf16 with seeded random
+    weights (FAMILY_SERVE): mixtral-8x7b at 8 of 32 layers, zamba2-2.7b
+    and rwkv6-3b at full depth, each a prefill of 4 x 8192 and 32 greedy
+    decode steps through launch/serve.py, and grok-1-314b at 1 of 64
+    layers, 1 x 4096 and 4 steps: logits finite, each prefill one
+    flash_attention_sm90 launch per attention layer at the model's head dim
+    (80 for zamba2's shared block), window (4096) and softcap (30),
+    rwkv6's none, decode none; prefill tokens/s, decode ms per step and
+    peak memory; flash_attention_sm90 at each attention family's prefill
+    shape (mixtral 32/8 heads D 128 W 4096, zamba2 32/32 D 80, grok 48/8
+    D 128 softcap 30) against its plain version, one batch row at a time;
+    mixtral, zamba2 (2 units), rwkv6 at depth 2 and grok at depth 1 in
+    float32 (FAMILY_CHECK), a prefill of 1 x 5000 into a cache of 5004
+    and 4 decode steps on the same sequence, kernel against plain
+    attention within rel L2 1e-4 in every logit row (a route that flips
+    at a rounding tie, ROUTE_TIE, is counted and its rows left out), and
+    for zamba2 and rwkv6 each decode step (the recurrence) against a full
+    forward over the 5004 tokens (the chunked scan) within 1e-4; then
+    DeployFedLT training as in 17a (FAMILY_TRAIN: mixtral at 1 layer,
+    zamba2 at full depth, rwkv6 at 16 of 32 layers at γ 0.01; 3 rounds
+    each): losses
+    finite and falling, each round's launches the attention layers' and
+    nothing else, ms per round and peak memory; one mixtral round with
+    pack_wire=True checked as 17b; and zamba2's lm_loss gradient at 2 units
+    in float32 through the kernels against plain attention, with its
+    controls, as 17c.
 
 Phases 11–16 run after phase 8, phase 17 after phase 9, phase 18 after
-phase 17.  The launch
+phase 19.  The launch
 counts are zeroed just before each main-path run (phases 3–4, each run of
 phase 5, each chain run of phase 7, phase 8, each cell of phase 12 and
 phase 13, each resumed run of phase 14, each card run of phase 15, the
 timed prefill, the decode steps and the depth-2 float32 prefills of phase
-9, and the launcher's run and each later round of phase 17) and read just
-after.  Then it prints each phase's seconds ([time]), the card's name and
+9, the launcher's run and each later round of phase 17, and each timed
+prefill, decode run, float32 check and training round of phase 19) and
+read just after.  Then it prints each phase's seconds ([time]), the card's name and
 power limit again, one JSON line with a record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
@@ -240,7 +269,7 @@ ERASE_SEGMENTS = (1, 32, 100)
 # |plain|.  Both sides sum in float32 and round to the output's type once,
 # so in bf16 they differ by at most one rounding: one ulp, <= 2**-7 |plain|
 FLASH_S = (128, 257, 4353)
-FLASH_D = (64, 120, 128)
+FLASH_D = (64, 80, 120, 128)      # 80: zamba2-2.7b's shared attention
 FLASH_HEADS = ((4, 4), (32, 8))
 FLASH_WINDOWS = (None, 64, 4096)
 FLASH_CAPS = (None, 30.0)
@@ -288,6 +317,39 @@ TRAIN_F32_TOL = (1e-4, 1e-5)
 # plain| <= TRAIN_GRAD_RTOL max |plain| (3.8e-6 measured on an H100 80GB
 # HBM3 at 700 W); a backward that zeroes dq, dk or dv parts by 1.0 there
 TRAIN_GRAD_RTOL = 1e-4
+# phase 19: the MoE, Mamba2 and RWKV6 families at full width in bf16, with
+# seeded random weights: (arch, depth changes, prompts, prompt, decode steps);
+# mixtral at 8 of 32 layers (11.9 B parameters; all 32 would need 93 GB),
+# grok at 1 of 64 (5.7 B)
+FAMILY_SERVE = (
+    ("mixtral-8x7b", dict(n_layers=8, scan_repeats=8), 4, 8192, 32),
+    ("zamba2-2.7b", {}, 4, 8192, 32),
+    ("rwkv6-3b", {}, 4, 8192, 32),
+    ("grok-1-314b", dict(n_layers=1, scan_repeats=1), 1, 4096, 4),
+)
+# their float32 checks at full width and a cut depth (zamba2: 2 units of 6;
+# grok: 1 layer, 23 GB), a prefill of 1 x 5000 then 4 decode steps, each
+# logit row within CHECK_REL_L2
+FAMILY_CHECK = {"mixtral-8x7b": dict(n_layers=2, scan_repeats=2),
+                "zamba2-2.7b": dict(n_layers=12, scan_repeats=2),
+                "rwkv6-3b": dict(n_layers=2, scan_repeats=2),
+                "grok-1-314b": dict(n_layers=1, scan_repeats=1)}
+FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS = 5000, 4
+# a route that flips between kernel and plain attention is a rounding tie
+# when the plain run's probabilities of the swapped experts lie this close
+ROUTE_TIE = 1e-4
+# training through DeployFedLT as phase 17a (bf16): (arch, depth changes,
+# γ): mixtral at 1 of 32 layers (1.71 B parameters), zamba2 at full depth,
+# rwkv6 at 16 of 32 (its state alone would take ~50 GB at 32), at γ = 0.01:
+# at the launcher's 0.02 and its 2048-token sequences, 16 RWKV6 layers end
+# their 3 rounds above the first loss at every width, in float32 as in bf16,
+# and fall at 256 tokens (``--rwkv6-gamma``); the JAX package's loss rises
+# too, round for round with the port's, at width 512 and 2048 tokens on the
+# CPU (``python tests/test_torch_deploy.py rwkv6-3b 512 16 0.02 3 float32 2048``)
+FAMILY_TRAIN = (("mixtral-8x7b", dict(n_layers=1, scan_repeats=1), 0.02),
+                ("zamba2-2.7b", {}, 0.02),
+                ("rwkv6-3b", dict(n_layers=16, scan_repeats=16), 0.01))
+FAMILY_TRAIN_ROUNDS = 3
 LOSSY_CUT = dict(loss_rates=[0.0, 0.2], rounds=100)
 FAULT_CUT = dict(crash_rates=[0.0, 0.1], rounds=60)
 PLANE_CUT_ROUNDS = 10
@@ -1943,23 +2005,30 @@ def train_config(**changes):
     return dataclasses.replace(get(TRAIN_ARCH), **changes)
 
 
-def train_batch(cfg, round_idx: int) -> dict:
+def train_batch(cfg, round_idx: int, seq: int = TRAIN_SEQ) -> dict:
     """The launcher's batch of round ``round_idx``: agent i draws from
     seeded(11 + i, round_idx)."""
     from repro_torch.data.synthetic import make_batch, seeded, stack_batches
     return stack_batches([make_batch(cfg, seeded(11 + i, round_idx), TRAIN_BATCH,
-                                     TRAIN_SEQ, device=DEV) for i in range(TRAIN_AGENTS)])
+                                     seq, device=DEV) for i in range(TRAIN_AGENTS)])
+
+
+def n_attention_layers(cfg) -> int:
+    """Attention layers of ``cfg`` (shared ones once per occurrence)."""
+    from repro_torch.models.transformer import ATTN_KINDS
+    return (sum(k in ATTN_KINDS for k in cfg.scan_unit) * cfg.scan_repeats
+            + sum(k in ATTN_KINDS for k in cfg.tail))
 
 
 def train_attention_launches(cfg, dtype) -> dict:
-    """Attention launches of one round: each of the layers' forwards twice
-    per epoch and agent (the forward, and remat's recompute in the
+    """Attention launches of one round: each attention layer's forward
+    twice per epoch and agent (the forward, and remat's recompute in the
     backward, on the dtype's route, both writing the backward's
     statistics) and its backward once, reading the recompute's (no further
-    forward launch)."""
+    forward launch); none without attention layers."""
     from repro_torch.kernels import flash_attention as fa
-    n = cfg.n_layers * TRAIN_AGENTS * TRAIN_EPOCHS
-    return {fa.route(dtype, DEV): 2 * n, fa.bwd_route(dtype, DEV): n}
+    n = n_attention_layers(cfg) * TRAIN_AGENTS * TRAIN_EPOCHS
+    return {fa.route(dtype, DEV): 2 * n, fa.bwd_route(dtype, DEV): n} if n else {}
 
 
 def phase_train(launches: dict) -> dict:
@@ -2045,26 +2114,25 @@ def check_leaf_plain(z, c, ints, words_q, nc_q, words_p, q: dict, bits: int) -> 
 
 
 def phase_train_packed(state, launches: dict) -> dict:
-    """17b: one round of the same model with ``pack_wire=True`` from the
-    launcher's last state: one quant_pipeline and one unpack_bits launch per
-    leaf of at least one tile (bf16 weights and float32 norms alike); then,
-    leaf by leaf on that state: unpack_bits of quant_pipeline's words and
-    of pack_bits' words equal to the plain quantizer's level ints
-    (``deploy._quantize_ef``, PyTorch ops) and quant_pipeline's new cache
-    to its cache, bit for bit; the fused uplink against the unfused one
-    (the quantizer and pack_bits): words, gathered values, their agent mean
-    and the new EF cache equal bit for bit, and the round's cache the fused
-    one's; and on the largest leaf, quant_pipeline and pack_bits against
-    their plain versions word for word."""
-    from repro_torch.core.deploy import DeployFedLT, _quantize_ef
+    """17b: one packed round of stablelm-1.6b from the launcher's last
+    state (packed_round), checked (check_packed_round)."""
+    alg, new, res = packed_round(state, launches, train_config())
+    return check_packed_round(alg, new, state.c_up, res)
+
+
+def packed_round(state, launches: dict, cfg) -> tuple:
+    """One round of ``cfg`` with ``pack_wire=True`` from ``state``: one
+    quant_pipeline and one unpack_bits launch per leaf of at least one
+    tile (bf16 weights and float32 norms alike) beside the attention
+    layers', and a finite loss.  Returns (the packed DeployFedLT, the new
+    state, the round's summary)."""
+    from repro_torch.core.deploy import DeployFedLT
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.kernels.pack_bits import _TILE_VALS
-    cfg = train_config()
     alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0, pack_wire=True)
-    unfused = dataclasses.replace(alg, fuse_pipeline=False)
     batch = train_batch(cfg, TRAIN_ROUNDS)
-    tiles = [x for x in tree_leaves(state.x) if x.numel() >= _TILE_VALS]
+    tiles = [x.numel() for x in tree_leaves(state.x) if x.numel() >= _TILE_VALS]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()            # the main path: one packed round
     (new, metrics), ms = sync_ms(lambda: alg.round_step(state, batch))
@@ -2074,12 +2142,33 @@ def phase_train_packed(state, launches: dict) -> dict:
         launches[k] += v
     want = dict(train_attention_launches(cfg, torch.bfloat16),
                 quant_pipeline=len(tiles), unpack_bits=len(tiles))
-    check(counts == want, f"packed round launched {counts}, expected {want}")
-    check(math.isfinite(float(metrics["loss"])), "packed round's loss not finite")
+    check(counts == want, f"{cfg.name} packed round launched {counts}, expected {want}")
+    check(math.isfinite(float(metrics["loss"])), f"{cfg.name} packed round's loss not finite")
+    return alg, new, {"ms": ms, "launches": counts, "tile_leaves": len(tiles),
+                      "largest_leaf": max(tiles), "peak_bytes": peak,
+                      "loss": float(metrics["loss"])}
+
+
+def check_packed_round(alg, new, c_up, res: dict) -> dict:
+    """17b's checks of a packed round (``packed_round``: its DeployFedLT,
+    new state and summary) from a state whose EF caches were ``c_up``:
+    leaf by leaf: unpack_bits of quant_pipeline's words and
+    of pack_bits' words equal to the plain quantizer's level ints
+    (``deploy._quantize_ef``, PyTorch ops) and quant_pipeline's new cache
+    to its cache, bit for bit; the fused uplink against the unfused one
+    (the quantizer and pack_bits): words, gathered values, their agent mean
+    and the new EF cache equal bit for bit, and the round's cache the fused
+    one's; and on the largest leaf, quant_pipeline and pack_bits against
+    their plain versions word for word.  Returns the summary, completed."""
+    from repro_torch.core.deploy import _quantize_ef
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    unfused = dataclasses.replace(alg, fuse_pipeline=False)
     q = alg.quant
     bits, n_vals, dtypes = alg.wire_word_bits, 0, {}
-    largest = max(x.numel() for x in tiles)
-    for z, c, c_new in zip(tree_leaves(new.z), tree_leaves(state.c_up),
+    largest = res["largest_leaf"]
+    for z, c, c_new in zip(tree_leaves(new.z), tree_leaves(c_up),
                            tree_leaves(new.c_up)):
         if z.numel() < _TILE_VALS:
             continue
@@ -2106,7 +2195,7 @@ def phase_train_packed(state, launches: dict) -> dict:
         del g_f, nc_f, g_u, nc_u, words_f, words_u
     # the fused uplink kernel alone on the largest leaf (bf16, with the agent
     # axis): 4 B read and 2 B written per value and b/8 B of words
-    z, c = max(((z, c) for z, c in zip(tree_leaves(new.z), tree_leaves(state.c_up))),
+    z, c = max(((z, c) for z, c in zip(tree_leaves(new.z), tree_leaves(c_up))),
                key=lambda zc: zc[0].numel())
     leaf_ms = time_ms(lambda: ops.quant_pipeline(z, c, **q), iters=3, warmup=1)
     leaf_bound, _ = bound(z.numel() * (3 * z.element_size() + bits / 8), 44 * z.numel())
@@ -2114,19 +2203,17 @@ def phase_train_packed(state, launches: dict) -> dict:
           f"L={alg.levels}: {leaf_ms:.3f} ms, bound {leaf_bound:.3f} ms by bytes "
           f"({100 * leaf_bound / leaf_ms:.1f}% of it)")
     del z, c
-    out = {"ms": ms, "launches": counts, "tile_leaves": len(tiles), "values": n_vals,
-           "largest_leaf_kernel_ms": leaf_ms, "largest_leaf_bound_ms": leaf_bound,
-           "leaf_dtypes": dtypes, "largest_leaf": max(x.numel() for x in tiles),
-           "peak_bytes": peak, "loss": float(metrics["loss"])}
-    print(f"[train] packed wire (levels {alg.levels}, {bits}-bit words), one round: "
-          f"{ms:.1f} ms, launches {counts}: one quant_pipeline and one unpack_bits per "
-          f"leaf of >= {_TILE_VALS} values ({len(tiles)} leaves, {dtypes} by dtype, "
-          f"{n_vals} values, the largest {out['largest_leaf']}); leaf by leaf, "
+    out = dict(res, values=n_vals, largest_leaf_kernel_ms=leaf_ms,
+               largest_leaf_bound_ms=leaf_bound, leaf_dtypes=dtypes)
+    print(f"[train] {alg.cfg.name} packed wire (levels {alg.levels}, {bits}-bit words), "
+          f"one round: {out['ms']:.1f} ms, launches {out['launches']}: one quant_pipeline "
+          f"and one unpack_bits per leaf of >= {_TILE_VALS} values ({out['tile_leaves']} "
+          f"leaves, {dtypes} by dtype, {n_vals} values, the largest {largest}); leaf by leaf, "
           f"unpack_bits of both routes' words equal to the plain level ints and "
           f"quant_pipeline's cache to the plain one, bit for bit; fused and unfused "
           f"uplinks equal bit for bit (words, gathered values, agent means, new "
           f"caches); on the largest leaf quant_pipeline and pack_bits equal to their "
-          f"plain versions word for word; peak memory {peak / 2**30:.2f} GiB")
+          f"plain versions word for word; peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
     return out
 
 
@@ -2173,7 +2260,7 @@ def phase_train_f32(launches: dict) -> dict:
     zeroes dq, dk or dv fails that check (the control); then one round with
     compression off each way, every state leaf within TRAIN_F32_TOL."""
     from repro_torch.core.deploy import DeployFedLT
-    from repro_torch.core.pytree import tree_flatten_with_names, tree_leaves
+    from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
     cfg = train_config(n_layers=2, scan_repeats=2, dtype="float32")
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -2181,32 +2268,8 @@ def phase_train_f32(launches: dict) -> dict:
                            compress=False, backend=b) for b in ("chunked", "xla")}
     state = algs["chunked"].init(TRAIN_AGENTS, generator=gen, device=DEV)
     batch = train_batch(cfg, 0)
-    names = tree_flatten_with_names(state.y_hat)[0]
-    one = {k: t[0] for k, t in batch.items()}
-    grads, made = {}, {}
-    for b in algs:
-        ops.reset_launch_counts()
-        grads[b] = lm_grads(cfg, state.y_hat, one, b)
-        made[b] = {k: v for k, v in ops.launch_counts().items() if v}
-    fa_want = {k: v // (TRAIN_AGENTS * TRAIN_EPOCHS)
-               for k, v in train_attention_launches(cfg, torch.float32).items()}
-    check(made == {"chunked": fa_want, "xla": {}}, f"depth-2 float32 gradients launched "
-          f"{made}, expected {fa_want} with the kernels and none with plain attention")
-    gaps = grad_gaps(grads["chunked"], grads["xla"])
-    at = max(range(len(gaps)), key=gaps.__getitem__)
-    check(max(gaps) <= TRAIN_GRAD_RTOL, f"depth-2 float32 gradient of {names[at]} parts "
-          f"from plain attention's by {gaps[at]:.3e} of its largest value, over "
-          f"{TRAIN_GRAD_RTOL}")
-    controls = {}
-    for which, label in enumerate(("dq", "dk", "dv")):
-        g = grad_gaps(grads_with_zeroed(cfg, state.y_hat, one, which), grads["xla"])
-        i = max(range(len(g)), key=g.__getitem__)
-        controls[label] = {"leaf": names[i], "gap": g[i]}
-        check(g[i] > TRAIN_GRAD_RTOL, f"control with {label} zeroed passes the gradient "
-              f"check (largest gap {g[i]:.3e} at {names[i]}): it cannot see a wrong "
-              "backward")
-        del g
-    del grads
+    made = {}
+    grad = check_train_grads(cfg, state.y_hat, {k: t[0] for k, t in batch.items()})
     new = {}
     for b, alg in algs.items():
         ops.reset_launch_counts()
@@ -2225,18 +2288,55 @@ def phase_train_f32(launches: dict) -> dict:
         worst_rel = max(worst_rel, float((d / b.abs().clamp(min=atol)).max()))
         check(torch.allclose(a, b, rtol=rtol, atol=atol), f"depth-2 float32 round: a "
               f"{tuple(a.shape)} leaf parts from plain attention's by {float(d.max())}")
-    print(f"[train] {TRAIN_ARCH} at full width, depth 2, float32: lm_loss's gradient "
+    print(f"[train] {TRAIN_ARCH} at full width, depth 2, float32: one round with "
+          f"compression off each way ({want}): every state leaf within rtol {rtol} / "
+          f"atol {atol}; max abs diff {worst_abs:.3e}, max rel diff (over |plain| >= "
+          f"{atol}) {worst_rel:.3e}")
+    return dict(grad, max_abs_diff=worst_abs, max_rel_diff=worst_rel, launches=want)
+
+
+def check_train_grads(cfg, params, one: dict) -> dict:
+    """lm_loss's gradient at one agent's batch ``one`` with the kernels
+    (backend chunked; float32: flash_attention forward writing the
+    statistics, flash_attention_bwd backward reading them) against plain
+    attention differentiated by autograd (backend xla), every leaf within
+    TRAIN_GRAD_RTOL of its largest plain value, while a backward that
+    zeroes dq, dk or dv fails that check (the control)."""
+    from repro_torch.core.pytree import tree_flatten_with_names
+    from repro_torch.kernels import ops
+    names = tree_flatten_with_names(params)[0]
+    grads, made = {}, {}
+    for b in ("chunked", "xla"):
+        ops.reset_launch_counts()
+        grads[b] = lm_grads(cfg, params, one, b)
+        made[b] = {k: v for k, v in ops.launch_counts().items() if v}
+    fa_want = {k: v // (TRAIN_AGENTS * TRAIN_EPOCHS)
+               for k, v in train_attention_launches(cfg, torch.float32).items()}
+    check(made == {"chunked": fa_want, "xla": {}}, f"{cfg.name} float32 gradients launched "
+          f"{made}, expected {fa_want} with the kernels and none with plain attention")
+    gaps = grad_gaps(grads["chunked"], grads["xla"])
+    at = max(range(len(gaps)), key=gaps.__getitem__)
+    check(max(gaps) <= TRAIN_GRAD_RTOL, f"{cfg.name} float32 gradient of {names[at]} "
+          f"parts from plain attention's by {gaps[at]:.3e} of its largest value, over "
+          f"{TRAIN_GRAD_RTOL}")
+    controls = {}
+    for which, label in enumerate(("dq", "dk", "dv")):
+        g = grad_gaps(grads_with_zeroed(cfg, params, one, which), grads["xla"])
+        i = max(range(len(g)), key=g.__getitem__)
+        controls[label] = {"leaf": names[i], "gap": g[i]}
+        check(g[i] > TRAIN_GRAD_RTOL, f"control with {label} zeroed passes the gradient "
+              f"check (largest gap {g[i]:.3e} at {names[i]}): it cannot see a wrong "
+              "backward")
+        del g
+    print(f"[train] {cfg.name}, {cfg.n_layers} layers, float32: lm_loss's gradient "
           f"with the kernels ({fa_want}) against plain attention (autograd, no launch): "
           f"largest gap per leaf {gaps[at]:.3e} of the leaf's largest value at "
           f"{names[at]} (limit {TRAIN_GRAD_RTOL}); controls with the backward's output "
           f"zeroed: " + ", ".join(f"{k} {v['gap']:.3e} at {v['leaf']}"
                                   for k, v in controls.items())
-          + f" (each over the limit: the check fails them); one round with compression "
-          f"off each way ({want}): every state leaf within rtol {rtol} / atol {atol}; "
-          f"max abs diff {worst_abs:.3e}, max rel diff (over |plain| >= {atol}) "
-          f"{worst_rel:.3e}")
-    return {"max_abs_diff": worst_abs, "max_rel_diff": worst_rel, "launches": want,
-            "grad_gap": gaps[at], "grad_gap_leaf": names[at], "controls": controls}
+          + " (each over the limit: the check fails them)")
+    return {"grad_gap": gaps[at], "grad_gap_leaf": names[at], "controls": controls,
+            "grad_launches": fa_want}
 
 
 def profile_train(state) -> None:
@@ -2248,6 +2348,395 @@ def profile_train(state) -> None:
     batch = train_batch(cfg, TRAIN_ROUNDS + 1)
     phase_profile(lambda: alg.round_step(state, batch), 1,
                   f"train {TRAIN_ARCH} bf16 round (2 agents x 2 x {TRAIN_SEQ})")
+
+
+# -- phase 19: the MoE, Mamba2 and RWKV6 families -------------------------------
+
+def family_config(arch: str, **changes):
+    from repro_torch.configs import get
+    return dataclasses.replace(get(arch), **changes)
+
+
+def free_card() -> None:
+    """Drop what the last model left on the card before the next one."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class recording:
+    """Within the block, record the arguments of ``module.name``'s calls
+    with ``keep(*args, **kwargs)`` into ``calls`` (then restore it)."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep, self.calls = module, name, keep, []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            self.calls.append(self.keep(out, *args, **kwargs))
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def attention_calls():
+    """ops.attention's calls: (head dim, window, softcap) each."""
+    from repro_torch.kernels import ops
+    return recording(ops, "attention", lambda out, q, k, v, **kw: (
+        q.shape[-1], kw.get("window"), kw.get("softcap")))
+
+
+def route_calls():
+    """models/moe.py's router calls: (probabilities, top-k indices) each."""
+    from repro_torch.models import moe
+    return recording(moe, "_route", lambda out, *a, **kw: (out[1].detach(), out[2]))
+
+
+def serve_family(arch: str, changes: dict, batch: int, prompt: int, steps: int,
+                 launches: dict) -> dict:
+    """One family at full width in bf16 (random weights from a seeded
+    generator on the card): a prefill of ``batch`` x ``prompt`` tokens
+    through launch/serve.py's make_prefill_step (timed after a first one),
+    then ``steps`` greedy decode steps: logits finite, the prefill's
+    launches one flash_attention_sm90 per attention layer at the model's
+    head dim (window and softcap as configured) and nothing else, decode
+    launching nothing."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = family_config(arch, **changes)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params, init_ms = sync_ms(lambda: init_params(cfg, generator=gen, device=DEV))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=DEV)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms = sync_ms(lambda: prefill(params, {"tokens": prompts})[0])[1]
+    ops.reset_launch_counts()
+    with attention_calls() as calls:
+        (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, {"tokens": prompts}))
+    counts_p = {k: v for k, v in ops.launch_counts().items() if v}
+    n_attn = n_attention_layers(cfg)
+    want = {"flash_attention_sm90": n_attn} if n_attn else {}
+    check(counts_p == want, f"{arch} prefill launched {counts_p}, expected {want}")
+    window = cfg.sliding_window if "attn_local" in cfg.scan_unit + cfg.tail else None
+    check(calls == [(cfg.head_dim, window, cfg.attn_logit_softcap)] * n_attn,
+          f"{arch} prefill's attention calls {set(calls)}, expected {n_attn} at head dim "
+          f"{cfg.head_dim}, window {window}, softcap {cfg.attn_logit_softcap}")
+    check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits not finite")
+    check(logits.shape == (batch, cfg.vocab_size) and cache["length"] == prompt,
+          f"{arch} prefill: logits {tuple(logits.shape)}, cache length {cache['length']}")
+
+    def run_decode():
+        nonlocal logits, cache
+        out = []
+        for _ in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            out.append(tok)
+            logits, cache = decode(params, cache, tok)
+        return torch.cat(out, dim=1)
+
+    ops.reset_launch_counts()
+    generated, decode_ms = sync_ms(run_decode)
+    counts_d = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not counts_d, f"{arch} decode launched {counts_d}; it runs no kernel")
+    check(bool(torch.isfinite(logits).all()), f"{arch} decode logits not finite")
+    check(cache["length"] == prompt + steps, f"{arch} decode cache length")
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in counts_p.items():
+        launches[k] += v
+    out = dict(arch=arch, layers=cfg.n_layers, params=n_params, batch=batch, prompt=prompt,
+               init_ms=init_ms, warm_prefill_ms=warm_ms, prefill_ms=prefill_ms,
+               prefill_tok_s=batch * prompt / prefill_ms * 1e3,
+               decode_ms_per_step=decode_ms / steps,
+               decode_tok_s=batch * steps / decode_ms * 1e3, peak_bytes=peak,
+               launches=counts_p, head_dim=cfg.head_dim)
+    print(f"[families] serve {arch}, {cfg.n_layers} of {family_config(arch).n_layers} "
+          f"layers, bf16: {n_params} parameters drawn on the card in {init_ms:.1f} ms; "
+          f"prefill {batch} x {prompt}: {prefill_ms:.1f} ms ({out['prefill_tok_s']:.0f} "
+          f"tokens/s; first {warm_ms:.1f} ms), launches {counts_p or 'none'} (head dim "
+          f"{cfg.head_dim}, window {window}, softcap {cfg.attn_logit_softcap}); {steps} "
+          f"greedy decode steps: {out['decode_ms_per_step']:.3f} ms per step "
+          f"({out['decode_tok_s']:.1f} tokens/s), no launch; peak memory "
+          f"{peak / 2**30:.2f} GiB; sample {generated[0, :8].tolist()}")
+    del params, cache, logits, prompts
+    free_card()
+    if n_attn:
+        out["max_abs_err_path"] = check_family_flash(cfg, batch, prompt, window)
+    return out
+
+
+def check_family_flash(cfg, batch: int, prompt: int, window) -> float:
+    """flash_attention_sm90 at one family's prefill shape (``batch`` x
+    ``prompt`` tokens, its heads, head dim, window and softcap; seeded
+    bf16 inputs, q scaled so that the scores reach past the softcap)
+    against its plain version one batch row at a time, as time_flash_sm90
+    holds danube3's: one launch, each row within FLASH_TOL; max_abs_err."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    h, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_logit_softcap
+    q, k, v, pos = attention_inputs(batch, prompt, h, hkv, d, torch.bfloat16, 3)
+    if cap:
+        q = q * cap / 4            # scores of s.d. cap / 4: the cap bends the tail
+    kw = dict(causal=True, window=window, softcap=cap)
+    out, took = flash_route_call(fa, q, k, v, pos, pos, **kw)
+    check(took == "flash_attention_sm90", f"{cfg.name}'s prefill shape ran {took}")
+    what = (f"at {cfg.name}'s prefill shape B={batch} S={prompt} H={h}/{hkv} D={d} "
+            f"W={window} softcap={cap} bf16")
+    errs = [flash_check(out[i:i + 1], ref.flash_attention_ref(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], pos, pos, **kw), f"{what}, row {i}")
+        for i in range(batch)]
+    print(f"[families] flash_attention_sm90 {what}: each batch row within "
+          f"{FLASH_TOL[torch.bfloat16][1]} + {FLASH_TOL[torch.bfloat16][0]:.4g} |plain| of "
+          "the plain version, max_abs_err per row " + " ".join(f"{e:.3e}" for e in errs))
+    del q, k, v, out
+    free_card()
+    return max(errs)
+
+
+def route_flips(kernel, plain, group: int) -> tuple:
+    """Rows whose top-k routes differ between two runs' router calls, each
+    call's (probabilities, top-k) in order: every flip must be a tie, the
+    swapped experts' probabilities in the plain run within ROUTE_TIE (the
+    kernel's float32 rounding moved the hidden state, not a fault); returns
+    (rows to leave out of the comparison, per call: the flipped rows and,
+    under capacity dispatch, the rest of their group of ``group`` tokens,
+    whose capacity slots a flipped route can move; the flips' count;
+    the largest tie gap)."""
+    check(len(kernel) == len(plain), f"router calls {len(kernel)} vs {len(plain)}")
+    out, flips, worst = [], 0, 0.0
+    for (_, ti_k), (p_pl, ti_pl) in zip(kernel, plain):
+        k = ti_k.shape[-1]
+        rows = (ti_k != ti_pl).any(dim=-1).nonzero().flatten()
+        if rows.numel():
+            srt = p_pl[rows].sort(dim=-1, descending=True).values
+            gap = float((srt[:, :k] - srt[:, 1:k + 1]).min(dim=-1).values.max())
+            check(gap <= ROUTE_TIE, f"a route flips between the kernel and plain "
+                  f"attention at a probability gap of {gap:.3e} > {ROUTE_TIE}: not a "
+                  "rounding tie")
+            worst = max(worst, gap)
+        flips += rows.numel()
+        out.append(sorted({int(r) // group * group + i for r in rows.tolist()
+                           for i in range(group)}))
+    return out, flips, worst
+
+
+def check_family_f32(arch: str, launches: dict) -> dict:
+    """One family at full width and a cut depth in float32 (FAMILY_CHECK):
+    with the kernel (backend chunked: flash_attention, the float32 route)
+    and with plain attention (backend xla), a prefill of 1 x
+    FAMILY_CHECK_PROMPT tokens into a cache of prompt + FAMILY_CHECK_STEPS
+    slots, then that many decode steps fed the next tokens of the same
+    sequence: every logit row of both within relative L2 CHECK_REL_L2,
+    row by row (rows left out where a route flips at a rounding tie,
+    counted); for the recurrent families (Mamba2, RWKV6), each decode
+    step's logits (the SSD or WKV recurrence) against a full forward over
+    the whole sequence (their chunked scan), within CHECK_REL_L2."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode_step
+    from repro_torch.models.moe import MOE_GROUP
+    from repro_torch.models.transformer import forward, init_cache, init_params
+    cfg = family_config(arch, **FAMILY_CHECK[arch], dtype="float32")
+    s, k = FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    params = init_params(cfg, generator=gen, device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (1, s + k), generator=gen, device=DEV)
+    n_attn = n_attention_layers(cfg)
+    backends = ("chunked", "xla") if n_attn else ("chunked",)
+    recurrent = bool({"mamba2", "rwkv6"} & set(cfg.scan_unit))
+    runs, routes, made = {}, {}, {}
+    for backend in backends:
+        ops.reset_launch_counts()
+        with route_calls() as rc, torch.no_grad():
+            out = forward(params, cfg, {"tokens": toks[:, :s]},
+                          cache=init_cache(cfg, 1, s + k, device=DEV), backend=backend)
+            rows, cache = [out.logits[0]], out.cache
+            del out
+            decode = make_decode_step(cfg, backend)
+            for j in range(k):
+                logits, cache = decode(params, cache, toks[:, s + j:s + j + 1])
+                rows.append(logits)
+            if recurrent:
+                full = forward(params, cfg, {"tokens": toks}, backend=backend).logits[0]
+        made[backend] = {n: v for n, v in ops.launch_counts().items() if v}
+        runs[backend], routes[backend] = torch.cat(rows), rc
+        del rows, cache
+        if recurrent:
+            step_err = max(rel_l2(runs[backend][s + j], full[s + j]) for j in range(k))
+            check(step_err <= CHECK_REL_L2, f"{arch} float32, backend {backend}: decode "
+                  f"steps vs the full forward's rows, rel L2 {step_err:.3e} > "
+                  f"{CHECK_REL_L2}")
+            runs[backend + "_step_err"] = step_err
+            del full
+    want = 2 if recurrent else 1
+    expect = {"chunked": {"flash_attention": want * n_attn} if n_attn else {}, "xla": {}}
+    check(made == {b: expect[b] for b in backends}, f"{arch} float32 launched {made}, "
+          f"expected {expect}")
+    for n, v in made["chunked"].items():
+        launches[n] += v
+    out = {"arch": arch, "layers": cfg.n_layers, "launches": made["chunked"]}
+    check(all(bool(torch.isfinite(r).all()) for r in (runs[b] for b in backends)),
+          f"{arch} float32 logits not finite")
+    if n_attn:
+        keep = torch.ones(s + k, dtype=torch.bool, device=DEV)
+        flips = worst = 0
+        if cfg.n_experts:
+            group = min(MOE_GROUP, s) if cfg.moe_dispatch == "capacity" else 1
+            left_out, flips, worst = route_flips(routes["chunked"], routes["xla"], group)
+            n_calls = len(left_out) // (k + 1)       # router calls per forward
+            for c, rws in enumerate(left_out):
+                pos = torch.tensor(rws, dtype=torch.long, device=DEV)
+                if c < n_calls:                      # the prefill: row = position
+                    keep[pos[pos < s]] = False
+                elif rws:                            # a decode step's one row
+                    keep[s + (c - n_calls) // n_calls] = False
+        err = max_row_rel_l2(runs["chunked"][keep], runs["xla"][keep])
+        check(err <= CHECK_REL_L2, f"{arch} float32: kernel vs plain attention logits "
+              f"rel L2 {err:.3e} > {CHECK_REL_L2}")
+        out.update(rel_l2=err, route_flips=flips, rows_left_out=int((~keep).sum()),
+                   worst_tie_gap=worst)
+    if recurrent:
+        out["decode_vs_full_rel_l2"] = max(runs[b + "_step_err"] for b in backends)
+    print(f"[families] {arch}, {cfg.n_layers} layers at full width, float32, prefill 1 x "
+          f"{s} + {k} decode steps: "
+          + (f"kernel ({made['chunked']}) vs plain attention (none): every logit row "
+             f"within rel L2 {out['rel_l2']:.3e} <= {CHECK_REL_L2}"
+             + (f", {out['route_flips']} route flips at rounding ties (largest gap "
+                f"{out['worst_tie_gap']:.2e} <= {ROUTE_TIE}), {out['rows_left_out']} rows "
+                "left out" if cfg.n_experts else "") + "; " if n_attn else "no launch; ")
+          + (f"decode steps (the recurrence) vs a full forward over {s + k} tokens (the "
+             f"chunked scan): rel L2 {out['decode_vs_full_rel_l2']:.3e} <= "
+             f"{CHECK_REL_L2}" if recurrent else "no recurrence to hold against the scan"))
+    del params, runs, routes
+    free_card()
+    return out
+
+
+def train_family(arch: str, changes: dict, gamma: float, launches: dict,
+                 packed: bool = False) -> dict:
+    """DeployFedLT on one family at full width in bf16 (the launcher's
+    settings and batches but γ: TRAIN_AGENTS agents x TRAIN_BATCH x
+    TRAIN_SEQ, TRAIN_EPOCHS epochs, ρ 10, L=255, FAMILY_TRAIN_ROUNDS
+    rounds): every loss finite and the last below the first, each round's
+    launches the attention layers' (train_attention_launches) and nothing
+    else; with ``packed``, then one packed round from the last state,
+    checked as 17b.  Returns the summary."""
+    from repro_torch.core.deploy import DeployFedLT
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    cfg = family_config(arch, **changes)
+    alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=gamma, rho=10.0)
+    torch.cuda.reset_peak_memory_stats()
+    state = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(0),
+                     device=DEV)
+    n_params = sum(x.numel() for x in tree_leaves(state.y_hat))
+    want = train_attention_launches(cfg, torch.bfloat16)
+    losses, ms = [], []
+    for r in range(FAMILY_TRAIN_ROUNDS):
+        batch = train_batch(cfg, r)
+        ops.reset_launch_counts()                # the main path: one round
+        (state, metrics), t = sync_ms(lambda: alg.round_step(state, batch))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        check(counts == want, f"{arch} training round {r} launched {counts}, "
+              f"expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+        del batch, metrics
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch} training losses {losses}: not finite, or the last not below the first")
+    out = dict(arch=arch, layers=cfg.n_layers, params=n_params, gamma=gamma,
+               losses=losses, ms_per_round=ms, launches_per_round=want, peak_bytes=peak)
+    print(f"[families] train {arch}, {cfg.n_layers} of {family_config(arch).n_layers} "
+          f"layers, bf16, {n_params} parameters, {TRAIN_AGENTS} agents x batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_EPOCHS} epochs a round, γ {gamma}: "
+          "losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; ms per round "
+          + ", ".join(f"{x:.1f}" for x in ms) + f"; launches per round {want or 'none'}; "
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    if packed:       # the old state goes with the round but its EF caches
+        c_up = state.c_up
+        alg, state, res = packed_round(state, launches, cfg)
+        out["packed"] = check_packed_round(alg, state, c_up, res)
+    return out
+
+
+#: rwkv6-3b at 16 layers at the launcher's γ: (width, dtype, sequence);
+#: 1792 is the widest whose float32 state and round fit the card (two
+#: states of 8 model copies)
+RWKV_GAMMA_RUNS = ((512, "float32", 256), (512, "float32", 2048),
+                   (1024, "float32", 256), (1024, "bfloat16", 2048),
+                   (1024, "float32", 2048), (1792, "bfloat16", 2048),
+                   (1792, "float32", 2048), (2560, "bfloat16", 2048))
+
+
+def rwkv6_gamma_curves(gamma: float = 0.02) -> dict:
+    """``python3 chip_smoke.py --rwkv6-gamma``: rwkv6-3b at 16 of 32 layers
+    through DeployFedLT at ``gamma`` as phase 19e runs it (2 agents x
+    batch 2, TRAIN_EPOCHS epochs, ρ 10, FAMILY_TRAIN_ROUNDS rounds) at each
+    (width, dtype, sequence) of RWKV_GAMMA_RUNS, d_ff scaled with the
+    width: each run's losses, printed and returned, not gated."""
+    from repro_torch.core.deploy import DeployFedLT
+    out = {}
+    for width, dtype, seq in RWKV_GAMMA_RUNS:
+        base = family_config("rwkv6-3b")
+        cfg = dataclasses.replace(base, n_layers=16, scan_repeats=16, d_model=width,
+                                  d_ff=base.d_ff * width // base.d_model, dtype=dtype)
+        alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=gamma, rho=10.0)
+        state = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(0),
+                         device=DEV)
+        losses = []
+        for r in range(FAMILY_TRAIN_ROUNDS):
+            state, metrics = alg.round_step(state, train_batch(cfg, r, seq))
+            losses.append(float(metrics["loss"]))
+        out[f"{width} {dtype} {seq}"] = losses
+        print(f"[rwkv6-gamma] rwkv6-3b, 16 layers, width {width}, {dtype}, seq {seq}, "
+              f"γ {gamma}: "
+              "losses " + ", ".join(f"{x:.6f}" for x in losses), flush=True)
+        del state, metrics
+        free_card()
+    return out
+
+
+def phase_families(launches: dict) -> dict:
+    """19: serve mixtral-8x7b (depth 8), zamba2-2.7b, rwkv6-3b and grok-1-314b
+    (depth 1) at full width in bf16, hold mixtral, zamba2 and rwkv6 at a cut
+    depth in float32 (kernel vs plain attention, decode's recurrence vs the
+    chunked scan), then train mixtral (depth 1), zamba2 and rwkv6 (depth 16)
+    through DeployFedLT, one packed mixtral round, and zamba2's float32
+    gradient through the kernels.  Counts are zeroed before each run."""
+    out = {"serve": {}, "f32": {}, "train": {}}
+    for arch, changes, batch, prompt, steps in FAMILY_SERVE:
+        out["serve"][arch] = serve_family(arch, changes, batch, prompt, steps, launches)
+        if arch in FAMILY_CHECK:
+            out["f32"][arch] = check_family_f32(arch, launches)
+        lap(f"19 {arch}")
+    for arch, changes, gamma in FAMILY_TRAIN:
+        out["train"][arch] = train_family(arch, changes, gamma, launches,
+                                          packed=arch == "mixtral-8x7b")
+        free_card()
+        lap(f"19e train {arch}")
+    cfg = family_config("zamba2-2.7b", **FAMILY_CHECK["zamba2-2.7b"], dtype="float32")
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, generator=torch.Generator(device=DEV).manual_seed(2),
+                         device=DEV)
+    batch = train_batch(cfg, 0)
+    out["train"]["zamba2-2.7b"]["f32_grad"] = check_train_grads(
+        cfg, params, {k: t[0] for k, t in batch.items()})
+    del params, batch
+    free_card()
+    lap("19e train zamba2-2.7b")
+    return out
 
 
 # -- phase 18: the benchmark harness -------------------------------------------
@@ -2401,6 +2890,12 @@ def phase_serve(launches: dict) -> dict:
 def rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm())
+
+
+def max_row_rel_l2(a, b) -> float:
+    """The largest relative L2 error of a row of ``a`` against ``b``'s."""
+    a, b = a.double(), b.double()
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1)).max())
 
 
 def check_serve_f32(launches: dict) -> float:
@@ -3321,6 +3816,9 @@ def main() -> int:
 
     atexit.register(stop_children)
     repro_torch.set_float32_precision()
+    if sys.argv[1:] == ["--rwkv6-gamma"]:
+        print(json.dumps(rwkv6_gamma_curves()))
+        return 0
     rng = np.random.default_rng(0)
     t_start = PHASE_S["_t"] = time.perf_counter()
     smi = phase_build()
@@ -3402,6 +3900,7 @@ def main() -> int:
     train["f32"] = phase_train_f32(launches)          # zeroed per round
     torch.cuda.empty_cache()
     lap("17c train float32")
+    families = phase_families(launches)   # zeroed per run; laps of its own
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
@@ -3440,6 +3939,7 @@ def main() -> int:
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[train] summary: {json.dumps(train)}")
+    print(f"[families] summary: {json.dumps(families)}")
     print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[resume] summary: {json.dumps(resume)}")
     print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")

@@ -25,6 +25,8 @@ from .core.fedlt import FedLTState
 from .core.pytree import tree_map
 from .device import resolve_device
 from .models.attention import KVCache, QuantKVCache
+from .models.mamba2 import SSMCache
+from .models.rwkv6 import RWKVCache
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -97,7 +99,7 @@ def model_params_from_jax(params, device=None):
     return data_from_numpy(params, device)
 
 
-_CACHE_TYPES = {KVCache._fields: KVCache, QuantKVCache._fields: QuantKVCache}
+_CACHE_TYPES = {c._fields: c for c in (KVCache, QuantKVCache, SSMCache, RWKVCache)}
 
 
 def _length(x) -> int:
@@ -109,8 +111,9 @@ def _length(x) -> int:
 
 def kv_cache_from_jax(cache, device=None):
     """A serving cache tree (``{"scan", "tail", "length"}`` of the JAX
-    package's ``KVCache``/``QuantKVCache``, arrays as numpy) as the port's
-    caches on ``device``; every ``length`` becomes a Python int."""
+    package's ``KVCache``/``QuantKVCache``/``SSMCache``/``RWKVCache``,
+    arrays as numpy) as the port's caches on ``device``; every ``length``
+    becomes a Python int."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -144,6 +147,8 @@ def kv_cache_to_numpy(cache):
             return node._replace(**{f: _array(getattr(node, f))
                                     for f in node._fields if f != "length"},
                                  length=length(node.length, node.pos))
+        if isinstance(node, (SSMCache, RWKVCache)):
+            return type(node)(*map(_array, node))
         if isinstance(node, (tuple, list)):
             return type(node)(conv(c) for c in node)
         return _array(node)

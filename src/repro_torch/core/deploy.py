@@ -190,7 +190,8 @@ class DeployFedLT:
         if agent_replicate_spec is not None:
             raise NotImplementedError(
                 "agent_replicate_spec shards the agent axis over a mesh: it needs the "
-                "port's launch/ slice (mesh.py, sharding.py), ROADMAP Queue 1 item 7")
+                "port's launch/ slice (mesh.py, sharding.py), ROADMAP Queue 1, "
+                "the launch/ item")
         surv = None
         if survivors is not None:
             surv = torch.as_tensor(survivors, dtype=torch.bool,

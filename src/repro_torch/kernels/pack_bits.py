@@ -60,6 +60,19 @@ def check_cuda_size(n: int) -> None:
         raise ValueError(f"{n} values exceed the kernels' int sizes")
 
 
+def _as_uint32(flat):
+    """Integer values as uint32 words (two's complement for negatives, as
+    ``ref.to_uint32``): through int32 where the dtype fits in it, so a
+    leaf of 9.4e8 uint8 levels takes 4 bytes a value on the way, not the
+    int64 detour's 16."""
+    if flat.dtype == torch.uint32:
+        return flat
+    if flat.dtype in (torch.uint8, torch.int8, torch.int16, torch.int32):
+        return flat.to(torch.int32).view(torch.uint32)
+    from .ref import as_int64, to_uint32  # lazy: ref imports this module
+    return to_uint32(as_int64(flat))
+
+
 def pack_bits(x, bits: int):
     """Pack ``x`` (any shape, integer values < 2**bits) into uint32 words.
 
@@ -72,11 +85,7 @@ def pack_bits(x, bits: int):
     if x.device.type == "cpu":
         from .ref import pack_bits_ref  # lazy: ref imports this module
         return pack_bits_ref(x, bits)
-    from .ref import as_int64, to_uint32
-    flat = x.reshape(-1)
-    if flat.dtype != torch.uint32:
-        flat = to_uint32(as_int64(flat))
-    flat = flat.contiguous()
+    flat = _as_uint32(x.reshape(-1)).contiguous()
     n = flat.numel()
     check_cuda_size(n)
     tiles = n_tiles(n)

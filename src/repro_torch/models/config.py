@@ -21,8 +21,6 @@ Layer kinds:
 Every attention/ssm kind is followed by its MLP (or MoE) inside the block,
 except "rwkv6" which uses its own channel-mix, and "mamba2" which is a
 standalone block (Zamba2-style backbones alternate pure Mamba2 blocks).
-The port's transformer runs the attention kinds; the others wait for
-later slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 

@@ -1,15 +1,14 @@
 """Decoder assembly: embeddings → layer stack → head, + LM loss.
 
-Counterpart of ``repro.models.transformer`` for the attention kinds
-(``attn``, ``attn_local``, ``shared_attn``) and every ``pos_embed``.  The
-parameter and cache trees are the JAX package's: each ``scan_unit`` slot
-is stacked over ``scan_repeats`` along a leading axis, then comes the
-``tail``.  JAX lowers the stack as one ``lax.scan``; here it is a Python
-loop over the repeats.  Without a cache and with autograd recording, each
-scan unit (or each group of ``cfg.remat_group`` units, JAX's two-level
-remat) runs under ``torch.utils.checkpoint``, as JAX wraps the scan body
-in ``jax.checkpoint``: its activations are recomputed in the backward,
-attention's forward kernel included.  "shared_attn" blocks read one shared
+Counterpart of ``repro.models.transformer`` for every layer kind and
+``pos_embed``.  The parameter and cache trees are the JAX package's: each
+``scan_unit`` slot is stacked over ``scan_repeats`` along a leading axis,
+then comes the ``tail``.  JAX lowers the stack as one ``lax.scan``; here
+it is a Python loop over the repeats.  Without a cache and with autograd
+recording, each scan unit (or each group of ``cfg.remat_group`` units,
+JAX's two-level remat) runs under ``torch.utils.checkpoint``, as JAX wraps
+the scan body in ``jax.checkpoint``: its activations are recomputed in the
+backward, attention's forward kernel included.  "shared_attn" blocks read one shared
 parameter set and keep a cache of their own per occurrence.
 
 Modes:
@@ -18,9 +17,11 @@ Modes:
   * decode  — ``forward(..., cache=filled)`` with S=1 tokens → logits, cache
     (the given cache's buffers are updated in place and returned)
 
-MoE, Mamba2 and RWKV6 blocks wait for later slices (ROADMAP Queue 1) and
-raise ``NotImplementedError``, and so does ``lm_loss`` on a config that
-holds one.
+Every layer kind of the catalog runs: the attention kinds with their MLP
+or MoE (``models/moe.py``, whose load-balance loss each layer adds to
+``aux_loss``), ``mamba2`` (``models/mamba2.py``) and ``rwkv6``
+(``models/rwkv6.py``), whose caches (``SSMCache``, ``RWKVCache``) are
+updated in place as the attention caches are.
 """
 from __future__ import annotations
 
@@ -37,24 +38,12 @@ from .config import ModelConfig
 from .layers import (embed, init_embed, init_mlp, init_normal, init_rms_norm,
                      mlp, mrope_angles, rms_norm, rope_angles,
                      sinusoidal_positions)
+from .mamba2 import init_mamba2, init_ssm_cache, mamba2_block
+from .moe import init_moe, moe
+from .rwkv6 import (init_rwkv6, init_rwkv_cache, rwkv6_channel_mix,
+                    rwkv6_time_mix)
 
 ATTN_KINDS = ("attn", "attn_local", "shared_attn")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's transformer runs the attention "
-        "kinds (attn, attn_local, shared_attn); see ROADMAP Queue 1")
-
-
-def _check_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise before any work when ``cfg`` holds a block of a later slice."""
-    if cfg.n_experts:
-        raise _not_ported(f"{what} on an MoE config (models/moe.py)")
-    for kind in cfg.scan_unit + cfg.tail:
-        if kind not in ATTN_KINDS:
-            raise _not_ported(f"{what} on a config with {kind} blocks "
-                              f"(models/{kind}.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -62,19 +51,24 @@ def _check_ported(cfg: ModelConfig, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_block(cfg: ModelConfig, kind: str, dtype, kw, lead=()):
+    dev = kw["device"]
+    norm = lambda: init_rms_norm(cfg.d_model, device=dev, lead=lead)
     if kind in ("attn", "attn_local"):
+        p = {"ln1": norm(), "attn": init_attention(cfg, dtype, lead=lead, **kw),
+             "ln2": norm()}
         if cfg.n_experts:
-            raise _not_ported("the MoE block (models/moe.py)")
-        dev = kw["device"]
-        return {"ln1": init_rms_norm(cfg.d_model, device=dev, lead=lead),
-                "attn": init_attention(cfg, dtype, lead=lead, **kw),
-                "ln2": init_rms_norm(cfg.d_model, device=dev, lead=lead),
-                "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype,
-                                lead=lead, **kw)}
+            p["moe"] = init_moe(cfg, dtype, lead=lead, **kw)
+        else:
+            p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype,
+                                lead=lead, **kw)
+        return p
+    if kind == "mamba2":
+        return {"ln1": norm(), "mamba": init_mamba2(cfg, dtype, lead=lead, **kw)}
+    if kind == "rwkv6":
+        return {"ln1": norm(), "ln2": norm(),
+                "rwkv": init_rwkv6(cfg, dtype, lead=lead, **kw)}
     if kind == "shared_attn":
         return {}                    # parameters live in params["shared_attn"]
-    if kind in ("mamba2", "rwkv6"):
-        raise _not_ported(f"the {kind} block (models/{kind}.py)")
     raise ValueError(kind)
 
 
@@ -112,8 +106,10 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
         w = s_max
     elif kind == "attn_local":
         w = min(cfg.sliding_window or s_max, s_max)
-    elif kind in ("mamba2", "rwkv6"):
-        raise _not_ported(f"the {kind} cache")
+    elif kind == "mamba2":
+        return init_ssm_cache(batch, cfg, dtype, device)
+    elif kind == "rwkv6":
+        return init_rwkv_cache(batch, cfg, dtype, device)
     else:
         raise ValueError(kind)
     return init_kv_cache(batch, w, cfg.n_kv_heads, cfg.head_dim, dtype,
@@ -144,23 +140,38 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None,
 
 def _apply_block(params, cfg, kind, x, rope_cs, rope_cs_local, positions,
                  cache, shared_params, backend):
-    """One layer; its cache's buffers are updated in place.  Returns x."""
-    if kind not in ATTN_KINDS:
-        raise _not_ported(f"the {kind} block (models/{kind}.py)")
-    p = shared_params if kind == "shared_attn" else params
-    window = cfg.sliding_window if kind == "attn_local" else None
-    cs = rope_cs_local if (kind == "attn_local"
-                           and rope_cs_local is not None) else rope_cs
-    h, _ = attention_block(
-        p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), rope_cs=cs,
-        positions=positions, window=window, cache=cache, backend=backend)
-    x = x + h
-    if kind != "shared_attn":
-        if cfg.n_experts:
-            raise _not_ported("the MoE block (models/moe.py)")
-        h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
-        x = x + mlp(params["mlp"], h2, cfg.mlp_act, cfg.mlp_gated)
-    return x
+    """One layer; its cache's buffers are updated in place.  Returns
+    (x, aux): aux is the MoE layer's load-balance loss, else None."""
+    aux = None
+    if kind in ATTN_KINDS:
+        p = shared_params if kind == "shared_attn" else params
+        window = cfg.sliding_window if kind == "attn_local" else None
+        cs = rope_cs_local if (kind == "attn_local"
+                               and rope_cs_local is not None) else rope_cs
+        h, _ = attention_block(
+            p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), rope_cs=cs,
+            positions=positions, window=window, cache=cache, backend=backend)
+        x = x + h
+        if kind != "shared_attn":
+            h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
+            if cfg.n_experts:
+                h2, aux = moe(params["moe"], h2, cfg)
+            else:
+                h2 = mlp(params["mlp"], h2, cfg.mlp_act, cfg.mlp_gated)
+            x = x + h2
+        return x, aux
+    if kind == "mamba2":
+        h, _ = mamba2_block(params["mamba"], cfg,
+                            rms_norm(x, params["ln1"], cfg.norm_eps), cache)
+        return x + h, aux
+    if kind == "rwkv6":
+        h, _ = rwkv6_time_mix(params["rwkv"], cfg,
+                              rms_norm(x, params["ln1"], cfg.norm_eps), cache)
+        x = x + h
+        h2, _ = rwkv6_channel_mix(params["rwkv"], cfg,
+                                  rms_norm(x, params["ln2"], cfg.norm_eps), cache)
+        return x + h2, aux
+    raise ValueError(kind)
 
 
 class ForwardOut(NamedTuple):
@@ -231,22 +242,30 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
     g = max(1, min(cfg.remat_group, cfg.scan_repeats)) if remat else 1
     g = g if cfg.scan_repeats % g == 0 else 1
 
+    aux_total = torch.zeros((), device=dev)
+
     def run(x, r0):
+        aux_sum = torch.zeros((), device=dev)
         for r in range(r0, r0 + g):
             for i, kind in enumerate(cfg.scan_unit):
                 c = None if cache is None else layer_cache(cache["scan"][i], r)
-                x = _apply_block(None if kind == "shared_attn" else units[r][i], cfg,
-                                 kind, x, rope_cs, rope_cs_local, positions, c, shared,
-                                 backend)
-        return x
+                x, aux = _apply_block(None if kind == "shared_attn" else units[r][i],
+                                      cfg, kind, x, rope_cs, rope_cs_local, positions,
+                                      c, shared, backend)
+                if aux is not None:
+                    aux_sum = aux_sum + aux
+        return x, aux_sum
 
     for r0 in range(0, cfg.scan_repeats, g):
-        x = (checkpoint(run, x, r0, use_reentrant=False, preserve_rng_state=False)
-             if remat else run(x, r0))
+        x, aux = (checkpoint(run, x, r0, use_reentrant=False, preserve_rng_state=False)
+                  if remat else run(x, r0))
+        aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail):
         c = None if new_cache is None else new_cache["tail"][i]
-        x = _apply_block(params["tail"][i], cfg, kind, x, rope_cs,
-                         rope_cs_local, positions, c, shared, backend)
+        x, aux = _apply_block(params["tail"][i], cfg, kind, x, rope_cs,
+                              rope_cs_local, positions, c, shared, backend)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]
@@ -256,15 +275,14 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
         # the layers wrote into the buffers in place; every length moves on
         new_cache = tree_map(lambda a: start + s if isinstance(a, int) else a,
                              new_cache)
-    return ForwardOut(logits=logits, cache=new_cache,
-                      aux_loss=torch.zeros((), device=dev))
+    return ForwardOut(logits=logits, cache=new_cache, aux_loss=aux_total)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, backend: str = "chunked",
             aux_coeff: float = 0.01):
     """Next-token cross-entropy in float32; labels −1 are ignored.  Plus
-    ``aux_coeff``·aux_loss (0 for the blocks ported so far)."""
-    _check_ported(cfg, "lm_loss")
+    ``aux_coeff``·aux_loss (the MoE layers' load-balance losses; 0
+    without experts)."""
     out = forward(params, cfg, batch, backend=backend)
     logits = out.logits[:, :-1].to(torch.float32)
     labels = batch["labels"][:, 1:]

@@ -81,6 +81,98 @@ def test_lm_loss_and_gradient_match_jax():
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=RTOL, atol=ATOL)
 
 
+#: the other families' smoke variants (float32, one scan unit; d 256):
+#: MoE with dense and with capacity dispatch, Mamba2 with a shared
+#: attention block, RWKV6; sequences of 64 tokens, one chunk (ROADMAP
+#: Queue 3: shorter prompts visit no key in the reference's chunked attention)
+LATER = ["grok-1-314b", "mixtral-8x7b", "mixtral-8x7b-capacity", "zamba2-2.7b",
+         "rwkv6-3b"]
+LATER_SEQ = 64
+
+
+def _later_configs(name):
+    import dataclasses
+    from repro_torch.configs import ARCHS, smoke_variant
+    base, kw = name, {}
+    if name == "mixtral-8x7b-capacity":
+        base, kw = "mixtral-8x7b", dict(name=name, moe_dispatch="capacity")
+    return (dataclasses.replace(jax_smoke(JAX_ARCHS[base]), **kw),
+            dataclasses.replace(smoke_variant(ARCHS[base]), **kw))
+
+
+def _later_batch(cfg_j, seed: int, n_agents: int = 2, batch: int = 2):
+    per = [jax_make_batch(cfg_j, jax.random.fold_in(jax.random.PRNGKey(seed), i),
+                          batch, LATER_SEQ) for i in range(n_agents)]
+    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *per)
+
+
+def _close_leaf(ours, theirs) -> float:
+    """One leaf within rtol 1e-5 / atol 1e-6 scaled by max(1, its largest
+    |value|); returns the largest difference over that scale.  A leaf whose
+    values reach ~20 (rwkv6's bonus_u gradient) or ~6 (its decay_base)
+    carries float32 rounding of that size: against a float64 run of the
+    port, both packages' float32 gradients sit within 2e-6 of each leaf's
+    largest value (measured on the CPU for rwkv6 and grok)."""
+    theirs = np.asarray(theirs)
+    scale = max(1.0, float(np.abs(theirs).max()))
+    np.testing.assert_allclose(ours, theirs, rtol=RTOL, atol=ATOL * scale)
+    return float(np.abs(ours - theirs).max()) / scale
+
+
+@pytest.mark.parametrize("name", LATER)
+def test_lm_loss_and_gradient_match_jax_for_moe_ssm_and_rwkv(name):
+    """lm_loss (with the MoE layers' aux term, aux_coeff 0.01) and every
+    parameter's gradient against jax.value_and_grad of the reference's
+    lm_loss (jit): rtol 1e-5 on the loss and the aux loss, rtol 1e-5 /
+    atol 1e-6·max(1, max |leaf|) on each gradient leaf (``_close_leaf``)."""
+    cfg_j, cfg_t = _later_configs(name)
+    pj = jtf.init_params(jax.random.PRNGKey(0), cfg_j)
+    batch_j = {k: v[0] for k, v in _later_batch(cfg_j, 3).items()}
+    batch_j["labels"] = batch_j["labels"].at[0, 5].set(-1)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jtf.lm_loss(p, cfg_j, batch_j)))(pj)
+    aux_j = jax.jit(lambda p: jtf.forward(p, cfg_j, batch_j).aux_loss)(pj)
+    pt = tree_map(lambda t: t.requires_grad_(),
+                  convert.model_params_from_jax(np_tree(pj), device="cpu"))
+    batch_t = _port_batch(batch_j)
+    loss_t = ttf.lm_loss(pt, cfg_t, batch_t)
+    grads_t = torch.autograd.grad(loss_t, tree_leaves(pt))
+    aux_t = ttf.forward(pt, cfg_t, batch_t).aux_loss.detach()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=RTOL)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=RTOL)
+    assert (float(aux_j) > 0) == bool(cfg_t.n_experts)
+    leaves_j = jax.tree_util.tree_leaves(grads_j)
+    assert len(leaves_j) == len(grads_t)
+    worst = max(_close_leaf(gt.numpy(), gj) for gj, gt in zip(leaves_j, grads_t))
+    print(f"{name}: loss {float(loss_t.detach()):.6f}, aux {float(aux_t):.6f}, "
+          f"largest grad diff {worst:.2e} of max(1, its leaf's largest |value|)")
+
+
+@pytest.mark.parametrize("name", LATER)
+def test_round_step_matches_jax_for_moe_ssm_and_rwkv(name):
+    """One DeployFedLT.round_step with compression off from the JAX state,
+    against jax.jit(round_step): every state leaf held by ``_close_leaf``,
+    the loss within rtol 1e-5."""
+    cfg_j, cfg_t = _later_configs(name)
+    kw = dict(n_epochs=2, gamma=0.05, rho=10.0, compress=False)
+    alg_j, alg_t = JaxDeploy(cfg=cfg_j, **kw), DeployFedLT(cfg=cfg_t, **kw)
+    state = alg_j.init(jax.random.PRNGKey(0), 2)
+    batch = _later_batch(cfg_j, 10)
+    s1_j, m_j = jax.jit(alg_j.round_step)(state, batch)
+    s1_t, m_t = alg_t.round_step(convert.deploy_state_from_jax(np_tree(state), "cpu"),
+                                 _port_batch(batch))
+    port = convert.deploy_state_to_numpy(s1_t)
+    worst = 0.0
+    for field in ("x", "z", "c_up", "y_hat", "c_down"):
+        ours = jax.tree_util.tree_leaves(getattr(port, field))
+        theirs = jax.tree_util.tree_leaves(getattr(s1_j, field))
+        assert len(ours) == len(theirs)
+        worst = max([worst] + [_close_leaf(a, b) for a, b in zip(ours, theirs)])
+    np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]), rtol=RTOL)
+    assert int(port.k) == int(s1_j.k)
+    print(f"{name}: largest state diff {worst:.2e} of max(1, its leaf's largest |value|)")
+
+
 def test_lm_loss_without_remat_is_the_same():
     """remat only changes what is kept for the backward, not the numbers."""
     pt = ttf.init_params(CFG_T, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -378,3 +470,54 @@ def test_bf16_round_split_from_jax(quant):
     print(f"L={levels}: uplink ints part from JAX's bf16 arithmetic at {split} "
           f"coordinates, by up to {worst} levels; ŷ within {gap / delta:.3f}·Δ of "
           f"JAX's (limit {limit / delta:.3f}·Δ, e = {e:.3f})")
+
+
+def fedlt_losses(arch: str, width: int, layers: int, gamma: float, rounds: int,
+                 dtype: str = "float32", seq: int = 256) -> list:
+    """Both packages' DeployFedLT round losses on ``arch`` cut to ``width``
+    and ``layers`` (in ``dtype``, d_ff scaled with the width; 2 agents x batch 2
+    x ``seq`` tokens, 2 epochs, ρ 10, the default quantizer) from JAX's
+    state and batches: [(JAX's loss, the port's)] per round.  JAX runs all
+    its rounds first, then the port from the same initial state, so one
+    package's state is held at a time."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    base = JAX_ARCHS[arch]
+    kw = dict(d_model=width, n_layers=layers, scan_repeats=layers, dtype=dtype,
+              d_ff=base.d_ff * width // base.d_model)
+    cfg_j, cfg_t = dataclasses.replace(base, **kw), dataclasses.replace(ARCHS[arch], **kw)
+    akw = dict(n_epochs=2, gamma=gamma, rho=10.0)
+    alg_j, alg_t = JaxDeploy(cfg=cfg_j, **akw), DeployFedLT(cfg=cfg_t, **akw)
+    state = alg_j.init(jax.random.PRNGKey(0), 2)
+    start = np_tree(state)
+    step = jax.jit(alg_j.round_step)
+    batches, ours, theirs = [], [], []
+    for r in range(rounds):
+        per = [jax_make_batch(cfg_j, jax.random.fold_in(jax.random.PRNGKey(100 + r), i),
+                              2, seq) for i in range(2)]
+        batches.append(np_tree(jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *per)))
+        state, m = step(state, batches[-1])
+        theirs.append(float(m["loss"]))
+        print(f"JAX round {r}: loss {theirs[-1]:.6f}", flush=True)
+    del state, step
+    state = convert.deploy_state_from_jax(start, "cpu")
+    del start
+    for r, b in enumerate(batches):
+        state, m = alg_t.round_step(state, _port_batch(b))
+        ours.append(float(m["loss"]))
+        print(f"port round {r}: loss {ours[-1]:.6f}", flush=True)
+    return list(zip(theirs, ours))
+
+
+if __name__ == "__main__":
+    # DeployFedLT's loss curve in both packages at a cut width and depth:
+    #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_deploy.py \
+    #       rwkv6-3b 1024 16 0.02 3 [dtype [seq]]
+    import sys
+    a = sys.argv[1:]
+    dtype, seq = (a[5:] + ["float32"])[0], int((a[6:] + ["256"])[0])
+    pairs = fedlt_losses(a[0], int(a[1]), int(a[2]), float(a[3]), int(a[4]), dtype, seq)
+    print(f"{a[0]} width {a[1]}, {a[2]} layers, γ {a[3]}, {dtype}, seq {seq}: JAX "
+          + " -> ".join(f"{j:.6f}" for j, _ in pairs) + "; port "
+          + " -> ".join(f"{t:.6f}" for _, t in pairs) + "; largest rel gap "
+          + f"{max(abs(t - j) / abs(j) for j, t in pairs):.2e}")

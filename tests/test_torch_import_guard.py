@@ -36,7 +36,7 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules
                if sys.modules[k] is not None)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -45,7 +45,10 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 84     # every module of the port
+    names = out.stdout.split()
+    assert len(names) >= 87                  # every module of the port
+    for mod in ("moe", "mamba2", "rwkv6"):   # the MoE, Mamba2 and RWKV6 families
+        assert f"repro_torch.models.{mod}" in names
     for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
                 "models", "configs", "launch", "examples"):
         assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped

@@ -21,6 +21,7 @@ from repro.models import attention as jatt
 from repro.models import layers as jl
 from repro_torch.configs import ARCHS, get, smoke_variant
 from repro_torch.convert import kv_cache_to_numpy, model_params_from_jax
+from repro_torch.core.pytree import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as tl
@@ -234,12 +235,9 @@ def test_attention_block_with_cache_matches_jax(quant, prompt):
 
 def test_init_params_has_the_reference_tree():
     from repro.models import transformer as jtf
-    for name in ("gemma3-27b", "granite-20b", "qwen2-vl-7b", "zamba2-2.7b"):
+    for name in ("gemma3-27b", "granite-20b", "qwen2-vl-7b", "zamba2-2.7b",
+                 "mixtral-8x7b", "grok-1-314b", "rwkv6-3b"):
         cfg_j, cfg_t = jax_smoke(JAX_ARCHS[name]), smoke_variant(ARCHS[name])
-        if name == "zamba2-2.7b":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                ttf.init_params(cfg_t, device="cpu")
-            continue
         pj = jax.eval_shape(lambda: jtf.init_params(jax.random.PRNGKey(0), cfg_j))
         pt = ttf.init_params(cfg_t, generator=torch.Generator().manual_seed(0),
                              device="cpu")
@@ -259,22 +257,39 @@ def test_init_params_bf16_norms_stay_float32():
     assert abs(std - 1 / np.sqrt(cfg.d_ff)) < 0.1 / np.sqrt(cfg.d_ff)
 
 
-def test_blocks_of_later_slices_raise():
-    cfg = smoke_variant(ARCHS["mixtral-8x7b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_cache(smoke_variant(ARCHS["rwkv6-3b"]), 1, 8, device="cpu")
-    # lm_loss is ported for the attention kinds; on an MoE config (or one
-    # with RWKV6 blocks) it still raises, before touching its arguments
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.lm_loss(None, cfg, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.lm_loss(None, smoke_variant(ARCHS["rwkv6-3b"]), {})
+def test_scan_unroll_waits_for_the_launch_slice():
+    """Every layer kind runs; cfg.scan_unroll (the reference's dry-run
+    costing, attention_chunked_unrolled) still raises."""
     unrolled = dataclasses.replace(smoke_variant(ARCHS["stablelm-1.6b"]), scan_unroll=True)
     p = ttf.init_params(unrolled, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.forward(p, unrolled, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_catalog_arch_prefills_decodes_and_trains(name, dtype):
+    """init_params, init_cache, forward (a prefill of 80 tokens into a cache
+    of 96, then a decode step) and lm_loss's gradient run for each of the
+    10 architectures' smoke variants, in float32 and bf16: logits and
+    gradients finite, each gradient in its leaf's dtype, the MoE configs'
+    aux loss positive and the others' zero."""
+    cfg = dataclasses.replace(smoke_variant(ARCHS[name]), dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    params = ttf.init_params(cfg, generator=gen, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 81), generator=gen)
+    cache = ttf.init_cache(cfg, 2, 96, device="cpu")
+    out = ttf.forward(params, cfg, {"tokens": toks[:, :80]}, cache=cache)
+    out = ttf.forward(params, cfg, {"tokens": toks[:, 80:]}, cache=out.cache)
+    assert out.cache["length"] == 81 and torch.isfinite(out.logits).all()
+    leaves = [x.requires_grad_() for x in tree_leaves(params)]
+    batch = {"tokens": toks[:, :64], "labels": toks[:, 1:65]}
+    aux = float(ttf.forward(params, cfg, batch).aux_loss.detach())
+    loss = ttf.lm_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    assert torch.isfinite(loss)
+    assert all(g.dtype == x.dtype and torch.isfinite(g).all() for g, x in zip(grads, leaves))
+    assert aux > 0.0 if cfg.n_experts else aux == 0.0
 
 
 def test_forward_with_extra_embeds_and_mrope_positions():

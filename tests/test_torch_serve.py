@@ -38,6 +38,10 @@ from repro_torch.models import transformer as ttf
 
 DENSE = ["stablelm-1.6b", "h2o-danube-3-4b", "gemma3-27b", "granite-20b",
          "musicgen-large", "qwen2-vl-7b"]
+#: MoE (dense dispatch in the smoke variants, and mixtral's with the
+#: catalog's capacity dispatch), Mamba2 with a shared attention block, RWKV6
+LATER = ["grok-1-314b", "mixtral-8x7b", "mixtral-8x7b-capacity", "zamba2-2.7b",
+         "rwkv6-3b"]
 #: a GQA variant of danube3 (the smoke variant has n_kv_heads == n_heads)
 GQA = dict(n_layers=2, scan_repeats=2, n_heads=4, n_kv_heads=2, head_dim=40)
 RTOL, ATOL = 1e-4, 1e-5
@@ -46,9 +50,11 @@ BATCH, PROMPT, STEPS = 2, 150, 3
 
 def configs(name: str):
     """The same reduced configuration in both packages."""
-    if name == "h2o-danube-3-4b-gqa":
-        base = "h2o-danube-3-4b"
-        kw = dict(GQA, name=name)
+    variants = {"h2o-danube-3-4b-gqa": ("h2o-danube-3-4b", GQA),
+                "mixtral-8x7b-capacity": ("mixtral-8x7b", dict(moe_dispatch="capacity"))}
+    if name in variants:
+        base, kw = variants[name]
+        kw = dict(kw, name=name)
         return (dataclasses.replace(jax_smoke(JAX_ARCHS[base]), **kw),
                 dataclasses.replace(smoke_variant(ARCHS[base]), **kw))
     return jax_smoke(JAX_ARCHS[name]), smoke_variant(ARCHS[name])
@@ -81,7 +87,7 @@ def close_caches(ours, theirs, what: str) -> None:
         close(a, b, f"{what}: leaf {i}")
 
 
-@pytest.mark.parametrize("name", DENSE + ["h2o-danube-3-4b-gqa"])
+@pytest.mark.parametrize("name", DENSE + ["h2o-danube-3-4b-gqa"] + LATER)
 def test_prefill_and_decode_match_jax(name):
     jcfg, tcfg, jparams, tparams = setup(name)
     toks = prompts(jcfg.vocab_size)
@@ -122,6 +128,50 @@ def test_decode_step_updates_its_cache_in_place():
     changed = (kc.numpy() != before["scan"][0].k).any(axis=(0, 1, 3, 4))
     assert changed.tolist() == [True] + [False] * (kc.shape[2] - 1)
     assert after["length"] == 64 + 1
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-3b"])
+def test_decode_step_updates_ssm_and_rwkv_caches_in_place(name):
+    """The Mamba2 and RWKV6 blocks write the new state, conv carry and last
+    inputs into the buffers of the cache they are given (views of each
+    stacked slot), so the decode step returns the given buffers and every
+    recurrent buffer moved; what they hold equals JAX's (checked in
+    test_prefill_and_decode_match_jax)."""
+    from repro_torch.models.mamba2 import SSMCache
+    from repro_torch.models.rwkv6 import RWKVCache
+    _, tcfg, _, tparams = setup(name)
+    toks = torch.from_numpy(prompts(tcfg.vocab_size, 64))
+    logits, cache = make_prefill_step(tcfg)(tparams, {"tokens": toks})
+    before = kv_cache_to_numpy(cache)
+    _, after = make_decode_step(tcfg)(tparams, cache, logits.argmax(-1, keepdim=True))
+    given, returned = tree_leaves(cache), tree_leaves(after)
+    assert len(given) == len(returned)
+    for a, b in zip(given, returned):
+        if isinstance(a, torch.Tensor):
+            assert a.data_ptr() == b.data_ptr()
+    kinds = (SSMCache, RWKVCache)
+    slots = [i for i, c in enumerate(after["scan"]) if isinstance(c, kinds)]
+    assert slots
+    for i in slots:
+        for field, old in zip(after["scan"][i]._fields, before["scan"][i]):
+            new = getattr(after["scan"][i], field).numpy()
+            assert new.shape == old.shape and (new != old).any(), (i, field)
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-3b"])
+def test_ssm_and_rwkv_caches_round_trip_through_convert(name):
+    """The JAX package's SSMCache / RWKVCache (no length field) after a
+    prefill convert to the port's and back, leaf for leaf."""
+    jcfg, tcfg, jparams, _ = setup(name)
+    toks = prompts(jcfg.vocab_size, 64)
+    _, jc = jax.jit(jserve.make_prefill_step(jcfg))(jparams, {"tokens": jnp.asarray(toks)})
+    tc = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, jc), device="cpu")
+    assert tc["length"] == 64
+    kinds = {type(c).__name__ for c in tc["scan"]}
+    assert kinds & {"SSMCache", "RWKVCache"}
+    back = kv_cache_to_numpy(tc)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(jc)):
+        np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_kv_cache_round_trips_through_convert():
