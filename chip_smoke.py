@@ -204,17 +204,31 @@ into ``build/``, then, each phase failing the run:
     nothing else, ms per round and peak memory; one mixtral round with
     pack_wire=True checked as 17b; and zamba2's lm_loss gradient at 2 units
     in float32 through the kernels against plain attention, with its
-    controls, as 17c.
+    controls, as 17c;
+20. runs the launch slice (``launch/mesh.py``, ``sharding.py``,
+    ``dryrun.py``) on a 1-rank NCCL process group: paper Table 1's fused
+    Fed-LT arm for 10 rounds through ``FedLT.round_sharded`` on a
+    ``("fleet",)`` mesh against ``FedLT.round`` (e_K and every leaf
+    within rtol 1e-5, the same quant_pipeline and unpack_bits launches a
+    round); one packed ``DeployFedLT`` round of stablelm-1.6b at full
+    width, 4 layers, bf16, as DTensors on a ``("data",)`` mesh with
+    ``agent_replicate_spec`` and as plain tensors without it (states equal
+    bit for bit, launches as 17b derives them); the sharded states saved
+    with their specs and restored onto their meshes bit for bit; and,
+    beside those, ``python -m repro_torch.launch.dryrun`` on the host for
+    stablelm-1.6b's decode_32k (single and multi pod) and train_4k
+    (unrolled, one repeat), each record's keys, chips, agents, positive
+    counts and bottleneck checked.
 
 Phases 11–16 run after phase 8, phase 17 after phase 9, phase 18 after
-phase 19.  The launch
+phase 20.  The launch
 counts are zeroed just before each main-path run (phases 3–4, each run of
 phase 5, each chain run of phase 7, phase 8, each cell of phase 12 and
 phase 13, each resumed run of phase 14, each card run of phase 15, the
 timed prefill, the decode steps and the depth-2 float32 prefills of phase
 9, the launcher's run and each later round of phase 17, and each timed
-prefill, decode run, float32 check and training round of phase 19) and
-read just after.  Then it prints each phase's seconds ([time]), the card's name and
+prefill, decode run, float32 check and training round of phase 19, each
+round of phase 20) and read just after.  Then it prints each phase's seconds ([time]), the card's name and
 power limit again, one JSON line with a record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
@@ -2747,6 +2761,269 @@ BENCH_KERNELS = ("pack_bits", "unpack_bits", "quantize_ef", "quant_pipeline",
                  "erasure_mask")
 
 
+# -- phase 20: the launch slice (torch.distributed meshes, the dry-run) --------
+
+LAUNCH_ROUNDS = 10                       # 20a: sharded Fed-LT rounds
+LAUNCH_LAYERS = 4                        # 20b: stablelm-1.6b's depth, cut
+LAUNCH_DRYRUNS = {                       # 20d: python -m repro_torch.launch.dryrun
+    "decode_32k single": ["--arch", "stablelm-1.6b", "--shape", "decode_32k"],
+    "decode_32k multi": ["--arch", "stablelm-1.6b", "--shape", "decode_32k",
+                         "--mesh", "multi"],
+    "train_4k single, unrolled, 1 repeat": ["--arch", "stablelm-1.6b", "--shape",
+                                            "train_4k", "--unroll", "--scan-repeats",
+                                            "1"]}
+DRYRUN_KEYS = {"arch", "shape", "mesh", "agent_axis", "n_agents", "n_chips",
+               "hlo_flops_per_chip", "hlo_bytes_per_chip", "collective_bytes",
+               "collective_counts", "collective_bytes_total", "memory_analysis",
+               "model_flops", "useful_flops_ratio", "t_compute", "t_memory",
+               "t_collective", "lower_s", "compile_s", "bottleneck"}
+
+
+def dryrun_start(name: str, argv: list) -> dict:
+    """Start ``python -m repro_torch.launch.dryrun ARGV --out F`` on the host
+    (a fake process group of 256 or 512 ranks, meta tensors; the card is
+    not touched), its output into files under build/."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = BUILD / f"dryrun_{len(CLI_RUNS)}"
+    out, err = open(f"{base}.out", "w+"), open(f"{base}.err", "w+")
+    run = dict(args=(name,), out=out, err=err, json=f"{base}.json", proc=subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         f"{base}.json"], cwd=ROOT, env=env, stdout=out, stderr=err, text=True))
+    CLI_RUNS.append(run)
+    return run
+
+
+def launch_fedlt(mesh, launches: dict) -> tuple:
+    """20a: paper Table 1's fused arm (N=100, m=500, d=100, L=10 ±1, EF on)
+    for LAUNCH_ROUNDS rounds through ``FedLT.round_sharded`` on the 1-rank
+    fleet mesh (state laid out by ``shard_fleet``) and through
+    ``FedLT.round``: e_K and every state leaf within rtol 1e-5 (one rank:
+    the aggregate is ``tree_mean_axis0`` bit for bit), and each round's
+    quant_pipeline and unpack_bits launches the unsharded round's."""
+    from repro_torch.core.compression import UniformQuantizer
+    from repro_torch.core.error_feedback import EFChannel
+    from repro_torch.core.fedlt import FedLT, optimality_error
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.data.logistic import generate, make_local_loss, solve_global
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import shard_fleet
+
+    n = PAPER["n_agents"]
+    data, _ = generate(0, **PAPER, device=DEV)
+    xbar = solve_global(data, eps=50.0)
+    quant = UniformQuantizer(levels=10, vmin=-1.0, vmax=1.0, clip=True)
+    alg = FedLT(loss=make_local_loss(eps=50.0, n_agents=n), n_epochs=10, gamma=0.005,
+                rho=20.0, uplink=EFChannel(quant), downlink=EFChannel(quant),
+                fused_uplink=True)
+    plain = alg.init(torch.zeros(PAPER["dim"], device=DEV), n)
+    sharded = shard_fleet(plain, mesh, n_agents=n)
+    s_data = shard_fleet(data, mesh, n_agents=n)
+    round_sharded = alg.round_sharded(mesh, n)
+    active = torch.ones(n, dtype=torch.bool, device=DEV)
+    counts = {"plain": [], "sharded": []}
+    ms = {"plain": 0.0, "sharded": 0.0}
+    for _ in range(LAUNCH_ROUNDS):
+        for tag in ("plain", "sharded"):
+            ops.reset_launch_counts()    # the main path: one round each way
+            if tag == "plain":
+                (plain, _), dt = sync_ms(lambda: alg.round(plain, data, active))
+            else:
+                (sharded, info), dt = sync_ms(lambda: round_sharded(sharded, s_data, active))
+                check(int(info["n_active"]) == n, f"sharded round: n_active {info}")
+            ms[tag] += dt
+            counts[tag].append({k: v for k, v in ops.launch_counts().items() if v})
+            for k, v in counts[tag][-1].items():
+                launches[k] += v
+    check(counts["plain"] == counts["sharded"]
+          and all(c == {"quant_pipeline": 1, "unpack_bits": 1} for c in counts["plain"]),
+          f"sharded Fed-LT rounds launched {counts['sharded']}, unsharded "
+          f"{counts['plain']}: expected one quant_pipeline and one unpack_bits each")
+    worst = 0.0
+    for a, b in zip(tree_leaves(tuple(plain)[:5]), tree_leaves(tuple(sharded)[:5])):
+        b = b.full_tensor()
+        check(torch.allclose(b, a, rtol=1e-5, atol=0.0), "a sharded Fed-LT state leaf "
+              f"parts from the unsharded round's by {(b - a).abs().max().item():.3e}")
+        worst = max(worst, (b - a).abs().max().item())
+    e_plain = float(optimality_error(plain.x, xbar))
+    e_sharded = float(optimality_error(sharded.x.full_tensor(), xbar))
+    check(math.isclose(e_sharded, e_plain, rel_tol=1e-5),
+          f"e_K sharded {e_sharded} vs unsharded {e_plain}")
+    print(f"[launch] 20a Fed-LT, Table 1's fused arm, {LAUNCH_ROUNDS} rounds on a 1-rank "
+          f"NCCL fleet mesh: e_K {e_sharded:.9e} sharded, {e_plain:.9e} unsharded; "
+          f"largest leaf difference {worst:.3e}; launches per round "
+          f"{counts['sharded'][0]} both ways; ms per round {ms['sharded'] / LAUNCH_ROUNDS:.2f} "
+          f"sharded, {ms['plain'] / LAUNCH_ROUNDS:.2f} unsharded")
+    return {"e_K": e_sharded, "e_K_plain": e_plain, "max_abs_diff": worst,
+            "launches_per_round": counts["sharded"][0],
+            "ms_per_round": ms["sharded"] / LAUNCH_ROUNDS,
+            "ms_per_round_plain": ms["plain"] / LAUNCH_ROUNDS}, sharded
+
+
+def launch_deploy(mesh, launches: dict) -> tuple:
+    """20b: one packed ``DeployFedLT`` round of stablelm-1.6b at full width
+    in bf16, depth cut to LAUNCH_LAYERS, TRAIN_AGENTS agents, from one
+    state as DTensors on the 1-rank ``("data",)`` mesh with
+    ``agent_replicate_spec`` (the dry-run's gather target) and as plain
+    tensors without it: the states equal bit for bit (a 1-rank gather
+    moves no value), each round's launches phase 17's derivation.  Returns
+    (summary, the sharded new state, its specs)."""
+    from repro_torch.core.deploy import DeployFedLT, DeployState
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    from repro_torch.launch.sharding import P, distribute, param_specs
+
+    cfg = train_config(scan_repeats=LAUNCH_LAYERS, n_layers=LAUNCH_LAYERS)
+    alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0, pack_wire=True)
+    state = alg.init(TRAIN_AGENTS, generator=torch.Generator(DEV).manual_seed(7),
+                     device=DEV)
+    batch = train_batch(cfg, 0)
+    ps = param_specs(state.x, mesh, agent_axes=("data",), stacked=True, fsdp=None, tp=None)
+    pc = param_specs(state.y_hat, mesh, agent_axes=(), tp=None)
+    rep = tree_map(lambda _, sp: P(None, *tuple(sp)[1:]), state.x, ps)
+    put = lambda tree, specs: tree_map(lambda x, sp: distribute(x, mesh, sp), tree, specs)
+    sharded = DeployState(x=put(state.x, ps), z=put(state.z, ps), c_up=put(state.c_up, ps),
+                          y_hat=put(state.y_hat, pc), c_down=put(state.c_down, pc), k=0)
+    tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
+    want = dict(train_attention_launches(cfg, torch.bfloat16), quant_pipeline=tiles,
+                unpack_bits=tiles)
+    res = {}
+    for tag, st, kw in (("plain", state, {}),
+                        ("sharded", sharded, dict(agent_replicate_spec=rep))):
+        ops.reset_launch_counts()        # the main path: one packed round
+        (new, metrics), dt = sync_ms(lambda: alg.round_step(st, batch, **kw))
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        check(counts == want, f"{tag} deploy round launched {counts}, expected {want}")
+        check(math.isfinite(float(metrics["loss"])), f"{tag} deploy round's loss")
+        res[tag] = dict(new=new, ms=dt, loss=float(metrics["loss"]))
+    del state, sharded
+    new_s, new_p = res["sharded"]["new"], res["plain"]["new"]
+    for a, b in zip(tree_leaves(tuple(new_p)[:5]), tree_leaves(tuple(new_s)[:5])):
+        check(same_bits(a, b.to_local()), "the sharded deploy round's state differs "
+              f"from the unsharded round's: a {tuple(a.shape)} leaf")
+    del new_p, res["plain"]["new"]
+    n_params = sum(t.numel() for t in tree_leaves(new_s.y_hat))
+    print(f"[launch] 20b DeployFedLT, stablelm-1.6b at full width, {LAUNCH_LAYERS} layers "
+          f"({n_params} parameters), bf16, {TRAIN_AGENTS} agents x {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, pack_wire: the round with agent_replicate_spec on the 1-rank mesh "
+          f"equals the plain round bit for bit (loss {res['sharded']['loss']:.6f}); "
+          f"launches per round {want}; ms {res['sharded']['ms']:.1f} sharded, "
+          f"{res['plain']['ms']:.1f} plain")
+    specs = DeployState(x=ps, z=ps, c_up=ps, y_hat=pc, c_down=pc, k=P())
+    return ({"params": n_params, "launches_per_round": want, "loss": res["sharded"]["loss"],
+             "ms": res["sharded"]["ms"], "ms_plain": res["plain"]["ms"]}, new_s, specs)
+
+
+def launch_checkpoints(mesh, fleet_mesh_, fleet_state, deploy_state, deploy_specs) -> dict:
+    """20c: ``store.save(specs=)`` of the sharded states, then
+    ``restore(mesh=, specs=)`` into DTensors on the mesh: bit for bit, in
+    the saved layout.  The Fed-LT state whole; of the deploy state its
+    coordinator half (ŷ and the downlink cache, 3.0 GB as float32 on disk)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.launch.sharding import P, spec_of
+
+    out = {}
+    whole = lambda t: t.full_tensor() if isinstance(t, torch.Tensor) else t
+    # the round's own layout (fleet_specs would shard c_down too: its
+    # feature dim, d = 100, equals N)
+    fleet = {"path": BUILD / "launch_ckpt" / "fedlt", "mesh": fleet_mesh_,
+             "tree": fleet_state,
+             "specs": tree_map(lambda t: spec_of(t.placements, fleet_mesh_)
+                               if isinstance(t, torch.Tensor) else P(), fleet_state)}
+    coord = {"path": BUILD / "launch_ckpt" / "deploy", "mesh": mesh,
+             "tree": {"y_hat": deploy_state.y_hat, "c_down": deploy_state.c_down},
+             "specs": {"y_hat": deploy_specs.y_hat, "c_down": deploy_specs.c_down}}
+    for name, ck in (("fedlt", fleet), ("deploy", coord)):
+        shutil.rmtree(ck["path"].parent / name, ignore_errors=True)
+        t0 = time.perf_counter()
+        store.save(str(ck["path"]), ck["tree"], specs=ck["specs"], step=1)
+        like = tree_map(whole, ck["tree"])
+        back = store.restore(str(ck["path"]), like, mesh=ck["mesh"], specs=ck["specs"])
+        del like
+        for a, b in zip(tree_leaves(ck["tree"]), tree_leaves(back)):
+            if not isinstance(a, torch.Tensor):
+                check(a == b, f"{name} checkpoint: {a} restored as {b}")
+                continue
+            check(tuple(a.placements) == tuple(b.placements)
+                  and same_bits(a.to_local(), b.to_local()),
+                  f"{name} checkpoint: a {tuple(a.shape)} leaf does not restore bit for "
+                  "bit in its layout")
+        meta = store.load_meta(str(ck["path"]))
+        check(meta["specs"] == store.spec_strings(ck["specs"]), f"{name} meta specs")
+        out[name] = {"s": time.perf_counter() - t0,
+                     "bytes": os.path.getsize(str(ck["path"]) + ".npz")}
+        del back
+    shutil.rmtree(BUILD / "launch_ckpt", ignore_errors=True)
+    print(f"[launch] 20c sharded checkpoints restore bit for bit onto their meshes: "
+          + ", ".join(f"{k} {v['bytes']} B in {v['s']:.1f} s" for k, v in out.items()))
+    return out
+
+
+def launch_dryruns(runs: dict) -> dict:
+    """20d: each dry-run subprocess's record: the JAX package's keys,
+    n_chips, n_agents (16 agents for train_4k), positive FLOPs and
+    collectives, a bottleneck of the three terms."""
+    out = {}
+    for name, run in runs.items():
+        rc, stdout, stderr = obs_cli_wait(run)
+        check(rc == 0, f"dry-run {name} exited {rc}: {stderr[-2000:]}")
+        with open(run["json"]) as f:
+            rec = json.load(f)
+        multi = "multi" in name
+        check(set(rec) == DRYRUN_KEYS, f"dry-run {name}: keys {sorted(rec)}")
+        check(rec["n_chips"] == (512 if multi else 256), f"dry-run {name}: n_chips")
+        check(rec["n_agents"] == (32 if multi else 16), f"dry-run {name}: n_agents "
+              f"{rec['n_agents']}")
+        check(rec["hlo_flops_per_chip"] > 0 and rec["collective_bytes_total"] > 0
+              and rec["hlo_bytes_per_chip"] > 0, f"dry-run {name}: counts {rec}")
+        check(rec["bottleneck"] in ("t_compute", "t_memory", "t_collective"),
+              f"dry-run {name}: bottleneck {rec['bottleneck']}")
+        out[name] = {k: rec[k] for k in (
+            "n_agents", "hlo_flops_per_chip", "hlo_bytes_per_chip", "collective_bytes",
+            "collective_counts", "collective_bytes_total", "memory_analysis",
+            "t_compute", "t_memory", "t_collective", "bottleneck", "lower_s",
+            "compile_s")}
+        print(f"[launch] 20d dry-run {name}: {json.dumps(out[name])}")
+    return out
+
+
+def phase_launch(launches: dict) -> dict:
+    """20: the launch slice.  The dry-runs start first, on the host, and run
+    beside the rest.  A 1-rank NCCL process group (a ``file://`` rendezvous
+    under build/) carries the meshes of 20a-20c; it is destroyed before the
+    phase returns."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import process_group
+
+    t0 = time.perf_counter()
+    runs = {name: dryrun_start(name, argv) for name, argv in LAUNCH_DRYRUNS.items()}
+    rendezvous = BUILD / "launch_rendezvous"
+    rendezvous.unlink(missing_ok=True)
+    card = DEV == "cuda"                 # a CPU rehearsal runs gloo instead
+    if card:
+        torch.cuda.set_device(0)
+    out = {}
+    with process_group(str(rendezvous), backend="nccl" if card else "gloo"):
+        fleet = init_device_mesh(DEV, (1,), mesh_dim_names=("fleet",))
+        mesh = init_device_mesh(DEV, (1,), mesh_dim_names=("data",))
+        # the communicator is made at the first collective: make it here,
+        # outside the timed rounds
+        torch.distributed.all_reduce(torch.zeros(1, device=DEV))
+        out["fedlt"], fleet_state = launch_fedlt(fleet, launches)
+        out["deploy"], deploy_state, deploy_specs = launch_deploy(mesh, launches)
+        out["checkpoints"] = launch_checkpoints(mesh, fleet, fleet_state, deploy_state,
+                                                deploy_specs)
+        del deploy_state, fleet_state
+        torch.cuda.empty_cache()
+    out["dryrun"] = launch_dryruns(runs)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_bench() -> dict:
     """``run_benchmarks(tiny=True)`` on the card, emitted with the trace
     into BENCH_OUT and checked; ``compare``'s table printed, not gated."""
@@ -3901,6 +4178,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("17c train float32")
     families = phase_families(launches)   # zeroed per run; laps of its own
+    launch = phase_launch(launches)      # zeroed per run
+    lap("20 launch")
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
@@ -3940,6 +4219,7 @@ def main() -> int:
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[train] summary: {json.dumps(train)}")
     print(f"[families] summary: {json.dumps(families)}")
+    print(f"[launch] summary: {json.dumps(launch)}")
     print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[resume] summary: {json.dumps(resume)}")
     print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")

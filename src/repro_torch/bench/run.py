@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``benchmarks/run.py``, with the sections
 the port has: Table 1, the lossy-channel and fault-tolerance tables,
-Fig. 4, Table 2, sim scaling, the kernel micro-benchmarks and the wire
-codec bench.  The reference's last section, the dry-run roofline, waits
-for the port of ``launch/dryrun.py``.  Prints
+Fig. 4, Table 2, sim scaling, the kernel micro-benchmarks, the wire
+codec bench and the dry-run roofline (over ``results/torch/dryrun/``,
+which :mod:`.dryrun_all` fills).  Prints
 ``name,us_per_call,derived`` CSV lines.  ``--full`` runs the paper-scale
 versions (minutes); the default quick mode checks the same qualitative
 claims at reduced scale.  Runs on the card.
@@ -35,7 +35,7 @@ def main() -> None:
             failures.append(name)
 
     from . import fig4_trajectory, kernel_bench, sim_scale, table1_error_feedback
-    from . import table2_space_comparison, table_fault_tolerance
+    from . import roofline, table2_space_comparison, table_fault_tolerance
     from . import table_lossy_ef, wire_bench
 
     section("Table 1: error feedback ablation",
@@ -53,6 +53,7 @@ def main() -> None:
     section("Kernel micro-benchmarks", kernel_bench.main)
     section("Wire codec bench: pack throughput + byte accounting",
             lambda: wire_bench.main(tiny=quick))
+    section("Roofline (dry-run aggregation)", roofline.main)
 
     if failures:
         print("\nFAILED sections:", failures)

@@ -18,8 +18,15 @@ Writes are crash-safe: each file goes to a temporary name, is flushed and
 ``fsync``-ed, and lands with ``os.replace``; the meta sidecar, which
 holds the npz's checksum, is written last and so is the commit point.
 :func:`verify` and :func:`latest_valid_step` reject a torn or corrupt
-checkpoint.  Sharded saves and restores (``specs=``, ``mesh=``) are not
-ported.
+checkpoint.
+
+Sharded state: ``save`` takes DTensor leaves (each gathered whole, a
+collective, so every rank of their mesh calls ``save``; rank 0 of the
+default process group writes, and ``save`` returns on every rank once
+the files are in place) and, with ``specs=``, records them in the
+meta as ``"specs"``, by leaf name with ``str(spec)``, as the JAX package
+writes them.  ``restore(mesh=, specs=)`` places each leaf on the mesh under
+its spec (``launch.sharding.distribute``, JAX's ``device_put``).
 """
 from __future__ import annotations
 
@@ -30,12 +37,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..core.pytree import tree_flatten_with_names, tree_unflatten
-
-_NO_SHARDING = ("sharded checkpoints (specs=, mesh=) need the port's launch/ "
-                "(mesh.py, sharding.py), not ported yet: ROADMAP Queue 1, "
-                "the launch/ item")
+from ..core.pytree import tree_flatten_with_names, tree_map, tree_unflatten
+from ..device import is_dtensor
 
 
 def _sha256(path: str) -> str:
@@ -49,6 +54,8 @@ def _sha256(path: str) -> str:
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -80,19 +87,47 @@ def save(path: str, tree, specs=None, step: Optional[int] = None,
     under ``"extra"``: run state such as time cursors and byte
     accumulators (see :class:`repro_torch.checkpoint.run.RunCheckpoint`).
     """
-    if specs is not None:
-        raise NotImplementedError(_NO_SHARDING)
     names, leaves = tree_flatten_with_names(tree)
-    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    # a tree of DTensors is saved by every rank of its mesh together: each
+    # leaf is gathered whole, rank 0 writes, and no rank returns before the
+    # files are in place (the barrier is the commit point)
+    sharded = any(is_dtensor(leaf) for leaf in leaves)
     arrays = {f"a{i}": _to_numpy(leaf) for i, leaf in enumerate(leaves)}
+    if not sharded or dist.get_rank() == 0:
+        _write(path, arrays, names, leaves, specs, step, extra)
+    if sharded:
+        dist.barrier()
+
+
+def _write(path, arrays, names, leaves, specs, step, extra) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     _write_atomic(path + ".npz", lambda f: np.savez(f, **arrays))
     meta = {"names": names, "step": step,
             "dtypes": [_dtype_name(leaf) for leaf in leaves],
             "checksum": _sha256(path + ".npz")}
     if extra is not None:
         meta["extra"] = extra
+    if specs is not None:
+        meta["specs"] = spec_strings(specs)
     _write_atomic(path + ".meta.json",
                   lambda f: f.write(json.dumps(meta).encode()))
+
+
+def spec_strings(specs) -> dict:
+    """``{leaf name: str(spec)}`` as the JAX package records specs: a
+    PartitionSpec, and any tuple, list or NamedTuple holding specs (as JAX
+    sees them: nodes with an ``index`` method), is one leaf; dicts nest."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        else:
+            out[path] = str(node)
+
+    walk(specs, "")
+    return out
 
 
 def load_meta(path: str) -> Optional[dict]:
@@ -126,12 +161,12 @@ def _restore_leaf(arr: np.ndarray, like):
 
 def restore(path: str, like, mesh=None, specs=None):
     """Restore into the structure of ``like``, each leaf on ``like``'s
-    device and dtype.
+    device and dtype (a DTensor's local device); with ``mesh`` and
+    ``specs`` (a PartitionSpec tree like ``like``), each leaf then lands
+    on the mesh as a DTensor under its spec.
 
     Refuses a checksum mismatch (use :func:`latest_valid_step` to fall
     back to the newest intact checkpoint) and a shape mismatch."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(_NO_SHARDING)
     meta = load_meta(path)
     if meta is not None and meta.get("checksum") is not None \
             and _sha256(path + ".npz") != meta["checksum"]:
@@ -146,7 +181,11 @@ def restore(path: str, like, mesh=None, specs=None):
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{arr.shape} vs {shape}")
             restored.append(_restore_leaf(arr, leaf))
-    return tree_unflatten(like, restored)
+    tree = tree_unflatten(like, restored)
+    if mesh is not None and specs is not None:
+        from ..launch.sharding import distribute
+        tree = tree_map(lambda x, sp: distribute(x, mesh, sp), tree, specs)
+    return tree
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

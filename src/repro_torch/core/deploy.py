@@ -38,15 +38,29 @@ Partial participation is a host-side decision (the orbit scheduler picks
 which satellites run a round); ``survivors`` is the quorum mask of a
 round closed at its deadline.  The round is functional: it returns a new
 state and leaves the one it was given as it was.
+
+Sharded (``agent_replicate_spec``, the dry-run's and a multi-rank
+launch's round): the state is DTensors laid out by
+``launch.sharding.param_specs``, the agent dim over the agent mesh axes.
+Each rank trains its own agents (weights sharded over the other axes run
+as DTensors on the sub-mesh of those axes), quantizes its shard, and the
+**integer** wire crosses ranks: the uplink gathers the packed words
+(``pack_wire``) or the level ints over the agent axes' groups before the
+mean, where the JAX package's ``with_sharding_constraint`` replicates the
+agent dim.  The aggregate then sums the same integers in the same order
+on every rank, so the round's states equal the unsharded round's bit for
+bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
 
+from ..device import DTensor, is_dtensor
 from ..kernels import ops
 from ..kernels.pack_bits import _TILE_VALS
 from ..models.transformer import init_params, lm_loss
@@ -152,29 +166,38 @@ class DeployFedLT:
                     w = tree_map(lambda wl, gl, vl: wl - self.gamma * (
                         gl + inv_rho * (wl - vl)).to(wl.dtype), w, g, v_i)
                 del g, leaves
-            tree_map(lambda dst, src: dst[i].copy_(src), x_new, w)
-            losses.append(loss.detach())
+            tree_map(lambda dst, src: _local(dst)[i].copy_(_local(_like(src, dst[i]))),
+                     x_new, w)
+            losses.append(_whole(loss.detach()))
         return x_new, torch.stack(losses)
 
-    def uplink_leaf(self, z, c):
+    def uplink_leaf(self, z, c, gather=None):
         """One parameter tensor (A, …) through uplink EF and the wire:
         (gathered wire floats in z's dtype, new EF cache).  With
         ``pack_wire``, a leaf of at least one tile takes one
         ``quant_pipeline`` launch (``fuse_pipeline``) or the quantizer and
-        one ``pack_bits`` launch, then one ``unpack_bits``; smaller leaves
-        and ``pack_wire=False`` gather the plain level ints."""
+        one ``pack_bits`` launch, then one ``unpack_bits`` per block of
+        words; smaller leaves and ``pack_wire=False`` gather the plain level
+        ints.  In the sharded round z and c are DTensors: this rank's shard
+        is quantized and ``gather`` concatenates every agent rank's integer
+        wire along dim 0 (the packed words as one block per rank)."""
         q, bits = self.quant, self.wire_word_bits
-        packed = self.pack_wire and z.numel() >= _TILE_VALS
-        if packed and self.fuse_pipeline:
-            with record_function("fedlt.uplink.fused_pipeline"):
-                words, newc = ops.quant_pipeline(z, c, **q)
-            idx = ops.unpack_bits(words, bits, z.numel())
+        zl, cl = _local(z), _local(c)
+        if self.pack_wire and z.numel() >= _TILE_VALS:
+            if self.fuse_pipeline:
+                with record_function("fedlt.uplink.fused_pipeline"):
+                    words, newc = ops.quant_pipeline(zl, cl, **q)
+            else:
+                w, newc = _quantize_ef(zl, cl, q)
+                words = ops.pack_bits(w, bits)
+                del w
+            blocks = [words] if gather is None else gather(words[None]).unbind(0)
             del words
-            return quantize_decode(idx, dtype=z.dtype, **q).reshape(z.shape), newc
-        w, newc = _quantize_ef(z, c, q)
-        if packed:
-            w = ops.unpack_bits(ops.pack_bits(w, bits), bits, w.numel()).reshape(w.shape)
-        return quantize_decode(w, dtype=z.dtype, **q), newc
+            idx = [ops.unpack_bits(b, bits, zl.numel()).reshape(zl.shape) for b in blocks]
+            idx = idx[0] if len(idx) == 1 else torch.cat(idx)
+            return quantize_decode(idx, dtype=z.dtype, **q), newc
+        w, newc = _quantize_ef(zl, cl, q)
+        return quantize_decode(w if gather is None else gather(w), dtype=z.dtype, **q), newc
 
     # -- one round ----------------------------------------------------------
     def round_step(self, state: DeployState, batch, agent_replicate_spec=None,
@@ -186,16 +209,21 @@ class DeployFedLT:
         their wire is dropped from the coordinator mean and their uplink EF
         cache reverts to the full corrected message z + c_up, so their
         content telescopes into their next landed round.  Returns
-        (new state, metrics)."""
+        (new state, metrics).
+
+        ``agent_replicate_spec``: the wire's gather target, a PartitionSpec
+        tree like x's with the agent dim replicated (the JAX package's
+        argument).  With DTensor state the round runs sharded (module
+        docstring) and every leaf comes back in the placements it came in;
+        with plain tensors nothing is sharded and the spec changes nothing,
+        as in JAX on one device."""
+        x0 = tree_leaves(state.x)[0]
+        lay = _AgentLayout(x0) if is_dtensor(x0) else _Whole(x0)
         if agent_replicate_spec is not None:
-            raise NotImplementedError(
-                "agent_replicate_spec shards the agent axis over a mesh: it needs the "
-                "port's launch/ slice (mesh.py, sharding.py), ROADMAP Queue 1, "
-                "the launch/ item")
+            lay.check(state.x, agent_replicate_spec)
         surv = None
         if survivors is not None:
-            surv = torch.as_tensor(survivors, dtype=torch.bool,
-                                   device=tree_leaves(state.x)[0].device)
+            surv = torch.as_tensor(survivors, dtype=torch.bool, device=_local(x0).device)
 
         def mask(t):
             return surv.reshape((-1,) + (1,) * (t.dim() - 1))
@@ -206,56 +234,188 @@ class DeployFedLT:
             n = surv.sum().clamp(min=1)
             return torch.where(mask(t), t, 0.0).to(t.dtype).sum(dim=0) / n.to(t.dtype)
 
-        with record_function("fedlt.local_train"):
-            with torch.no_grad():
-                v = tree_map(lambda y, z: (2.0 * y - z).to(z.dtype), state.y_hat,
-                             state.z)
-            x_new, last_loss = self.local_train(state.x, v, batch)
-            del v
-            with torch.no_grad():
-                z_new = tree_map(lambda z, xn, y: z + 2.0 * (xn - y), state.z, x_new,
-                                 state.y_hat)
+        with lay.replicating():
+            with record_function("fedlt.local_train"):
+                with torch.no_grad():
+                    v = tree_map(lambda y, z: _like((2.0 * y - z).to(z.dtype), z),
+                                 state.y_hat, state.z)
+                x_sub, losses = self.local_train(
+                    tree_map(lay.to_sub, state.x), tree_map(lay.to_sub, v),
+                    {k: lay.to_sub(t) for k, t in batch.items()})
+                del v
+                x_new = tree_map(lambda xs, x: lay.from_local(_local(xs), x),
+                                 x_sub, state.x)
+                del x_sub
+                with torch.no_grad():
+                    z_new = tree_map(lambda z, xn, y: _like(z + 2.0 * (xn - y), z),
+                                     state.z, x_new, state.y_hat)
 
-        with torch.no_grad():
-            if self.compress:
-                leaves_z = tree_leaves(z_new)
+            with torch.no_grad():
                 z_bar, c_up_new = [], []
-                for z, c in zip(leaves_z, tree_leaves(state.c_up)):
-                    with record_function("fedlt.uplink"):
-                        g, nc = self.uplink_leaf(z, c)
-                        if surv is not None:
-                            nc = torch.where(mask(nc), nc, z + c).to(nc.dtype)
+                for z, c in zip(tree_leaves(z_new), tree_leaves(state.c_up)):
+                    if not self.compress:
+                        g = lay.gather(_local(z))
+                    else:
+                        with record_function("fedlt.uplink"):
+                            g, nc = self.uplink_leaf(z, c, lay.gather)
+                            if surv is not None:
+                                mine = surv[lay.first:lay.first + lay.n_local]
+                                m = mine.reshape((-1,) + (1,) * (nc.dim() - 1))
+                                nc = torch.where(m, nc, _local(z) + _local(c)).to(nc.dtype)
+                        c_up_new.append(lay.from_local(nc, c))
                     with record_function("fedlt.aggregate"):
-                        z_bar.append(agent_mean(g))
-                    c_up_new.append(nc)
+                        z_bar.append(lay.from_local(agent_mean(g), lay.mean_layout(z)))
                     del g
                 z_bar = tree_unflatten(state.y_hat, z_bar)
-                c_up_new = tree_unflatten(state.c_up, c_up_new)
-            else:
-                c_up_new = state.c_up
-                with record_function("fedlt.aggregate"):
-                    z_bar = tree_map(agent_mean, z_new)
+                c_up_new = (tree_unflatten(state.c_up, c_up_new) if self.compress
+                            else state.c_up)
 
-            with record_function("fedlt.downlink"):
-                y = tree_map(lambda c, zb: c + zb.to(c.dtype), state.c_down, z_bar)
-                del z_bar
-                if self.compress:
-                    q = self.quant
-                    y_hat = tree_map(lambda m: quantize_decode(
-                        _quantize_ef(m, None, q)[0], dtype=m.dtype, **q), y)
-                    c_down_new = tree_map(torch.sub, y, y_hat)
-                else:
-                    y_hat, c_down_new = y, state.c_down
+                with record_function("fedlt.downlink"):
+                    y = tree_map(lambda c, zb: _like(c + zb.to(c.dtype), c),
+                                 state.c_down, z_bar)
+                    del z_bar
+                    if self.compress:
+                        q = self.quant
+                        y_hat = tree_map(lambda m: lay.from_local(quantize_decode(
+                            _quantize_ef(_local(m), None, q)[0], dtype=m.dtype, **q), m), y)
+                        c_down_new = tree_map(torch.sub, y, y_hat)
+                    else:
+                        y_hat, c_down_new = y, state.c_down
 
         new_state = DeployState(x=x_new, z=z_new, c_up=c_up_new, y_hat=y_hat,
                                 c_down=c_down_new, k=state.k + 1)
-        metrics = {"loss": last_loss.mean()}
+        metrics = {"loss": lay.gather(losses).mean()}
         if surv is not None:
             metrics["quorum_frac"] = surv.sum().to(torch.float32) / surv.numel()
         if self.compress:
             # the exact uplink size per agent under the wire codec
             from ..wire.codecs import QuantCodec
             codec = QuantCodec(self.levels, self.vmin, self.vmax)
-            metrics["wire_nbytes_per_agent"] = float(
-                codec.tree_nbytes(tree_map(lambda a: a[0], state.x)))
+            per_agent = tree_map(lambda a: torch.empty(a.shape[1:], dtype=a.dtype,
+                                                       device="meta"), state.x)
+            metrics["wire_nbytes_per_agent"] = float(codec.tree_nbytes(per_agent))
         return new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# where the agents lie: plain tensors, or DTensors over a mesh
+# ---------------------------------------------------------------------------
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _like(src, dst):
+    """``src`` in ``dst``'s DTensor layout (plain tensors pass)."""
+    if not is_dtensor(src):
+        return src
+    from ..launch.sharding import relayout
+    return relayout(src, dst.placements)
+
+
+_SIGNED = {torch.uint8: torch.int8, torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+class _Whole:
+    """The agent layout of a plain state: every agent on this process, the
+    identity wherever :class:`_AgentLayout` moves tensors."""
+
+    first = 0
+
+    def __init__(self, x0):
+        self.n_local = x0.shape[0]
+
+    def check(self, x, spec):
+        pass
+
+    def replicating(self):
+        return contextlib.nullcontext()
+
+    def to_sub(self, t):
+        return t
+
+    def from_local(self, loc, like):
+        return loc
+
+    def mean_layout(self, z):
+        return None
+
+    def gather(self, t):
+        return t
+
+
+class _AgentLayout:
+    """Where the agents of a DTensor state lie: the mesh dims that shard the
+    agent dim (dim 0 of every agent-stacked leaf, major to minor), the
+    sub-mesh of the other dims, on which each rank's own agents train, and
+    this rank's first agent."""
+
+    def __init__(self, x0):
+        from torch.distributed.tensor import Shard
+        self.mesh = mesh = x0.device_mesh
+        self.agent_dims = [i for i, p in enumerate(x0.placements) if p == Shard(0)]
+        self.rest_dims = [i for i in range(mesh.ndim) if i not in self.agent_dims]
+        rest = tuple(mesh.mesh_dim_names[i] for i in self.rest_dims)
+        self.sub = None if not rest else mesh if len(rest) == mesh.ndim else mesh[rest]
+        idx = 0
+        for i in self.agent_dims:
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        self.n_local = x0.to_local().shape[0]
+        self.first = idx * self.n_local
+
+    def check(self, x, spec):
+        """The gather target names only axes of the mesh, in its order."""
+        from ..launch.sharding import placements
+        tree_map(lambda _, sp: placements(sp, self.mesh), x, spec)
+
+    def replicating(self):
+        """The model's own plain tensors (RoPE tables, positions, masks)
+        join the DTensors as replicated."""
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def to_sub(self, t):
+        """A state or batch leaf as this rank's agents: a DTensor on the
+        sub-mesh (or a plain tensor when every mesh dim holds agents).  A
+        plain tensor holds every agent; this rank takes its own."""
+        from torch.distributed.tensor import Replicate
+        if not is_dtensor(t):
+            loc = t[self.first:self.first + self.n_local]
+            pl = [Replicate()] * len(self.rest_dims)
+        else:
+            loc, pl = t.to_local(), [t.placements[i] for i in self.rest_dims]
+        if self.sub is None:
+            return loc
+        return DTensor.from_local(loc, self.sub, pl, run_check=False)
+
+    def from_local(self, loc, like):
+        """This rank's shard ``loc`` as a DTensor on the mesh, in the
+        placements of ``like`` (a DTensor or the placements themselves)."""
+        pl = like.placements if is_dtensor(like) else like
+        return DTensor.from_local(loc, self.mesh, pl, run_check=False)
+
+    def mean_layout(self, z):
+        """The placements of the agent mean of agent-stacked ``z`` once its
+        agents are gathered: the agent dims replicated, the weight dims
+        sharded as in ``z``, one dim lower."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [Replicate() if i in self.agent_dims else
+                Shard(p.dim - 1) if isinstance(p, Shard) else p
+                for i, p in enumerate(z.placements)]
+
+    def gather(self, t):
+        """Concatenate every agent rank's ``t`` along dim 0, in agent order
+        (all-gathers over the agent dims, minor first); unsigned integers
+        cross as the signed type of their width."""
+        from torch.distributed import _functional_collectives as funcol
+        gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+        signed = _SIGNED.get(t.dtype)
+        out = t.view(signed) if signed is not None else t
+        for i in reversed(self.agent_dims):
+            if self.mesh.size(i) > 1:
+                out = funcol.wait_tensor(gather(out.contiguous(), 0, (self.mesh, i)))
+        return out.view(t.dtype) if signed is not None else out

@@ -96,3 +96,74 @@ def resync_cache(cache, crashed):
                            torch.zeros_like(c), c)
 
     return tree_map(leaf, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedEFChannel:
+    """Error feedback with residuals held at aggregation *heads* instead
+    of at the leaves.
+
+    Under an in-orbit aggregation topology (``repro_torch.sim.topology``)
+    the members of an orbital plane merge their raw updates at an elected
+    cluster head, and only the head's merged wire crosses the
+    ground-station bottleneck.  That opens a second EF placement: keep
+    ONE residual per *group* (plane) at the head, applied to the merged
+    sum right before the uplink:
+
+        group_msg_g = Σ_{i ∈ g} msg_i
+        wire_g      = C(group_msg_g + cache_g)
+        cache_g'    = group_msg_g + cache_g − wire_g
+
+    Group membership is an ``(N,)`` int tensor of group ids (``-1`` =
+    inactive this round, contributes nothing); the cache carries a leading
+    group axis of static size ``n_groups``, so membership can change every
+    round while the per-group residual stays put.  The sum of landed wires
+    plus the final cache equals the sum of everything the group's members
+    ever offered.  A destroyed head uplink puts the discharged content back
+    (:meth:`revert`), the leaf analogue of
+    ``repro_torch.core.fedlt_sat._revert_lost_wires``.
+    """
+
+    compressor: Compressor = Identity()
+    enabled: bool = True
+
+    def init_cache(self, msg_like, n_groups: int):
+        """Zero residuals: one slot per group, member shapes minus the
+        leading agent axis (``msg_like`` is agent-stacked)."""
+        return tree_map(lambda x: torch.zeros((n_groups,) + tuple(x.shape[1:]),
+                                              dtype=x.dtype, device=x.device),
+                        msg_like)
+
+    def group_sum(self, msgs, groups, n_groups: int):
+        """Merge agent-stacked messages into per-group sums (``index_add_``,
+        JAX's ``segment_sum``); rows of group ``-1`` add zero."""
+        def leaf(x):
+            g = torch.as_tensor(groups, device=x.device).to(torch.int64)
+            live = (g >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
+            out = torch.zeros((n_groups,) + tuple(x.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            return out.index_add_(0, g.clamp(min=0),
+                                  torch.where(live, x, 0).to(x.dtype))
+
+        return tree_map(leaf, msgs)
+
+    def send(self, gen, msgs, cache, groups, n_groups: int):
+        """Merge → correct → compress at the heads: ``(wire, new_cache)``,
+        both with a leading group axis.  A group with no live member this
+        round still discharges its cached residual."""
+        gsum = self.group_sum(msgs, groups, n_groups)
+        if not self.enabled:
+            return self.compressor(gen, gsum), cache
+        corrected = tree_add(gsum, cache)
+        wire = self.compressor(gen, corrected)
+        return wire, tree_sub(corrected, wire)
+
+    def revert(self, new_cache, wire, lost):
+        """For each group of the ``(n_groups,)`` bool mask ``lost`` the wire
+        never landed, so its content goes back into the residual:
+        ``cache + wire`` is the corrected message the next send re-offers."""
+        def leaf(c, w):
+            m = torch.as_tensor(lost, dtype=torch.bool, device=c.device)
+            return torch.where(m.reshape((-1,) + (1,) * (c.dim() - 1)), c + w, c)
+
+        return tree_map(leaf, new_cache, wire)

@@ -75,43 +75,127 @@ class FedLT:
         # ---- coordinator: aggregate + downlink EF (paper lines 3-5) ----
         y_mean = tree_mean_axis0(state.z_hat)
         y_wire, c_down_new = self.downlink.send(gen, y_mean, state.c_down)
+        x, z, c_up, z_hat = self._agents(y_wire, state.x, state.z, state.c_up,
+                                         state.z_hat, data, active, gen)
+        new_state = FedLTState(x=x, z=z, c_up=c_up, z_hat=z_hat,
+                               c_down=c_down_new, k=state.k + 1)
+        return new_state, {"n_active": torch.sum(active)}
 
+    def _agents(self, y_wire, x, z, c_up, z_hat, data, active, gen):
+        """The agents' half of a round for the agents the trees hold: local
+        training, partial participation and the uplink; returns
+        (x, z, c_up, z_hat) after the round."""
         # ---- agents: local training (paper lines 8-14), all at once ----
         grad_fn = torch.func.vmap(torch.func.grad(self.loss))
-        v = tree_map(lambda y, z: 2.0 * y - z, y_wire, state.z)
-        x_new = local_prox_gd(grad_fn, state.x, v, data, n_epochs=self.n_epochs,
+        v = tree_map(lambda y, zz: 2.0 * y - zz, y_wire, z)
+        x_new = local_prox_gd(grad_fn, x, v, data, n_epochs=self.n_epochs,
                               gamma=self.gamma, rho=self.rho)
-        z_new = tree_map(lambda z, xn, y: z + 2.0 * (xn - y), state.z, x_new,
-                         y_wire)
+        z_new = tree_map(lambda zz, xn, y: zz + 2.0 * (xn - y), z, x_new, y_wire)
 
         # partial participation: inactive agents keep x, z (paper line 18)
-        x_next = tree_where_mask(active, x_new, state.x)
-        z_next = tree_where_mask(active, z_new, state.z)
+        x_next = tree_where_mask(active, x_new, x)
+        z_next = tree_where_mask(active, z_new, z)
 
         # ---- uplink EF + transmit (paper lines 15-16), per agent ----
         if self.fused_uplink and self.uplink.fusable():
-            wire, c_up_new = self.uplink.send_fused(z_next, state.c_up)
+            wire, c_up_new = self.uplink.send_fused(z_next, c_up)
         else:
-            wire, c_up_new = self.uplink.send(gen, z_next, state.c_up, batch=True)
-        c_up_next = tree_where_mask(active, c_up_new, state.c_up)
-        z_hat_next = tree_where_mask(active, wire, state.z_hat)
+            wire, c_up_new = self.uplink.send(gen, z_next, c_up, batch=True)
+        return (x_next, z_next, tree_where_mask(active, c_up_new, c_up),
+                tree_where_mask(active, wire, z_hat))
 
-        new_state = FedLTState(x=x_next, z=z_next, c_up=c_up_next,
-                               z_hat=z_hat_next, c_down=c_down_new,
-                               k=state.k + 1)
-        return new_state, {"n_active": torch.sum(active)}
+    # -- fleet-sharded round (mega-constellation scaling) ------------------
+    def round_sharded(self, mesh, n_agents: int) -> Callable:
+        """A round function whose agent axis is sharded over ``mesh``'s
+        first axis (the "fleet" axis): one rank per shard.
+
+        Each rank trains its shard of the fleet; the only cross-rank
+        traffic is the coordinator aggregate (each rank's z_hat mean
+        weighted by its share of the agents, ``n_local / n_agents``, the
+        local sum over ``n_agents``, then one ``all_reduce`` per leaf) and
+        the count of active agents (one more ``all_reduce``); the downlink
+        is computed on every rank alike.  On one rank the aggregate is
+        ``tree_mean_axis0`` bit for bit, so the round is :meth:`round`'s.
+        Same signature and semantics as :meth:`round` (up to float
+        summation order in the aggregate): it takes the state as
+        :func:`repro_torch.launch.sharding.shard_fleet` lays it out, or as
+        full tensors, of which each rank reads its shard, and returns
+        DTensors, the agent-stacked leaves ``Shard(0)`` and ``c_down``
+        ``Replicate()``.  ``data`` and ``active`` may be either too.  A
+        stochastic compressor draws from each rank's own ``gen``.
+        ``n_agents`` must divide by the fleet axis size;
+        :func:`repro_torch.launch.sharding.fleet_mesh` returns ``None`` on
+        a single device (use :meth:`round` then).
+        """
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        n_dev = mesh.size(0)
+        if n_agents % n_dev:
+            raise ValueError(
+                f"n_agents={n_agents} not divisible by fleet axis {n_dev}")
+        group = mesh.get_group(0)
+        n_local = n_agents // n_dev
+        lo = mesh.get_local_rank(0) * n_local
+
+        def local(t):
+            if isinstance(t, DTensor):
+                return t.to_local()
+            return t[lo:lo + n_local]
+
+        def whole(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        def aggregate(s):
+            y = torch.mean(s, dim=0)
+            if n_local != n_agents:
+                y = y * (n_local / n_agents)
+            dist.all_reduce(y, group=group)
+            return y
+
+        def shard(t):
+            return DTensor.from_local(t, mesh, [Shard(0)], run_check=False)
+
+        def rep(t):
+            return DTensor.from_local(t, mesh, [Replicate()], run_check=False)
+
+        def round_fn(state: FedLTState, data, active, gen=None):
+            x, z, c_up, z_hat = (tree_map(local, t) for t in state[:4])
+            act = local(active if isinstance(active, DTensor)
+                        else torch.as_tensor(active))
+            # coordinator aggregate: local shard mean by its share + all_reduce
+            y_mean = tree_map(aggregate, z_hat)
+            y_wire, c_down_new = self.downlink.send(
+                gen, y_mean, tree_map(whole, state.c_down))
+            x, z, c_up, z_hat = self._agents(y_wire, x, z, c_up, z_hat,
+                                             tree_map(local, data), act, gen)
+            n_active = torch.sum(act)
+            dist.all_reduce(n_active, group=group)
+            new_state = FedLTState(
+                x=tree_map(shard, x), z=tree_map(shard, z),
+                c_up=tree_map(shard, c_up), z_hat=tree_map(shard, z_hat),
+                c_down=tree_map(rep, c_down_new), k=state.k + 1)
+            return new_state, {"n_active": n_active}
+
+        return round_fn
 
     def run(self, state: FedLTState, data, n_rounds: int,
             gen: Optional[torch.Generator] = None, participation: float = 1.0,
-            active=None):
+            active=None, mesh=None):
         """Drive ``n_rounds`` rounds; returns (state, {"n_active": (n_rounds,)}).
 
         ``active``: an explicit ``(n_rounds, N)`` bool array of per-round
         participation masks.  Without it, every agent is active at
         participation 1.0; below 1.0 masks are Bernoulli draws from ``gen``
-        with agent 0 always active (the paper assumes p_i > 0).
+        with agent 0 always active (the paper assumes p_i > 0); every rank
+        must then draw the same masks, from generators seeded alike.
+        ``mesh``: optional fleet mesh (see :meth:`round_sharded`): the
+        agent axis shards across its ranks; ``None`` runs :meth:`round`.
         """
-        state, infos = run_rounds(self.round, state, data, n_rounds, gen,
+        n_agents = tree_leaves(state.x)[0].shape[0]
+        round_impl = (self.round if mesh is None
+                      else self.round_sharded(mesh, n_agents))
+        state, infos = run_rounds(round_impl, state, data, n_rounds, gen,
                                   participation, active)
         return state, {"n_active": torch.stack([i["n_active"] for i in infos])}
 

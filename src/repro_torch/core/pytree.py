@@ -88,6 +88,20 @@ def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 
 
+def tree_vdot(a, b):
+    """Σ over leaves of ⟨a, b⟩ (``jnp.vdot`` per leaf, flattened)."""
+    return sum(tree_leaves(tree_map(lambda x, y: torch.vdot(x.reshape(-1),
+                                                            y.reshape(-1)), a, b)))
+
+
+def tree_sq_norm(a):
+    return tree_vdot(a, a)
+
+
+def tree_norm(a):
+    return torch.sqrt(tree_sq_norm(a))
+
+
 def tree_mean_axis0(a):
     """Mean over the leading (agent) axis of every leaf."""
     return tree_map(lambda x: torch.mean(x, dim=0), a)
@@ -105,6 +119,16 @@ def tree_where_mask(mask, a, b):
         return torch.where(m, x, y)
 
     return tree_map(sel, a, b)
+
+
+def tree_broadcast_agents(a, n_agents: int):
+    """Tile a coordinator tree to a per-agent stacked tree (a broadcast
+    view, as ``jnp.broadcast_to``)."""
+    return tree_map(lambda x: x[None].expand((n_agents,) + tuple(x.shape)), a)
+
+
+def tree_cast(a, dtype):
+    return tree_map(lambda x: x.to(dtype), a)
 
 
 def tree_size(a) -> int:

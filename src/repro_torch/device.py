@@ -2,13 +2,17 @@
 
 There is no fallback.  An entry point given no device runs on the card,
 and raises when there is none; ``device="cpu"`` is honoured only when a
-caller passes it, as the tests do.
+caller passes it, as the tests do, and so is ``device="meta"``: tensors
+with shapes and dtypes and no storage, on which the kernel wrappers
+allocate their outputs and launch nothing (the dry-run's device,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import subprocess
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def set_float32_precision() -> None:
@@ -35,9 +39,15 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} asked for, but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or 'meta'")
     return dev
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed.tensor.DTensor`` (a tensor
+    laid out over a device mesh)."""
+    return isinstance(t, DTensor)
 
 
 def _holds_cuda(x) -> bool:

@@ -87,6 +87,12 @@ KERNELS = {
 #: nowhere else (a plain integer each; reset with :func:`reset_launches`)
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
+#: called as ``meta_hook(name, args)`` in place of a launch whose tensors
+#: lie on the meta device (shapes only: the wrapper has allocated its
+#: outputs there and nothing runs); the dry-run counts the kernel's work
+#: through it.  None: such a call does nothing.
+meta_hook = None
+
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
 
@@ -156,7 +162,13 @@ def _library(src: str) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current stream; tensors are passed as
-    device pointers.  Raises when the launch reports a CUDA error."""
+    device pointers.  Raises when the launch reports a CUDA error.  With
+    its tensors on the meta device it launches nothing, counts nothing and
+    only calls :data:`meta_hook`."""
+    if any(isinstance(a, torch.Tensor) and a.is_meta for a in args):
+        if meta_hook is not None:
+            meta_hook(name, args)
+        return
     src, symbol, _ = KERNELS[name]
     lib = _library(src)
     fn = getattr(lib, symbol)

@@ -77,6 +77,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from . import _build, ref
 
 __all__ = ["FlashAttention", "bwd_route", "f32_bwd_smem_bytes",
@@ -297,13 +298,79 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
                     window=None, softcap=None):
     """(B, Sq, H, D) attention of q over k/v (B, Sk, Hkv, D); returns
     (B, Sq, H, D) in q's dtype, differentiable in q, k and v through
-    :class:`FlashAttention`."""
+    :class:`FlashAttention`.  On DTensors the kernel runs on each rank's
+    local shards (:func:`on_local_heads`)."""
+    if any(is_dtensor(t) for t in (q, k, v)):
+        return on_local_heads(lambda *a: flash_attention(
+            *a, causal=causal, window=window, softcap=softcap), q, k, v, q_pos, k_pos)
     _check_inputs(q, k, v, window, softcap)
     q_pos = _positions(q_pos, q.shape[1], q.device)
     k_pos = _positions(k_pos, k.shape[1], q.device)
     # the statistics, which every backward route reads
     stats = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window, softcap, stats)
+
+
+def on_local_heads(fn, q, k, v, q_pos=None, k_pos=None):
+    """``fn(q, k, v, q_pos, k_pos)``, an attention over (B, S, H, D) q and
+    (B, S, Hkv, D) k, v, on each rank's local shards of DTensor inputs
+    (``launch.sharding.map_local``; autograd goes through the local
+    calls): every (batch, head) pair is independent, so the batch (dim 0)
+    and the heads (dim 2) stay sharded; a shard of the sequence or head dim
+    is gathered first.  k and v take q's layout; where the head shard does
+    not divide the KV heads, they stay whole and each rank reads the KV
+    heads its query heads map to (GQA), as a slice or, where its query
+    heads straddle groups unevenly, one KV head per query head; their
+    gradients are then partial sums over the head shards.  Positions are
+    whole on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..launch.sharding import as_dtensors, map_local
+
+    mesh, (q, k, v) = as_dtensors(q, k, v)
+    whole = lambda pos: pos.full_tensor() if is_dtensor(pos) else pos
+
+    # one layout for all three: a mesh dim that shards the batch of q or of
+    # k (a decode step's KV cache, the large operand) shards the batch,
+    # else one that shards q's heads shards the heads
+    def kept(p, dim):
+        return isinstance(p, Shard) and p.dim == dim
+
+    q_pl = tuple(Shard(0) if kept(pq, 0) or kept(pk, 0) else
+                 Shard(2) if kept(pq, 2) else Replicate()
+                 for pq, pk in zip(q.placements, k.placements))
+    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    head_shards = math.prod(mesh.size(i) for i in head_dims)
+    n_rep = q.shape[2] // k.shape[2]
+    split_kv = k.shape[2] % head_shards == 0
+    kv_pl = q_pl if split_kv else tuple(Replicate() if p == Shard(2) else p
+                                        for p in q_pl)
+    kv_grad = q_pl if split_kv else tuple(Partial() if p == Shard(2) else p
+                                          for p in q_pl)
+    q_pos, k_pos = whole(q_pos), whole(k_pos)
+    first = 0                       # this rank's first query head
+    for i in head_dims:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    n_local = q.shape[2] // head_shards
+    first *= n_local
+    # the KV head of each of this rank's query heads; a slice of the KV heads
+    # serves when the query heads fall into whole groups of equal size,
+    # else each query head takes its own copy of its KV head
+    kv_of = [(first + j) // n_rep for j in range(n_local)]
+    lo, hi = kv_of[0], kv_of[-1] + 1
+    sliced = n_local % (hi - lo) == 0 and all(
+        h == lo + j // (n_local // (hi - lo)) for j, h in enumerate(kv_of))
+
+    def local(ql, kl, vl):
+        if not split_kv and sliced:
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        elif not split_kv:
+            idx = torch.tensor(kv_of, device=kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return fn(ql, kl, vl, q_pos, k_pos)
+
+    return map_local(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl,
+                     (q_pl, kv_grad, kv_grad))
 
 
 class FlashAttention(torch.autograd.Function):

@@ -199,9 +199,9 @@ def attention_mask(q_pos, k_pos, *, causal: bool, window=None):
     ok = torch.ones((q_pos.numel(), k_pos.numel()), dtype=torch.bool,
                     device=q_pos.device)
     if causal:
-        ok &= k_pos[None, :] <= q_pos[:, None]
+        ok = ok & (k_pos[None, :] <= q_pos[:, None])
     if window is not None:
-        ok &= k_pos[None, :] > q_pos[:, None] - window
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
     return ok
 
 

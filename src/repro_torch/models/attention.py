@@ -1,6 +1,8 @@
 """Attention: GQA/MQA/MHA with RoPE/M-RoPE, sliding window, KV cache.
 
-Counterpart of ``repro.models.attention``.  Two backends:
+Counterpart of ``repro.models.attention``.  Two backends, and the
+dry-run's costing path (``cfg.scan_unroll``:
+:func:`attention_chunked_unrolled`, plain torch ops, as in JAX):
 
   * ``xla``     — plain einsum attention (:func:`attention_xla`), the oracle.
   * ``chunked`` — the hand-written flash kernel through ``ops.attention``
@@ -25,7 +27,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import is_dtensor
 from ..kernels import ops
+from ..kernels.flash_attention import on_local_heads
 from ..kernels.ref import NEG_INF, attention_mask
 from .layers import apply_rope, init_normal, init_rms_norm, rms_norm
 
@@ -81,6 +85,73 @@ def attention_xla(q, k, v, q_pos, k_pos, *, window=None, softcap=None):
     scores = scores.masked_fill(~ok, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return _grouped_out(probs.to(v.dtype), v)
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B, S, Hkv, D) → (B, S, Hkv·n_rep, D): KV head h // n_rep for head h."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def attention_chunked_unrolled(q, k, v, q_pos, k_pos, *, window=None,
+                               softcap=None, chunk_q: int = 2048,
+                               chunk_k: int = 2048):
+    """Flash-style attention with a Python loop over (q-chunk, kv-chunk)
+    pairs, visiting only causally/within-window reachable pairs: the JAX
+    package's ``attention_chunked_unrolled``, op for op, in plain torch.
+
+    The dry-run's costing path (``cfg.scan_unroll``): every chunk's work is
+    a dispatched op of its own, so the counts are exact.  Assumes q and k
+    positions are aligned ranges (training / prefill), which holds for
+    every dry-run shape.  Padded query rows carry position -1, padded keys
+    2**30, so the causal mask hides them.
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    n_rep = h // k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    pad_q, pad_k = (-sq) % chunk_q, (-sk) % chunk_k
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad_k), value=2 ** 30)
+    nq, nk = q.shape[1] // chunk_q, k.shape[1] // chunk_k
+    out_chunks = []
+    for qi in range(nq):
+        q_blk = q[:, qi * chunk_q:(qi + 1) * chunk_q]
+        qp = q_pos[qi * chunk_q:(qi + 1) * chunk_q]
+        acc = torch.zeros((b, h, chunk_q, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, chunk_q), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, chunk_q), dtype=torch.float32, device=q.device)
+        # causal: kv chunk start ≤ q chunk end; window: within band
+        hi = min(((qi + 1) * chunk_q + chunk_k - 1) // chunk_k, nk)
+        lo = 0
+        if window is not None:
+            lo = max(0, (qi * chunk_q - window) // chunk_k)
+        for kj in range(lo, hi):
+            k_blk = _repeat_kv(k[:, kj * chunk_k:(kj + 1) * chunk_k], n_rep)
+            v_blk = _repeat_kv(v[:, kj * chunk_k:(kj + 1) * chunk_k], n_rep)
+            kp = k_pos[kj * chunk_k:(kj + 1) * chunk_k]
+            sc = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk).to(torch.float32) * scale
+            sc = _softcap(sc, softcap)
+            sc = sc.masked_fill(~attention_mask(qp, kp, causal=True, window=window),
+                                NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v_blk.dtype), v_blk).to(torch.float32)
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        out_chunks.append(out.permute(0, 2, 1, 3))
+    out = torch.cat(out_chunks, dim=1)
+    return out[:, :sq].to(q.dtype)
 
 
 class KVCache(NamedTuple):
@@ -146,6 +217,22 @@ def _write_slots(buf, new, idx: int, s_max: int):
     return idx
 
 
+def _split_heads(t, n_heads: int, head_dim: int):
+    """(B, S, n_heads·head_dim) → (B, S, n_heads, head_dim).  On a DTensor
+    whose feature dim has more shards than divide ``n_heads`` (a
+    grouped-query projection's few KV heads under tensor parallelism) the
+    dim is gathered first: DTensor cannot split a shard across heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        from ..launch.sharding import relayout
+        last = Shard(t.dim() - 1)
+        if n_heads % math.prod(t.device_mesh.size(i)
+                               for i, p in enumerate(t.placements) if p == last):
+            t = relayout(t, tuple(Replicate() if p == last else p for p in t.placements))
+    return t.reshape(*t.shape[:2], n_heads, head_dim)
+
+
 def attention_block(params, cfg, x, *, rope_cs=None, positions=None,
                     window=None, cache=None, backend: str = "chunked"):
     """Attention sub-block: qkv projection → rope → attend → out projection.
@@ -155,9 +242,9 @@ def attention_block(params, cfg, x, *, rope_cs=None, positions=None,
     (out, new_cache); the cache's buffers are updated in place.
     """
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
 
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
@@ -212,14 +299,18 @@ def attention_block(params, cfg, x, *, rope_cs=None, positions=None,
         new_cache = cache._replace(length=start + s)
 
     softcap = cfg.attn_logit_softcap
+    plain = None
     if (s == 1 and cache is not None) or backend == "xla":
         # one-token decode against the whole cache is plain, as in JAX
-        out = attention_xla(q, k_all, v_all, q_pos, k_pos, window=window,
-                            softcap=softcap)
+        plain = attention_xla
     elif cfg.scan_unroll:
-        raise NotImplementedError(
-            "scan_unroll (attention_chunked_unrolled, dry-run costing) waits "
-            "for the launch slice of the port (ROADMAP Queue 1)")
+        # dry-run costing: the JAX package's loop-free chunk pairs, plain
+        plain = attention_chunked_unrolled
+    if plain is not None:
+        # on DTensors each rank attends its own batch rows and heads
+        run = on_local_heads if is_dtensor(q) else (lambda fn, *a: fn(*a))
+        out = run(lambda *a: plain(*a, window=window, softcap=softcap),
+                  q, k_all, v_all, q_pos, k_pos)
     elif backend == "chunked":
         out = ops.attention(q, k_all, v_all, causal=True, window=window,
                             softcap=softcap, q_pos=q_pos, k_pos=k_pos)

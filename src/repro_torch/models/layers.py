@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
+
 
 def rms_norm(x, weight, eps: float = 1e-5):
     """x·rsqrt(mean(x²) + eps)·(1 + weight), in float32, cast back to x's
@@ -69,7 +71,45 @@ def init_embed(vocab: int, d_model: int, dtype, *, generator=None, device=None):
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    table = params["table"]
+    if is_dtensor(table) or is_dtensor(tokens):
+        return _embed_on_mesh(table, tokens)
+    return table[tokens]
+
+
+def _embed_on_mesh(table, tokens):
+    """The lookup on DTensors as a vocab-parallel embedding, on each rank's
+    local shards (``launch.sharding.map_local``): each rank looks up the
+    tokens that fall in its vocab rows, zero elsewhere, and the result is a
+    partial sum over the mesh dims that shard the vocab (reduced where the
+    residual stream is made whole).  The table's feature dim is gathered
+    first; the tokens keep their batch sharding, gathered only over the
+    vocab dims, so the table's gradient is a partial sum over the batch
+    dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..launch.sharding import as_dtensors, map_local
+
+    mesh, (table, tokens) = as_dtensors(table, tokens)
+    vocab_dims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    t_pl = [Shard(0) if i in vocab_dims else Replicate() for i in range(mesh.ndim)]
+    k_pl = [Replicate() if i in vocab_dims else p for i, p in enumerate(tokens.placements)]
+    t_grad = [Partial() if isinstance(kp, Shard) else tp for tp, kp in zip(t_pl, k_pl)]
+    n_vocab = table.shape[0]
+    first = 0                        # this rank's first vocab row
+    for i in vocab_dims:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= n_vocab // math.prod(mesh.size(i) for i in vocab_dims)
+
+    def local(tab, tok):
+        rows = tok.to(torch.int64) - first
+        mine = (rows >= 0) & (rows < tab.shape[0])
+        out = tab[rows.clamp(0, tab.shape[0] - 1)]
+        return torch.where(mine[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                             device=out.device))
+
+    out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(k_pl)]
+    return map_local(local, (table, tokens), (t_pl, k_pl), out_pl, (t_grad, k_pl))
 
 
 def sinusoidal_positions(positions, d_model: int, dtype=torch.float32):

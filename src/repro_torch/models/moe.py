@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from .layers import act_fn, init_normal
 
 
@@ -67,6 +68,39 @@ def _expert_mlp(params, x, cfg):
     g = torch.einsum("ecd,edf->ecf", x, params["gate"])
     h = act_fn(cfg.mlp_act)(g) * h
     return torch.einsum("ecf,efd->ecd", h, params["down"])
+
+
+def _group_einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` for operands whose leading dim (the token
+    groups) the equation keeps independent.  On DTensors each rank runs it
+    on its own groups (``local_map``; the other dims whole): DTensor has no
+    sharding rule for the reshapes inside these einsums."""
+    if not (is_dtensor(a) or is_dtensor(b)):
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..launch.sharding import as_dtensors, map_local
+
+    _, (a, b) = as_dtensors(a, b)
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in a.placements]
+    return map_local(lambda x, y: torch.einsum(eq, x, y), (a, b), (pl, pl), pl)
+
+
+def _regroup(fn, t, src_dim: int, dst_dim: int):
+    """``fn(t)``, a permute and reshape that moves the token-group dim from
+    ``src_dim`` to (the outer part of) ``dst_dim``: on a DTensor each rank
+    applies it to its own groups (``local_map``), a shard of the groups
+    becoming a shard of ``dst_dim``; DTensor cannot merge a sharded dim
+    through a view."""
+    if not is_dtensor(t):
+        return fn(t)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..launch.sharding import map_local
+
+    pl_in = [Shard(src_dim) if p == Shard(src_dim) else Replicate() for p in t.placements]
+    pl_out = [Shard(dst_dim) if p == Shard(src_dim) else Replicate() for p in pl_in]
+    return map_local(fn, (t,), (pl_in,), pl_out)
 
 
 def load_balance_loss(probs, gates, n_experts: int):
@@ -109,12 +143,26 @@ def moe_capacity(params, x, cfg):
     are (n_g, G, E, C).  The pad rows route, take capacity and count in
     the aux loss's means, as in the JAX package.
 
-    The JAX package's ``wsc`` (``with_sharding_constraint`` on
-    ``cfg.act_batch_axis``) is numerically neutral; the port has no mesh
-    until its launch/ slice, so here it is a no-op and is left out.
+    ``cfg.act_batch_axis`` keeps the tokens sharded over that mesh axis
+    through the group reshapes, at the JAX package's points: a DTensor is
+    redistributed there (``launch.sharding.constrain``, JAX's
+    ``with_sharding_constraint``), a plain tensor is left as it is.  Either
+    way the numbers do not change.
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
+
+    def wsc(t, *spec):
+        # a "b" dim that the axis does not divide (fewer groups than ranks)
+        # stays whole: DTensor cannot reshape an uneven shard
+        ax = getattr(cfg, "act_batch_axis", None)
+        if ax is None or not is_dtensor(t):
+            return t
+        from ..launch.mesh import axis_size
+        from ..launch.sharding import P, constrain
+        n = axis_size(t.device_mesh, ax)
+        return constrain(t, P(*[(ax if s == "b" and t.shape[i] % n == 0 else None)
+                                for i, s in enumerate(spec)]))
 
     xt = x.reshape(-1, d)
     t = xt.shape[0]
@@ -122,13 +170,14 @@ def moe_capacity(params, x, cfg):
     pad = (-t) % g
     if pad:
         xt = F.pad(xt, (0, 0, 0, pad))
+    xt = wsc(xt, "b", "d")
     n_g = xt.shape[0] // g
     cap = max(1, math.ceil(g * k * cfg.capacity_factor / e))
     cap = min(cap, g)
 
     gates, probs, top_i = _route(params, xt, cfg)            # (T', E), (T', k)
-    gates_g = gates.reshape(n_g, g, e)
-    top_g = top_i.reshape(n_g, g, k)
+    gates_g = wsc(gates.reshape(n_g, g, e), "b", None, None)
+    top_g = wsc(top_i.reshape(n_g, g, k), "b", None, None)
     slots = torch.arange(cap, device=x.device, dtype=torch.float32)
 
     combine = torch.zeros((n_g, g, e, cap), dtype=torch.float32, device=x.device)
@@ -150,14 +199,20 @@ def moe_capacity(params, x, cfg):
 
     # dispatch: (n_g, E, C, D) → experts run on (E, n_g·C, D).  The one-hot
     # is built from routing decisions only: no gradient flows through it.
-    xg = xt.reshape(n_g, g, d)
+    xg = wsc(xt.reshape(n_g, g, d), "b", None, "d")
+    dispatch = wsc(dispatch, "b", None, None, None)
+    combine = wsc(combine, "b", None, None, None)
     disp_f = dispatch.to(xt.dtype)
-    xe = torch.einsum("gtec,gtd->gecd", disp_f, xg)
-    xe = xe.permute(1, 0, 2, 3).reshape(e, n_g * cap, d)
-    ye = _expert_mlp(params, xe, cfg)
-    ye = ye.reshape(e, n_g, cap, d).permute(1, 0, 2, 3)
-    out = torch.einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
-    out = out.reshape(-1, d)[:t]
+    xe = _group_einsum("gtec,gtd->gecd", disp_f, xg)
+    xe = wsc(xe, "b", None, None, "d")
+    xe = wsc(_regroup(lambda a: a.permute(1, 0, 2, 3).reshape(e, -1, d), xe, 0, 1),
+             None, "b", "d")
+    ye = wsc(_expert_mlp(params, xe, cfg), None, "b", "d")
+    ye = _regroup(lambda a: a.reshape(e, -1, cap, d).permute(1, 0, 2, 3), ye, 1, 0)
+    out = wsc(_group_einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye), "b", None, "d")
+    out = _regroup(lambda a: a.reshape(-1, d), out, 0, 0)
+    if pad:
+        out = out[:t]
     aux = load_balance_loss(probs, gates, e)
     return out.reshape(b, s, d), aux
 

@@ -32,7 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.pytree import tree_leaves, tree_map, tree_unflatten
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 from .attention import attention_block, init_attention, init_kv_cache
 from .config import ModelConfig
 from .layers import (embed, init_embed, init_mlp, init_normal, init_rms_norm,
@@ -151,26 +151,26 @@ def _apply_block(params, cfg, kind, x, rope_cs, rope_cs_local, positions,
         h, _ = attention_block(
             p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps), rope_cs=cs,
             positions=positions, window=window, cache=cache, backend=backend)
-        x = x + h
+        x = _whole_features(x + h)
         if kind != "shared_attn":
             h2 = rms_norm(x, params["ln2"], cfg.norm_eps)
             if cfg.n_experts:
                 h2, aux = moe(params["moe"], h2, cfg)
             else:
                 h2 = mlp(params["mlp"], h2, cfg.mlp_act, cfg.mlp_gated)
-            x = x + h2
+            x = _whole_features(x + h2)
         return x, aux
     if kind == "mamba2":
         h, _ = mamba2_block(params["mamba"], cfg,
                             rms_norm(x, params["ln1"], cfg.norm_eps), cache)
-        return x + h, aux
+        return _whole_features(x + h), aux
     if kind == "rwkv6":
         h, _ = rwkv6_time_mix(params["rwkv"], cfg,
                               rms_norm(x, params["ln1"], cfg.norm_eps), cache)
-        x = x + h
+        x = _whole_features(x + h)
         h2, _ = rwkv6_channel_mix(params["rwkv"], cfg,
                                   rms_norm(x, params["ln2"], cfg.norm_eps), cache)
-        return x + h2, aux
+        return _whole_features(x + h2), aux
     raise ValueError(kind)
 
 
@@ -206,6 +206,8 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
     if tokens is not None:
         x_parts.append(embed(params["embed"], tokens))
     x = x_parts[0] if len(x_parts) == 1 else torch.cat(x_parts, dim=1)
+    x = _whole_features(x, batch_like=tokens if tokens is not None
+                        else batch.get("extra_embeds"))
     b, s, _ = x.shape
     dev = x.device
 
@@ -267,7 +269,7 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
         if aux is not None:
             aux_total = aux_total + aux
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _whole_features(rms_norm(x, params["final_norm"], cfg.norm_eps))
     head = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
 
@@ -276,6 +278,23 @@ def forward(params, cfg: ModelConfig, batch, cache=None,
         new_cache = tree_map(lambda a: start + s if isinstance(a, int) else a,
                              new_cache)
     return ForwardOut(logits=logits, cache=new_cache, aux_loss=aux_total)
+
+
+def _whole_features(x, batch_like=None):
+    """On a DTensor, the residual stream with its feature dim whole on every
+    rank (the batch may stay sharded), as tensor parallelism keeps it: the
+    vocab-sharded embedding's partial sums are reduced here, and the
+    column-parallel projections that follow need no gather.  The batch dim
+    takes ``batch_like``'s sharding where that DTensor shards its dim 0."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..launch.sharding import relayout
+    like = batch_like.placements if is_dtensor(batch_like) else [None] * len(x.placements)
+    return relayout(x, tuple(Shard(0) if lp == Shard(0) else
+                             p if isinstance(p, Shard) and p.dim != x.dim() - 1 else
+                             Replicate() for p, lp in zip(x.placements, like)))
 
 
 def lm_loss(params, cfg: ModelConfig, batch, backend: str = "chunked",
@@ -287,8 +306,16 @@ def lm_loss(params, cfg: ModelConfig, batch, backend: str = "chunked",
     logits = out.logits[:, :-1].to(torch.float32)
     labels = batch["labels"][:, 1:]
     valid = labels >= 0
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.clamp(min=0)[..., None].to(torch.int64))[..., 0]
-    nll = torch.where(valid, lse - picked, 0.0)
+    if is_dtensor(logits):
+        # vocab-sharded logits: the max and the sum of exponentials reduce
+        # across ranks as (B, S) partials, not as whole logits
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = (logits - m).exp().sum(dim=-1).log() + m[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(min=0)[..., None].to(torch.int64))
+    # subtract before dropping the gathered dim: on vocab-sharded DTensor
+    # logits the gather is a masked partial sum, reduced at the subtraction
+    nll = torch.where(valid, (lse[..., None] - picked)[..., 0], 0.0)
     loss = nll.sum() / valid.sum().clamp(min=1)
     return loss + aux_coeff * out.aux_loss

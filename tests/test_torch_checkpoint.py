@@ -210,12 +210,70 @@ def test_keep_last_prunes_and_load_skips_corrupt(tmp_path):
 
 
 def test_sharded_checkpoints_are_not_ported(tmp_path):
-    tree = {"a": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="launch/"):
-        tstore.save(str(tmp_path / "s"), tree, specs={"a": None})
-    tstore.save(str(tmp_path / "s"), tree)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tstore.restore(str(tmp_path / "s"), tree, mesh=object())
+    """Sharded checkpoints (ported): a Fed-LT state laid out on a 1-rank
+    gloo fleet mesh saves with its specs and restores onto the mesh under
+    them bit for bit; the file is the unsharded one, which the JAX package
+    restores; ``mesh=`` without ``specs=`` restores plain tensors, as in
+    JAX."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.launch.sharding import fleet_specs, shard_fleet
+
+    js, ts = _states("fedlt")
+    with process_group(str(tmp_path / "rendezvous")):
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("fleet",))
+        specs = fleet_specs(ts, mesh, n_agents=5)
+        sharded = shard_fleet(ts, mesh, n_agents=5)
+        tstore.save(str(tmp_path / "s"), sharded, specs=specs, step=1)
+        back = tstore.restore(str(tmp_path / "s"), ts, mesh=mesh, specs=specs)
+        for a, b in zip(tree_leaves(ts)[:-1], tree_leaves(back)[:-1]):
+            assert isinstance(b, DTensor) and torch.equal(a, b.full_tensor())
+        assert back.k == 3
+        assert tree_leaves(back.x)[0].placements == tree_leaves(sharded.x)[0].placements
+        plain = tstore.restore(str(tmp_path / "s"), ts, mesh=mesh)
+        assert not isinstance(tree_leaves(plain)[0], DTensor)
+    got = jstore.restore(str(tmp_path / "s"), js)
+    for a, b in zip(jax.tree_util.tree_leaves(js), jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    meta = tstore.load_meta(str(tmp_path / "s"))
+    assert meta["specs"] == {"": str(specs)}
+
+
+def _spec_trees():
+    """The same spec trees in both packages: a dict of specs (tuple axes
+    included), and the NamedTuple of a deploy state's specs, which both
+    packages record whole, as one string (JAX sees a node with ``index``
+    as a leaf)."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.core.deploy import DeployState as JDeployState
+    from repro_torch.core.deploy import DeployState as TDeployState
+    from repro_torch.launch.sharding import P
+
+    def both(**entries):
+        return ({k: JP(*v) for k, v in entries.items()},
+                {k: P(*v) for k, v in entries.items()})
+
+    dj, dt = both(embed=("model", "data"), norm=(None,), up=(None, "data", "model"),
+                  stacked=(("pod", "data"), None), k=())
+    nested_j, nested_t = {"x": dj, "k": JP()}, {"x": dt, "k": P()}
+    return [(dj, dt), (nested_j, nested_t),
+            (JDeployState(x=dj, z=dj, c_up=dj, y_hat=dj, c_down=dj, k=JP()),
+             TDeployState(x=dt, z=dt, c_up=dt, y_hat=dt, c_down=dt, k=P()))]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_spec_strings_equal_jax(case, tmp_path):
+    """``meta["specs"]`` as the port writes it equals the JAX package's for
+    the same specs, name for name and string for string."""
+    spec_j, spec_t = _spec_trees()[case]
+    jstore.save(str(tmp_path / "j"), {"a": jnp.zeros(2)}, specs=spec_j)
+    tstore.save(str(tmp_path / "t"), {"a": torch.zeros(2)}, specs=spec_t)
+    want = jstore.load_meta(str(tmp_path / "j"))["specs"]
+    assert tstore.load_meta(str(tmp_path / "t"))["specs"] == want
+    assert tstore.spec_strings(spec_t) == want
 
 
 # -- resume through Experiment ------------------------------------------------

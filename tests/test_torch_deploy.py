@@ -300,11 +300,72 @@ def test_round_step_matches_jax(name, alg_kw, survivors, monkeypatch):
     print(f"{name}: {flips} level flips, each a half-level tie, over 2 rounds")
 
 
-def test_round_step_agent_replicate_spec_raises():
-    alg = DeployFedLT(cfg=CFG_T)
-    state = alg.init(2, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        alg.round_step(state, {}, agent_replicate_spec=object())
+def _rep_spec(state, mesh):
+    """The JAX dry-run's gather target: x's agent-stacked specs with the
+    agent dim replicated."""
+    from repro_torch.launch.sharding import P, param_specs
+    ps = param_specs(state.x, mesh, agent_axes=("data",), stacked=True, fsdp=None,
+                     tp=None)
+    return ps, tree_map(lambda _, sp: P(None, *tuple(sp)[1:]), state.x, ps)
+
+
+def _one_rank_state(state, mesh):
+    """``state`` laid out on a 1-rank ``("data",)`` mesh: (DTensor state,
+    the gather target)."""
+    from repro_torch.core.deploy import DeployState
+    from repro_torch.launch.sharding import distribute, param_specs
+
+    ps, rep = _rep_spec(state, mesh)
+    pc = param_specs(state.y_hat, mesh, agent_axes=(), tp=None)
+    put = lambda tree, specs: tree_map(lambda x, sp: distribute(x, mesh, sp), tree, specs)
+    return DeployState(x=put(state.x, ps), z=put(state.z, ps), c_up=put(state.c_up, ps),
+                       y_hat=put(state.y_hat, pc), c_down=put(state.c_down, pc),
+                       k=0), rep
+
+
+def test_round_step_agent_replicate_spec_raises(tmp_path):
+    """A gather target naming an axis the state's mesh lacks raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import process_group
+    from repro_torch.launch.sharding import P
+
+    alg = DeployFedLT(cfg=CFG_T, **QUANT)
+    state = alg.init(2, generator=torch.Generator().manual_seed(2), device="cpu")
+    with process_group(str(tmp_path / "rendezvous")):
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        sharded, _ = _one_rank_state(state, mesh)
+        with pytest.raises(ValueError, match="axes of the mesh"):
+            alg.round_step(sharded, _port_batch(_jax_batch(21)),
+                           agent_replicate_spec=tree_map(lambda _: P("model"), state.x))
+
+
+def test_round_step_agent_replicate_spec_equals_plain_round(tmp_path):
+    """On plain tensors ``agent_replicate_spec`` changes nothing; on a
+    DTensor state over a 1-rank gloo mesh the sharded round (the gather of
+    the integer wire over one rank) equals the plain round bit for bit,
+    packed and not."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import AbstractMesh, process_group
+
+    batch = _port_batch(_jax_batch(21))
+    for pack in (False, True):
+        alg = DeployFedLT(cfg=CFG_T, **QUANT, pack_wire=pack)
+        state = alg.init(2, generator=torch.Generator().manual_seed(2), device="cpu")
+        want, m_want = alg.round_step(state, batch)
+        _, rep = _rep_spec(state, AbstractMesh((1,), ("data",)))
+        plain, _ = alg.round_step(state, batch, agent_replicate_spec=rep)
+        for a, b in zip(tree_leaves(tuple(want)[:5]), tree_leaves(tuple(plain)[:5])):
+            assert torch.equal(a, b)
+        with process_group(str(tmp_path / f"rendezvous{int(pack)}")):
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            sharded, rep = _one_rank_state(state, mesh)
+            got, m_got = alg.round_step(sharded, batch, agent_replicate_spec=rep)
+            for a, b in zip(tree_leaves(tuple(want)[:5]), tree_leaves(tuple(got)[:5])):
+                assert torch.equal(a, b.full_tensor())
+            assert float(m_got["loss"]) == float(m_want["loss"])
+            assert m_got["wire_nbytes_per_agent"] == m_want["wire_nbytes_per_agent"]
 
 
 def test_round_step_leaves_its_input_state_alone():

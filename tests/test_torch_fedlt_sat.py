@@ -170,7 +170,8 @@ def test_fused_uplink_launch_path_counts_no_launch_on_cpu(problem):
 def test_not_ported_options_raise(problem, tmp_path):
     """Checkpoints and the ledger are ported (``tests/test_torch_checkpoint.py``,
     ``tests/test_torch_ledger.py``); what the reference refuses, the port
-    refuses too, and sharded checkpoints are not ported."""
+    refuses too.  Sharded checkpoints are ported as well: ``specs=`` is
+    recorded in the meta as the JAX package records it."""
     _, _, data_t, _ = problem
     q = tc.UniformQuantizer(**QUANT)
     alg = tf.FedLT(loss=tl.make_local_loss(50.0, N), uplink=te.EFChannel(q),
@@ -181,8 +182,8 @@ def test_not_ported_options_raise(problem, tmp_path):
         exp.run(st, data_t, 1, resume=True)
     with pytest.raises(ValueError, match="no trace records"):
         tapi.ExperimentResult(st, []).ingest(str(tmp_path / "l.jsonl"))
-    with pytest.raises(NotImplementedError, match="launch/"):
-        store.save(str(tmp_path / "ck"), st, specs=object())
+    store.save(str(tmp_path / "ck"), st, specs={"x": "fleet-spec"})
+    assert store.load_meta(str(tmp_path / "ck"))["specs"] == {"['x']": "fleet-spec"}
     with pytest.raises(ValueError, match="sync-only"):
         tapi.Experiment("walker-kiruna", alg, mode="async", measure="cohort",
                         device="cpu")

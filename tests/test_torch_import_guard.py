@@ -36,6 +36,8 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules
                if sys.modules[k] is not None)
+import torch.distributed as dist
+assert not dist.is_initialized()   # no module makes a process group at import
 print(" ".join(names))
 """
 
@@ -49,6 +51,9 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert len(names) >= 87                  # every module of the port
     for mod in ("moe", "mamba2", "rwkv6"):   # the MoE, Mamba2 and RWKV6 families
         assert f"repro_torch.models.{mod}" in names
+    for mod in ("launch.mesh", "launch.sharding", "launch.dryrun", "bench.roofline",
+                "bench.dryrun_all", "bench.perf_iterations"):   # the launch slice
+        assert f"repro_torch.{mod}" in names
     for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
                 "models", "configs", "launch", "examples"):
         assert (PORT / pkg / "__init__.py").exists()   # walked, not skipped

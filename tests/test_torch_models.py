@@ -258,12 +258,40 @@ def test_init_params_bf16_norms_stay_float32():
 
 
 def test_scan_unroll_waits_for_the_launch_slice():
-    """Every layer kind runs; cfg.scan_unroll (the reference's dry-run
-    costing, attention_chunked_unrolled) still raises."""
-    unrolled = dataclasses.replace(smoke_variant(ARCHS["stablelm-1.6b"]), scan_unroll=True)
-    p = ttf.init_params(unrolled, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.forward(p, unrolled, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+    """cfg.scan_unroll (the dry-run's costing path, no longer waiting):
+    attention takes attention_chunked_unrolled, and the forward's logits
+    equal the default chunked backend's at float32 (both attend exactly)."""
+    cfg = dataclasses.replace(smoke_variant(ARCHS["stablelm-1.6b"]), dtype="float32")
+    unrolled = dataclasses.replace(cfg, scan_unroll=True)
+    p = ttf.init_params(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
+    want = ttf.forward(p, cfg, {"tokens": toks}).logits
+    got = ttf.forward(p, unrolled, {"tokens": toks}).logits
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# (Sq, H, Hkv, D, window, softcap, chunk_q, chunk_k): Sq off the chunks pads
+# both the queries (position -1) and the keys (position 2**30)
+UNROLLED_CASES = [
+    (150, 4, 2, 32, None, None, 64, 64),
+    (200, 4, 1, 32, 50, 30.0, 64, 32),
+    (128, 4, 4, 16, None, None, 128, 128),
+    (130, 6, 2, 16, 40, None, 32, 64),
+]
+
+
+@pytest.mark.parametrize("case", UNROLLED_CASES, ids=str)
+def test_attention_chunked_unrolled_matches_jax(case):
+    """The dry-run's loop-free chunk pairs against jax.jit of the JAX
+    package's, float32, at rtol 1e-5: causal and windowed, softcapped, GQA,
+    padded chunks."""
+    s, h, hkv, d, window, softcap, cq, ck = case
+    q, k, v = attn_inputs(s, s, h, hkv, d, seed=s + h + d)
+    pos = np.arange(s, dtype=np.int32)
+    kw = dict(window=window, softcap=softcap, chunk_q=cq, chunk_k=ck)
+    want = jax.jit(lambda *a: jatt.attention_chunked_unrolled(*a, **kw))(q, k, v, pos, pos)
+    got = tatt.attention_chunked_unrolled(t(q), t(k), t(v), t(pos), t(pos), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

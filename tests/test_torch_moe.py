@@ -232,3 +232,35 @@ def test_no_gradient_through_the_dispatch_or_token_fractions():
     frac = (gates > 0).float().mean(0)
     expect = (tcfg.n_experts * frac / x.shape[0]).expand_as(g_probs)
     torch.testing.assert_close(g_probs, expect)
+
+
+def test_act_batch_axis_constraint_is_numerically_neutral(tmp_path):
+    """``cfg.act_batch_axis`` (the JAX package's ``with_sharding_constraint``
+    on the tokens): on plain tensors the capacity dispatch is bit for bit
+    the one without it; on DTensors over a 1-rank gloo ``("data",)`` mesh,
+    where each constraint is a redistribution, the output and the aux loss
+    equal the plain ones within 1e-6 (the JAX package's own tolerance for
+    this check)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import process_group
+
+    _, tcfg = configs(moe_dispatch="capacity")
+    cfg_wsc = dataclasses.replace(tcfg, act_batch_axis="data")
+    p = torch_tree(params_np(tcfg))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 128, tcfg.d_model)).astype(np.float32) * 0.5)
+    y, aux = tmoe.moe_capacity(p, x, tcfg)
+    y_wsc, aux_wsc = tmoe.moe_capacity(p, x, cfg_wsc)
+    assert torch.equal(y, y_wsc) and torch.equal(aux, aux_wsc)
+    with process_group(str(tmp_path / "rendezvous")):
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        rep = lambda a: DTensor.from_local(a, mesh, [Replicate()], run_check=False)
+        with implicit_replication():
+            y_d, aux_d = tmoe.moe_capacity({k: rep(v) for k, v in p.items()}, rep(x),
+                                           cfg_wsc)
+        np.testing.assert_allclose(y_d.full_tensor().numpy(), y.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(float(aux_d.full_tensor()), float(aux), rtol=1e-6)
