@@ -2329,6 +2329,7 @@ def check_train_grads(cfg, params, one: dict) -> dict:
     check(made == {"chunked": fa_want, "xla": {}}, f"{cfg.name} float32 gradients launched "
           f"{made}, expected {fa_want} with the kernels and none with plain attention")
     gaps = grad_gaps(grads["chunked"], grads["xla"])
+    del grads["chunked"]               # room for a control's gradients
     at = max(range(len(gaps)), key=gaps.__getitem__)
     check(max(gaps) <= TRAIN_GRAD_RTOL, f"{cfg.name} float32 gradient of {names[at]} "
           f"parts from plain attention's by {gaps[at]:.3e} of its largest value, over "
@@ -2413,6 +2414,14 @@ def route_calls():
     return recording(moe, "_route", lambda out, *a, **kw: (out[1].detach(), out[2]))
 
 
+def layer_windows(cfg) -> list:
+    """The windows of ``cfg``'s attention layers, each once (None: full)."""
+    from repro_torch.models.transformer import ATTN_KINDS
+    return sorted({cfg.sliding_window if k == "attn_local" else None
+                   for k in cfg.scan_unit + cfg.tail if k in ATTN_KINDS},
+                  key=lambda w: w or 0)
+
+
 def serve_family(arch: str, changes: dict, batch: int, prompt: int, steps: int,
                  launches: dict) -> dict:
     """One family at full width in bf16 (random weights from a seeded
@@ -2420,31 +2429,46 @@ def serve_family(arch: str, changes: dict, batch: int, prompt: int, steps: int,
     through launch/serve.py's make_prefill_step (timed after a first one),
     then ``steps`` greedy decode steps: logits finite, the prefill's
     launches one flash_attention_sm90 per attention layer at the model's
-    head dim (window and softcap as configured) and nothing else, decode
-    launching nothing."""
+    head dim (each layer's window, and the softcap, as configured) and
+    nothing else, decode launching nothing.  A VLM's prompts are
+    make_batch's layout: an extra_embeds prefix (vision_frac 0.25) before
+    the text tokens, at the M-RoPE grid positions the batch carries.  Then
+    flash_attention_sm90 at the prefill's shape against its plain version,
+    row by row, at each window the layers use."""
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import ATTN_KINDS, init_params
     cfg = family_config(arch, **changes)
     gen = torch.Generator(device=DEV).manual_seed(0)
     params, init_ms = sync_ms(lambda: init_params(cfg, generator=gen, device=DEV))
     n_params = sum(t.numel() for t in tree_leaves(params))
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=DEV)
+    if cfg.arch_type == "vlm":
+        from repro_torch.data.synthetic import make_batch, seeded
+        prompts = make_batch(cfg, seeded(0), batch, prompt, device=DEV)
+        del prompts["labels"]
+    else:
+        prompts = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                           generator=gen, device=DEV)}
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     torch.cuda.reset_peak_memory_stats()
-    warm_ms = sync_ms(lambda: prefill(params, {"tokens": prompts})[0])[1]
+    warm_ms = sync_ms(lambda: prefill(params, prompts)[0])[1]
     ops.reset_launch_counts()
     with attention_calls() as calls:
-        (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, {"tokens": prompts}))
+        (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, prompts))
     counts_p = {k: v for k, v in ops.launch_counts().items() if v}
     n_attn = n_attention_layers(cfg)
     want = {"flash_attention_sm90": n_attn} if n_attn else {}
     check(counts_p == want, f"{arch} prefill launched {counts_p}, expected {want}")
-    window = cfg.sliding_window if "attn_local" in cfg.scan_unit + cfg.tail else None
-    check(calls == [(cfg.head_dim, window, cfg.attn_logit_softcap)] * n_attn,
-          f"{arch} prefill's attention calls {set(calls)}, expected {n_attn} at head dim "
-          f"{cfg.head_dim}, window {window}, softcap {cfg.attn_logit_softcap}")
+    want_calls = [(cfg.head_dim, cfg.sliding_window if kind == "attn_local" else None,
+                   cfg.attn_logit_softcap) for kind in
+                  list(cfg.scan_unit) * cfg.scan_repeats + list(cfg.tail)
+                  if kind in ATTN_KINDS]
+    windows = layer_windows(cfg)
+    window = windows[0] if len(windows) == 1 else windows
+    check(calls == want_calls, f"{arch} prefill's attention calls {set(calls)}, expected "
+          f"{n_attn} at head dim {cfg.head_dim}, windows {window} layer by layer, "
+          f"softcap {cfg.attn_logit_softcap}")
     check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits not finite")
     check(logits.shape == (batch, cfg.vocab_size) and cache["length"] == prompt,
           f"{arch} prefill: logits {tuple(logits.shape)}, cache length {cache['length']}")
@@ -2484,7 +2508,8 @@ def serve_family(arch: str, changes: dict, batch: int, prompt: int, steps: int,
     del params, cache, logits, prompts
     free_card()
     if n_attn:
-        out["max_abs_err_path"] = check_family_flash(cfg, batch, prompt, window)
+        out["max_abs_err_path"] = max(check_family_flash(cfg, batch, prompt, w)
+                                      for w in windows)
     return out
 
 
@@ -2543,8 +2568,9 @@ def route_flips(kernel, plain, group: int) -> tuple:
     return out, flips, worst
 
 
-def check_family_f32(arch: str, launches: dict) -> dict:
-    """One family at full width and a cut depth in float32 (FAMILY_CHECK):
+def check_family_f32(arch: str, launches: dict, changes=None) -> dict:
+    """One family at full width and a cut depth in float32 (``changes``,
+    FAMILY_CHECK's by default):
     with the kernel (backend chunked: flash_attention, the float32 route)
     and with plain attention (backend xla), a prefill of 1 x
     FAMILY_CHECK_PROMPT tokens into a cache of prompt + FAMILY_CHECK_STEPS
@@ -2553,16 +2579,24 @@ def check_family_f32(arch: str, launches: dict) -> dict:
     row by row (rows left out where a route flips at a rounding tie,
     counted); for the recurrent families (Mamba2, RWKV6), each decode
     step's logits (the SSD or WKV recurrence) against a full forward over
-    the whole sequence (their chunked scan), within CHECK_REL_L2."""
+    the whole sequence (their chunked scan), within CHECK_REL_L2.  A VLM's
+    prompt is make_batch's layout (an extra_embeds prefix at M-RoPE grid
+    positions, then text tokens), and its decode steps feed random tokens."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_decode_step
     from repro_torch.models.moe import MOE_GROUP
     from repro_torch.models.transformer import forward, init_cache, init_params
-    cfg = family_config(arch, **FAMILY_CHECK[arch], dtype="float32")
+    cfg = family_config(arch, **(FAMILY_CHECK[arch] if changes is None else changes),
+                        dtype="float32")
     s, k = FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS
     gen = torch.Generator(device=DEV).manual_seed(1)
     params = init_params(cfg, generator=gen, device=DEV)
     toks = torch.randint(0, cfg.vocab_size, (1, s + k), generator=gen, device=DEV)
+    prompt = {"tokens": toks[:, :s]}
+    if cfg.arch_type == "vlm":
+        from repro_torch.data.synthetic import make_batch, seeded
+        prompt = make_batch(cfg, seeded(1), 1, s, device=DEV)
+        del prompt["labels"]
     n_attn = n_attention_layers(cfg)
     backends = ("chunked", "xla") if n_attn else ("chunked",)
     recurrent = bool({"mamba2", "rwkv6"} & set(cfg.scan_unit))
@@ -2570,7 +2604,7 @@ def check_family_f32(arch: str, launches: dict) -> dict:
     for backend in backends:
         ops.reset_launch_counts()
         with route_calls() as rc, torch.no_grad():
-            out = forward(params, cfg, {"tokens": toks[:, :s]},
+            out = forward(params, cfg, prompt,
                           cache=init_cache(cfg, 1, s + k, device=DEV), backend=backend)
             rows, cache = [out.logits[0]], out.cache
             del out
@@ -2722,6 +2756,21 @@ def rwkv6_gamma_curves(gamma: float = 0.02) -> dict:
     return out
 
 
+def family_grad(arch: str, changes: dict) -> dict:
+    """check_train_grads for ``arch`` at full width, the depth ``changes``
+    give and float32 (weights from seed 2), at agent 0's batch of the
+    first round."""
+    from repro_torch.models.transformer import init_params
+    cfg = family_config(arch, **changes, dtype="float32")
+    params = init_params(cfg, generator=torch.Generator(device=DEV).manual_seed(2),
+                         device=DEV)
+    batch = train_batch(cfg, 0)
+    out = check_train_grads(cfg, params, {k: t[0] for k, t in batch.items()})
+    del params, batch
+    free_card()
+    return out
+
+
 def phase_families(launches: dict) -> dict:
     """19: serve mixtral-8x7b (depth 8), zamba2-2.7b, rwkv6-3b and grok-1-314b
     (depth 1) at full width in bf16, hold mixtral, zamba2 and rwkv6 at a cut
@@ -2740,16 +2789,262 @@ def phase_families(launches: dict) -> dict:
                                           packed=arch == "mixtral-8x7b")
         free_card()
         lap(f"19e train {arch}")
-    cfg = family_config("zamba2-2.7b", **FAMILY_CHECK["zamba2-2.7b"], dtype="float32")
-    from repro_torch.models.transformer import init_params
-    params = init_params(cfg, generator=torch.Generator(device=DEV).manual_seed(2),
-                         device=DEV)
-    batch = train_batch(cfg, 0)
-    out["train"]["zamba2-2.7b"]["f32_grad"] = check_train_grads(
-        cfg, params, {k: t[0] for k, t in batch.items()})
-    del params, batch
-    free_card()
+    out["train"]["zamba2-2.7b"]["f32_grad"] = family_grad("zamba2-2.7b",
+                                                          FAMILY_CHECK["zamba2-2.7b"])
     lap("19e train zamba2-2.7b")
+    return out
+
+
+# -- phase 21: the last four catalog architectures ------------------------------
+
+#: serving at full width in bf16 (serve_family): (arch, depth changes,
+#: prompts, prompt, decode steps), every layer; gemma3-27b at 1 x 8192 (27.0 B
+#: parameters, 54 GB: 4 x 8192 would add 17.2 GB of (B, S, vocab) logits);
+#: qwen2-vl-7b's prompts are make_batch's VLM layout (2048 of the 8192
+#: positions an extra_embeds prefix at M-RoPE grid positions)
+CATALOG_SERVE = (
+    ("gemma3-27b", {}, 1, 8192, 4),
+    ("granite-20b", {}, 4, 8192, 32),
+    ("qwen2-vl-7b", {}, 4, 8192, 32),
+    ("musicgen-large", {}, 4, 8192, 32),
+)
+#: their float32 checks at full width (check_family_f32): gemma3 at one
+#: unit of its stack (five local layers, then the global one), the others at 2
+CATALOG_CHECK = {"gemma3-27b": dict(n_layers=6, scan_repeats=1, tail=()),
+                 "granite-20b": dict(n_layers=2, scan_repeats=2),
+                 "qwen2-vl-7b": dict(n_layers=2, scan_repeats=2),
+                 "musicgen-large": dict(n_layers=2, scan_repeats=2)}
+#: training through DeployFedLT as phase 19e (train_family), each cut from
+#: the top of the catalog's stack to about 1.6-1.8 B parameters (a round
+#: holds ~34 B a parameter: stablelm's 45.66 GiB for 1.439 B): (arch, depth
+#: changes, γ); granite-20b at 3 of 52 layers, then a packed round (as 17b),
+#: qwen2-vl-7b at 3 of 28 on the VLM batch, musicgen-large at 32 of 48,
+#: gemma3-27b at its first layer (local; its 262,144-token table is 1.41 B)
+CATALOG_TRAIN = (("granite-20b", dict(n_layers=3, scan_repeats=3), 0.02),
+                 ("qwen2-vl-7b", dict(n_layers=3, scan_repeats=3), 0.02),
+                 ("musicgen-large", dict(n_layers=32, scan_repeats=32), 0.02),
+                 ("gemma3-27b", dict(n_layers=1, scan_unit=("attn_local",),
+                                     scan_repeats=1, tail=()), 0.02))
+#: the attention kernels at the training path's shape of the archs whose
+#: heads or window no other phase runs (GQA groups 2, 48 and 7; gemma3's
+#: window 1024 and its global layers): TRAIN_BATCH x TRAIN_SEQ
+CATALOG_BWD = ("gemma3-27b", "granite-20b", "qwen2-vl-7b")
+
+
+def check_catalog_bwd(arch: str, errors: dict) -> dict:
+    """The forward with the backward's statistics and the backward at
+    ``arch``'s training shape (TRAIN_BATCH x TRAIN_SEQ, its heads and head
+    dim, causal, at each of its windows) on both routes (bf16:
+    flash_attention_sm90 then flash_attention_bwd_sm90; float32:
+    flash_attention then flash_attention_bwd), each one launch, held
+    against the plain versions one batch row at a time (FLASH_TOL,
+    FLASH_BWD_TOL), a second backward call equal bit for bit; the worst
+    errors are folded into ``errors``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    cfg = family_config(arch)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    for w in layer_windows(cfg):
+        for dtype in FLASH_BWD_TOL:
+            q, k, v, pos = attention_inputs(TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, dtype, 7)
+            do = torch.randn(q.shape, generator=torch.Generator(device=DEV).manual_seed(8),
+                             device=DEV).to(dtype)
+            kw = dict(causal=True, window=w)
+            what = (f"at {arch}'s training shape B={TRAIN_BATCH} S={TRAIN_SEQ} H={h}/{hkv} "
+                    f"D={d} W={w} {str(dtype)[6:]}")
+            fwd, bwd = fa.route(dtype, DEV), fa.bwd_route(dtype, DEV)
+            (o, lse, o32), made = launched(lambda: fa._forward(q, k, v, pos, pos, True, w,
+                                                               None, stats=True))
+            check(made == {fwd: 1}, f"{fwd} {what} launched {made}")
+            grads, made = launched(lambda: fa.flash_attention_bwd(
+                q, k, v, do, pos, pos, stats=(lse, o32), **kw))
+            check(made == {bwd: 1}, f"{bwd} {what} launched {made}")
+            again = fa.flash_attention_bwd(q, k, v, do, pos, pos, stats=(lse, o32), **kw)
+            check(all(same_bits(a, b) for a, b in zip(grads, again)),
+                  f"{bwd} {what}: two calls differ")
+            del again
+            e_f = e_b = 0.0
+            for i in range(TRAIN_BATCH):
+                row = lambda t: t[i:i + 1]
+                e_f = max(e_f, flash_check(row(o), ref.flash_attention_ref(
+                    row(q), row(k), row(v), pos, pos, **kw), f"{fwd} {what}, row {i}"))
+                e_b = max(e_b, flash_bwd_check(
+                    tuple(row(g) for g in grads), ref.flash_attention_bwd_ref(
+                        row(q), row(k), row(v), row(do), pos, pos, **kw),
+                    f"{what}, row {i}"))
+            errors[fwd], errors[bwd] = max(errors[fwd], e_f), max(errors[bwd], e_b)
+            out[f"{w} {str(dtype)[6:]}"] = {"forward": e_f, "backward": e_b}
+            print(f"[catalog] {fwd} (with the statistics) and {bwd} {what}: each batch "
+                  f"row within tolerance of the plain versions, max_abs_err {e_f:.3e} "
+                  f"(forward), {e_b:.3e} (dq, dk, dv); two backward calls equal bit for bit")
+            del q, k, v, do, o, lse, o32, grads
+    free_card()
+    return out
+
+
+def time_catalog_attention() -> dict:
+    """CUDA-event times (least of two runs of time_ms) of the attention
+    kernels at the new shapes beside their bounds (attention_work's for the
+    forward; the backward's as time_flash_bwd counts it: five S^2 D
+    products from the saved statistics at the dtype's peak): the bf16
+    forward at each arch's prefill shape and window, the bf16 and float32
+    backward at the training shape, and, at granite-20b's MQA training
+    shape, the backward of torch.nn.functional.scaled_dot_product_attention
+    (enable_gqa, is_causal; timed only, the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for arch, _, b, s, _ in CATALOG_SERVE:
+        cfg = family_config(arch)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q, k, v, pos = attention_inputs(b, s, h, hkv, d, torch.bfloat16, 2)
+        for w in layer_windows(cfg):
+            pairs, flops, nbytes, b_ms, b_by = attention_work(q, k, v, pos, w,
+                                                              BF16_OPS_PER_S)
+            runs = [time_ms(lambda: fa.flash_attention(q, k, v, window=w), 5, 2)
+                    for _ in range(2)]
+            ms = min(runs)
+            out[f"{arch} forward W={w}"] = rec = dict(
+                kernel="flash_attention_sm90", shape=[b, s, h, hkv, d], window=w, ms=ms,
+                ms_runs=runs, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                tflops=flops / ms / 1e9)
+            print(f"[catalog] flash_attention_sm90 at {arch}'s prefill shape B={b} S={s} "
+                  f"H={h}/{hkv} D={d} W={w} bf16: {ms:.3f} ms (runs "
+                  + ", ".join(f"{x:.3f}" for x in runs) + f"), {rec['tflops']:.1f} "
+                  f"TFLOP/s, {100 * rec['bound_share']:.1f}% of the bound {b_ms:.4f} ms "
+                  f"by {b_by}")
+        del q, k, v
+        free_card()
+    for arch in CATALOG_BWD:
+        cfg = family_config(arch)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for dtype in FLASH_BWD_TOL:
+            q, k, v, pos = attention_inputs(TRAIN_BATCH, TRAIN_SEQ, h, hkv, d, dtype, 6)
+            do = torch.randn(q.shape, device=DEV).to(dtype)
+            for w in layer_windows(cfg):
+                stats = fa._forward(q, k, v, pos, pos, True, w, None, stats=True)[1:]
+                fns = {"kern": lambda: fa.flash_attention_bwd(q, k, v, do, pos, pos,
+                                                              window=w, stats=stats)}
+                iters = {"kern": 5}
+                mqa = hkv == 1 and dtype == torch.bfloat16 and w is None
+                if mqa:
+                    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                                  for x in (q, k, v))
+                    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=True)
+                    do_t = do.transpose(1, 2)
+                    fns["sdpa"] = lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                              retain_graph=True)
+                    iters["sdpa"] = 5
+                runs = time_turns(fns, iters)
+                ms = min(runs["kern"])
+                pairs, fwd_flops, _, _, _ = attention_work(q, k, v, pos, w, BF16_OPS_PER_S)
+                flops = 5 * fwd_flops // 2          # five S^2 D products, 2 D flops each
+                nbytes = (q.element_size() * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                          + sum(x.numel() * x.element_size() for x in stats))
+                peak = (BF16_OPS_PER_S if dtype == torch.bfloat16
+                        else TF32_OPS_PER_S / TF32_TERMS)
+                b_ms, b_by = bound(nbytes, flops, peak)
+                rec = dict(kernel=fa.bwd_route(dtype, DEV),
+                           shape=[TRAIN_BATCH, TRAIN_SEQ, h, hkv, d], window=w,
+                           dtype=str(dtype)[6:], ms=ms, ms_runs=runs["kern"],
+                           bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                           tflops=flops / ms / 1e9)
+                if mqa:
+                    rec.update(library_ms=min(runs["sdpa"]), library_ms_runs=runs["sdpa"],
+                               library="scaled_dot_product_attention backward "
+                                       "(enable_gqa)",
+                               library_kernel=library_kernel_name(fns["sdpa"]))
+                    del qt, kt, vt, out_t, do_t
+                out[f"{arch} backward W={w} {rec['dtype']}"] = rec
+                print(f"[catalog] {rec['kernel']} at {arch}'s training shape "
+                      f"B={TRAIN_BATCH} S={TRAIN_SEQ} H={h}/{hkv} D={d} W={w} "
+                      f"{rec['dtype']}: {ms:.3f} ms (runs "
+                      + ", ".join(f"{x:.3f}" for x in runs["kern"]) + f"), "
+                      f"{rec['tflops']:.1f} TFLOP/s, {100 * rec['bound_share']:.1f}% of "
+                      f"the bound {b_ms:.4f} ms by {b_by}"
+                      + (f"; scaled_dot_product_attention's backward (enable_gqa) "
+                         f"{rec['library_ms']:.3f} ms (runs "
+                         + ", ".join(f"{x:.3f}" for x in runs["sdpa"])
+                         + f"; longest device kernel: {rec['library_kernel']})"
+                         if mqa else ""))
+                del stats
+            del q, k, v, do
+            free_card()
+    return out
+
+
+def run_examples() -> dict:
+    """The two examples ported in this slice, on the card: serve_lm's main
+    for each arch of CATALOG_SERVE (its smoke variant, plain attention as
+    the reference's ``backend="xla"``: no kernel launch) and quickstart's
+    main whole (400 rounds each way), its traces under build/quickstart:
+    every traced bytes_up the quantizer's (1250 B a round), and the run with
+    error feedback ending below the run without it."""
+    from repro_torch.configs import smoke_variant
+    from repro_torch.examples import quickstart, serve_lm
+    out = {}
+    for arch, *_ in CATALOG_SERVE:
+        (gen, made), ms = sync_ms(lambda: launched(lambda: serve_lm.main(
+            ["--arch", arch], device=DEV)))
+        vocab = smoke_variant(family_config(arch)).vocab_size
+        check(tuple(gen.shape) == (4, 16) and 0 <= int(gen.min()) <= int(gen.max()) < vocab
+              and not made, f"serve_lm --arch {arch}: tokens {tuple(gen.shape)} in "
+              f"[{int(gen.min())}, {int(gen.max())}], launches {made}")
+        out[f"serve_lm {arch}"] = {"ms": ms, "sample": gen[0].tolist()}
+    runs, ms = sync_ms(lambda: quickstart.main(device=DEV,
+                                               out_dir=str(BUILD / "quickstart")))
+    end = {}
+    for name, records in runs.items():
+        rounds = [r for r in records if r.get("kind") == "fl_round"]
+        check([r["bytes_up"] for r in rounds] == [1250 * (r["round"] + 1) for r in rounds]
+              and rounds[-1]["round"] == 399 and all(math.isfinite(r["error"])
+                                                    for r in rounds),
+              f"quickstart {name}: traced rounds {rounds}")
+        end[name] = rounds[-1]["error"]
+    check(end["alg2_ef"] < end["alg1_no_ef"], f"quickstart: the EF run ends at "
+          f"{end['alg2_ef']}, not below the no-EF run's {end['alg1_no_ef']}")
+    out["quickstart"] = {"s": ms / 1e3, "end_error": end}
+    print(f"[catalog] examples: serve_lm on the four archs' smoke variants ("
+          + ", ".join(f"{a.split()[1]} {r['ms']:.0f} ms" for a, r in out.items()
+                      if a.startswith("serve_lm"))
+          + f"); quickstart {ms / 1e3:.1f} s, final error with EF {end['alg2_ef']:.6f} "
+          f"below without {end['alg1_no_ef']:.6f}, bytes_up 1250 B a round")
+    return out
+
+
+def phase_catalog(launches: dict, errors: dict) -> dict:
+    """21: serve gemma3-27b, granite-20b, qwen2-vl-7b and musicgen-large at
+    full width and depth in bf16 and hold them at a cut depth in float32
+    (kernel vs plain attention), train each through DeployFedLT at a cut
+    depth (one packed granite round), gemma3's float32 gradient through
+    the kernels at one unit, the attention kernels at the new head groups
+    and window, and the quickstart and serve_lm examples.  Counts are
+    zeroed before each run."""
+    out = {"serve": {}, "f32": {}, "train": {}}
+    for arch, changes, batch, prompt, steps in CATALOG_SERVE:
+        out["serve"][arch] = rec = serve_family(arch, changes, batch, prompt, steps,
+                                                launches)
+        errors["flash_attention_sm90"] = max(errors["flash_attention_sm90"],
+                                             rec["max_abs_err_path"])
+        out["f32"][arch] = check_family_f32(arch, launches, CATALOG_CHECK[arch])
+        lap(f"21 {arch}")
+    for arch, changes, gamma in CATALOG_TRAIN:
+        out["train"][arch] = train_family(arch, changes, gamma, launches,
+                                          packed=arch == "granite-20b")
+        free_card()
+        lap(f"21 train {arch}")
+    # the global layer and its RoPE table train only here: one unit of the
+    # stack (five local layers, then the global one)
+    out["train"]["gemma3-27b"]["f32_grad"] = family_grad("gemma3-27b",
+                                                         CATALOG_CHECK["gemma3-27b"])
+    lap("21 train gemma3-27b")
+    out["kernels"] = {arch: check_catalog_bwd(arch, errors) for arch in CATALOG_BWD}
+    out["times"] = time_catalog_attention()
+    lap("21 kernels")
+    out["examples"] = run_examples()
+    lap("21 examples")
     return out
 
 
@@ -4178,6 +4473,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("17c train float32")
     families = phase_families(launches)   # zeroed per run; laps of its own
+    catalog = phase_catalog(launches, errors)   # zeroed per run; laps of its own
     launch = phase_launch(launches)      # zeroed per run
     lap("20 launch")
     print(f"[main path] launches over every main-path run: {launches}")
@@ -4219,6 +4515,7 @@ def main() -> int:
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[train] summary: {json.dumps(train)}")
     print(f"[families] summary: {json.dumps(families)}")
+    print(f"[catalog] summary: {json.dumps(catalog)}")
     print(f"[launch] summary: {json.dumps(launch)}")
     print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[resume] summary: {json.dumps(resume)}")

@@ -64,19 +64,30 @@ from ..device import DTensor, is_dtensor
 from ..kernels import ops
 from ..kernels.pack_bits import _TILE_VALS
 from ..models.transformer import init_params, lm_loss
-from .compression import quantize_decode, quantize_encode, wire_index_bits
+from .compression import (PIECE, _int_dtype, quantize_decode, quantize_encode,
+                          wire_index_bits)
 from .pytree import tree_leaves, tree_map, tree_unflatten
 
 
 def _quantize_ef(z, c, q):
     """Level ints of z + c, formed in float32, and the new EF cache in z's
-    dtype; with ``c`` None, the level ints of z alone."""
-    if c is None:
-        return quantize_encode(z.to(torch.float32), **q), None
-    m = z.to(torch.float32) + c
-    w = quantize_encode(m, **q)
-    m -= quantize_decode(w, **q)
-    return w, m.to(z.dtype)
+    dtype; with ``c`` None, the level ints of z alone.  A piece of
+    ``PIECE`` values at a time, so the float32 copies of an agent-stacked
+    leaf never exist whole (gemma3-27b's embedding table with two agents
+    is 2.8e9 values, 11 GB a float32 copy)."""
+    zf = z.reshape(-1)
+    w = torch.empty(zf.shape, dtype=_int_dtype(q["levels"]), device=z.device)
+    newc = None if c is None else torch.empty(zf.shape, dtype=z.dtype, device=z.device)
+    cf = None if c is None else c.reshape(-1)
+    for s in range(0, zf.numel(), PIECE):
+        m = zf[s:s + PIECE].to(torch.float32)
+        if c is not None:
+            m = m + cf[s:s + PIECE]            # a new tensor: z is never written
+        w[s:s + PIECE] = quantize_encode(m, **q)
+        if c is not None:
+            m -= quantize_decode(w[s:s + PIECE], **q)
+            newc[s:s + PIECE] = m
+    return w.view(z.shape), None if c is None else newc.view(z.shape)
 
 
 def emit_round_series(step: int, metrics: dict) -> None:

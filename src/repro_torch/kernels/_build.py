@@ -77,10 +77,11 @@ KERNELS = {
     # q, k, v, dout, dq, dk, dv, lse and o32 (the forward's), delta and
     # nokey (scratch), q_pos, k_pos, the (B, S, H) strides of q, k, v and
     # dout, B, H, Hkv, Sq, Sk, D, padded D, lse's row, causal, window,
-    # scale, softcap; one call enqueues its three grids and counts as one
+    # scale, softcap, and dk32 and dv32 (float32 scratch where H > Hkv, else
+    # null); one call enqueues its three grids and counts as one
     "flash_attention_bwd_sm90": ("flash_attention_bwd_sm90.cu",
                                  "repro_flash_attention_bwd_sm90",
-                                 (_P,) * 13 + (_L,) * 12 + (_I,) * 10 + (_F, _F)),
+                                 (_P,) * 13 + (_L,) * 12 + (_I,) * 10 + (_F, _F, _P, _P)),
 }
 
 #: launches per kernel, counted where :func:`launch` starts the kernel and

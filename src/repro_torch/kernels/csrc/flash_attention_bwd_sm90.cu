@@ -44,7 +44,16 @@
 //           dK  += (dS^T_hi + dS^T_lo) Q    and Q read MN-major
 //
 //         then adds the rows that see no key (their dO / Sk) to dV and
-//         writes dK (times 1/sqrt(D)) and dV in bf16;
+//         writes dK (times 1/sqrt(D)) and dV in bf16.  The accumulators'
+//         sums round toward zero at every step, so one chain over a group
+//         of 48 heads (granite-20b's MQA) drifts from the plain sum by
+//         1.5e-4 of its size on average and its worst elements by over one
+//         bf16 rounding, against 6e-6 for one head (bench/attention_bwd.py
+//         measures both).  So a chain takes as many heads as keep it within
+//         CHAIN_TILES query tiles (at least one); then the accumulators are
+//         added by FADDs to a float32 sum in global memory (dk32, dv32:
+//         rows only this block touches) and start again from zero, and the
+//         last chain adds that sum before the store;
 //   dq    one block per (b, h, 64 query rows), longest first: Q and dO stay
 //         in shared memory, a ring of K and V tiles of 64 keys;
 //
@@ -109,6 +118,8 @@ struct Params {
   __nv_bfloat16* dq;          // (B, Sq, H, D) contiguous
   __nv_bfloat16* dk;          // (B, Sk, Hkv, D) contiguous
   __nv_bfloat16* dv;
+  float* dk32;                // (B, Sk, Hkv, D) float32: the group's sums (n_rep > 1)
+  float* dv32;
   int H, Hkv, n_rep, Sq, Sk, D, causal, window, lse_stride;
   float scale, softcap;
 };
@@ -264,6 +275,58 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NV / 2], __nv_bflo
   }
 }
 
+// Query tiles one dK/dV accumulator chain takes at most (whole heads, at
+// least one) before it goes to the float32 sums: a chain of this length
+// (four heads at S = 2048, D = 128) drifts by 2e-5 of |dK| on average and
+// keeps every element within half the check's one rounding.
+constexpr int CHAIN_TILES = 256;
+
+// out[rows] (float32, the accumulator's layout as store_rows writes it)
+// = acc, or += acc unless ``first``; then acc = 0.  Each element is read
+// and written by the one thread that holds it, so no block sync is needed.
+template <int NV>
+__device__ __forceinline__ void add_rows(float (&acc)[NV / 2], float* out, long long stride,
+                                         int row0, int valid, int D, bool first) {
+  const int tw = threadIdx.x & 127, w = tw >> 5, lane = tw & 31, g = lane >> 2,
+            c = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 16 * w + g + 8 * rr;
+    float* row = out + static_cast<long long>(r) * stride;
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& a = acc[4 * j + 2 * rr + e];
+        if (r < valid && col + e < D) row[col + e] = first ? a : row[col + e] + a;
+        a = 0.f;
+      }
+    }
+  }
+}
+
+// acc += in[rows] (float32, add_rows' layout) inside the valid rows and D.
+template <int NV>
+__device__ __forceinline__ void load_add_rows(float (&acc)[NV / 2], const float* in,
+                                              long long stride, int row0, int valid,
+                                              int D) {
+  const int tw = threadIdx.x & 127, w = tw >> 5, lane = tw & 31, g = lane >> 2,
+            c = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 16 * w + g + 8 * rr;
+    const float* row = in + static_cast<long long>(r) * stride;
+#pragma unroll
+    for (int j = 0; j < NV / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (r < valid && col + e < D) acc[4 * j + 2 * rr + e] += row[col + e];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // prep: D and the no-key counts.  Warp w takes rows r0 + 8 w .. + 7 of the
 // block's 64, lane l columns l, l + 32, ...
@@ -306,7 +369,9 @@ flash_attention_bwd_sm90_prep_kernel(const Params p) {
 
 // ---------------------------------------------------------------------------
 // dkdv
-template <int HALVES, int BQ, int NV>
+// GROUP: more than one query head per KV head (the float32 sums of the
+// accumulator chains); without it the kernel has no code for them.
+template <int HALVES, int BQ, int NV, bool GROUP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_bwd_sm90_dkdv_kernel(__grid_constant__ const CUtensorMap q_map,
                 __grid_constant__ const CUtensorMap do_map,
@@ -394,6 +459,17 @@ flash_attention_bwd_sm90_dkdv_kernel(__grid_constant__ const CUtensorMap q_map,
   uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
 #pragma unroll
   for (int i = 0; i < NV / 2; ++i) dv[i] = dk[i] = 0.f;
+  // the rows of dK and dV (and of their float32 sums) this block writes
+  const auto rows_at = [&](long long stride) {
+    return static_cast<long long>(b) * p.Sk * stride + static_cast<long long>(hk) * p.D;
+  };
+  // heads per accumulator chain (period < n_rep: the float32 sums are used)
+  int period = 1;
+  if constexpr (GROUP) {
+    int n_vis = 0;
+    for (int qt = 0; qt < n_qt; ++qt) n_vis += plan[qt] != 0;
+    period = max(1, CHAIN_TILES / max(n_vis, 1));
+  }
 
   mbar_wait(kv_full, 0);
   int stage = 0;
@@ -464,6 +540,13 @@ flash_attention_bwd_sm90_dkdv_kernel(__grid_constant__ const CUtensorMap q_map,
       mbar_arrive(empty + 8 * stage);
       if (++stage == STAGES) { stage = 0; phase ^= 1; }
     }
+    if constexpr (GROUP) {
+      if ((r + 1) % period == 0 && r + 1 < p.n_rep) {  // the chain into the sums
+        const long long stride = static_cast<long long>(p.Hkv) * p.D, at = rows_at(stride);
+        add_rows<NV>(dk, p.dk32 + at, stride, k0, p.Sk, p.D, r + 1 == period);
+        add_rows<NV>(dv, p.dv32 + at, stride, k0, p.Sk, p.D, r + 1 == period);
+      }
+    }
   }
 
   // -- rows that see no key: P = 1/Sk over every key, so every dV_j gains
@@ -496,9 +579,11 @@ flash_attention_bwd_sm90_dkdv_kernel(__grid_constant__ const CUtensorMap q_map,
     named_sync<CONSUMERS>(1);
   }
 
-  const long long stride = static_cast<long long>(p.Hkv) * p.D;
-  const long long at = static_cast<long long>(b) * p.Sk * stride +
-                       static_cast<long long>(hk) * p.D;
+  const long long stride = static_cast<long long>(p.Hkv) * p.D, at = rows_at(stride);
+  if (GROUP && period < p.n_rep) {
+    load_add_rows<NV>(dk, p.dk32 + at, stride, k0, p.Sk, p.D);
+    load_add_rows<NV>(dv, p.dv32 + at, stride, k0, p.Sk, p.D);
+  }
   store_rows<NV>(dk, p.dk + at, stride, k0, p.Sk, p.D, p.scale, nullptr);
   store_rows<NV>(dv, p.dv + at, stride, k0, p.Sk, p.D, 1.f, any ? mean : nullptr);
 }
@@ -662,7 +747,8 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
 
 template <int HALVES, int BQ, int NV>
 cudaError_t launch_all(const Maps& m, const Params& p, int B, cudaStream_t st) {
-  const auto dkdv = flash_attention_bwd_sm90_dkdv_kernel<HALVES, BQ, NV>;
+  const auto dkdv = p.n_rep > 1 ? flash_attention_bwd_sm90_dkdv_kernel<HALVES, BQ, NV, true>
+                                : flash_attention_bwd_sm90_dkdv_kernel<HALVES, BQ, NV, false>;
   const auto dq = flash_attention_bwd_sm90_dq_kernel<HALVES, NV>;
   const int n_kt = (p.Sk + BLK - 1) / BLK;
   const int kv_smem = DkdvSmem<HALVES, BQ>::bytes((p.Sq + BQ - 1) / BQ);
@@ -690,9 +776,10 @@ cudaError_t launch_all(const Maps& m, const Params& p, int B, cudaStream_t st) {
 // float32 from the forward (flash_attention_sm90.cu), lse_stride >= Sq a
 // multiple of 128 with +inf past Sq; scratch delta (B, H, lse_stride)
 // float32 and nokey (B, H, lse_stride / 64) int32, both written; dq (B, Sq,
-// H, D), dk and dv (B, Sk, Hkv, D) bf16 contiguous.  q_pos (Sq,) and k_pos
-// (Sk,) int32.  window <= 0 means none, softcap <= 0 none.  D <= 128;
-// lse_stride / 64, ceil(Sk / 64) <= 65535 and each plan (a byte per tile)
+// H, D), dk and dv (B, Sk, Hkv, D) bf16 contiguous; where H > Hkv, scratch
+// dk32 and dv32 (B, Sk, Hkv, D) float32 contiguous (else null), written
+// before they are read.  q_pos (Sq,) and k_pos (Sk,) int32.  window <= 0
+// means none, softcap <= 0 none.  D <= 128; lse_stride / 64, ceil(Sk / 64) <= 65535 and each plan (a byte per tile)
 // fits in shared memory (the wrapper checks both).  Enqueues three grids.
 extern "C" int repro_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
@@ -701,10 +788,10 @@ extern "C" int repro_flash_attention_bwd_sm90(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long do_sb, long long do_ss, long long do_sh, int B, int H, int Hkv, int Sq,
     int Sk, int D, int Dp, int lse_stride, int causal, int window, float scale,
-    float softcap, void* stream) {
+    float softcap, void* dk32, void* dv32, void* stream) {
   if (D < 1 || D > 128 || Dp < D || Dp % 8 != 0 || H % Hkv != 0 || Sk < 1 || Sq < 1 ||
       lse_stride < Sq || lse_stride % 128 != 0 || lse_stride / BLK > 65535 ||
-      (Sk + BLK - 1) / BLK > 65535)
+      (Sk + BLK - 1) / BLK > 65535 || (H > Hkv && (dk32 == nullptr || dv32 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int bq = D <= 64 ? 64 : 32;
   Maps m;
@@ -731,6 +818,8 @@ extern "C" int repro_flash_attention_bwd_sm90(
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk32 = static_cast<float*>(dk32);
+  p.dv32 = static_cast<float*>(dv32);
   p.H = H;
   p.Hkv = Hkv;
   p.n_rep = H / Hkv;

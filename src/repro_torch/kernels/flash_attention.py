@@ -505,12 +505,16 @@ def _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, lse, 
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    # the float32 sums of a group's long dK/dV chains (the kernel's header
+    # says why)
+    sums = [torch.empty(dk.shape, dtype=torch.float32, device=q.device)
+            for _ in range(2)] if h > hkv else [None, None]
     (q, q_st), (k, k_st), (v, v_st), (dout, do_st) = (tma_layout(t)
                                                       for t in (q, k, v, dout))
     _build.launch("flash_attention_bwd_sm90", q, k, v, dout, dq, dk, dv, lse, o32, delta,
                   nokey, q_pos, k_pos, *q_st, *k_st, *v_st, *do_st, b, h, hkv, sq, sk, d,
                   q.shape[-1], lse.shape[-1], int(causal), window or 0,
-                  1.0 / math.sqrt(d), float(softcap or 0.0))
+                  1.0 / math.sqrt(d), float(softcap or 0.0), *sums)
     return dq, dk, dv
 
 

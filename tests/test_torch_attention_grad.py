@@ -655,3 +655,31 @@ def test_cuda_flash_attention_bwd_matches_plain(dtype, rtol, atol):
         for g, a, w in zip(got, again, want):
             assert torch.equal(g, a)
             torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_bwd_sums_a_large_group_in_float32():
+    """granite-20b's MQA training shape (B 2, S 2048, 48 query heads on one
+    KV head, D 128): the bf16 backward adds its dK and dV accumulators to
+    float32 sums every 256 query tiles, so each element stays within one
+    rounding of the plain version's and the signed drift toward zero,
+    which one wgmma accumulator chain over the 48 heads takes to 1.5e-4 of
+    |dK|, stays near a chain of four heads' (2e-5; bench/attention_bwd.py
+    measures it by group size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((2, 2048, 48, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((2, 2048, 1, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(2048, dtype=torch.int32, device="cuda")
+    got = tfa.flash_attention_bwd(q, k, v, do, pos, pos)
+    for i in range(2):
+        row = lambda t: t[i:i + 1]
+        want = ref.flash_attention_bwd_ref(*(row(t).float() for t in (q, k, v, do)),
+                                           pos, pos)
+        for g, w in zip(got, want):
+            g = row(g).float()
+            torch.testing.assert_close(g, w, rtol=2**-7, atol=1e-3)
+            assert float(((g - w) * w.sign()).mean() / w.abs().mean()) > -4e-5

@@ -58,7 +58,14 @@ def _jax_batch(seed: int, n_agents: int = 2, batch: int = 2, seq: int = 32):
 
 
 def _port_batch(batch_j):
-    return {k: torch.from_numpy(np.array(v)).long() for k, v in batch_j.items()}
+    """The JAX batch as torch tensors: integer leaves (tokens, labels, M-RoPE
+    positions) as int64, float leaves (a VLM batch's ``extra_embeds``) as
+    they are."""
+    out = {}
+    for k, v in batch_j.items():
+        t = torch.from_numpy(np.array(v))
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def test_lm_loss_and_gradient_match_jax():
@@ -83,10 +90,17 @@ def test_lm_loss_and_gradient_match_jax():
 
 #: the other families' smoke variants (float32, one scan unit; d 256):
 #: MoE with dense and with capacity dispatch, Mamba2 with a shared
-#: attention block, RWKV6; sequences of 64 tokens, one chunk (ROADMAP
-#: Queue 3: shorter prompts visit no key in the reference's chunked attention)
+#: attention block, RWKV6; and the dense, VLM and audio archs the CPU
+#: training tests above do not reach: gemma3 (q/k norms, a local layer and
+#: a global one with their two RoPE tables: its unit of five local layers
+#: and a global one cut to one of each), granite (MQA, learned positions,
+#: a GELU MLP), qwen2-vl on make_batch's VLM batch (a prepended
+#: extra_embeds prefix with labels -1 and (3, B, S) M-RoPE positions,
+#: stacked (A, 3, B, S) in the round) and musicgen (sinusoidal positions);
+#: sequences of 64 tokens, one chunk (ROADMAP Queue 3: shorter prompts
+#: visit no key in the reference's chunked attention)
 LATER = ["grok-1-314b", "mixtral-8x7b", "mixtral-8x7b-capacity", "zamba2-2.7b",
-         "rwkv6-3b"]
+         "rwkv6-3b", "gemma3-27b", "granite-20b", "qwen2-vl-7b", "musicgen-large"]
 LATER_SEQ = 64
 
 
@@ -96,6 +110,8 @@ def _later_configs(name):
     base, kw = name, {}
     if name == "mixtral-8x7b-capacity":
         base, kw = "mixtral-8x7b", dict(name=name, moe_dispatch="capacity")
+    if name == "gemma3-27b":
+        kw = dict(n_layers=2, scan_unit=("attn_local", "attn"))
     return (dataclasses.replace(jax_smoke(JAX_ARCHS[base]), **kw),
             dataclasses.replace(smoke_variant(ARCHS[base]), **kw))
 
@@ -158,6 +174,11 @@ def test_round_step_matches_jax_for_moe_ssm_and_rwkv(name):
     alg_j, alg_t = JaxDeploy(cfg=cfg_j, **kw), DeployFedLT(cfg=cfg_t, **kw)
     state = alg_j.init(jax.random.PRNGKey(0), 2)
     batch = _later_batch(cfg_j, 10)
+    if cfg_t.arch_type == "vlm":       # make_batch's VLM layout, stacked over agents
+        s_vis = LATER_SEQ // 4
+        assert batch["positions"].shape == (2, 3, 2, LATER_SEQ)
+        assert batch["extra_embeds"].shape == (2, 2, s_vis, cfg_t.d_model)
+        assert bool((batch["labels"][:, :, :s_vis] == -1).all())
     s1_j, m_j = jax.jit(alg_j.round_step)(state, batch)
     s1_t, m_t = alg_t.round_step(convert.deploy_state_from_jax(np_tree(state), "cpu"),
                                  _port_batch(batch))
@@ -184,6 +205,31 @@ def test_lm_loss_without_remat_is_the_same():
         grads.append(torch.autograd.grad(out.logits.square().mean(), tree_leaves(pt)))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+def test_quantize_ef_in_pieces_equals_the_whole_leaf(monkeypatch):
+    """The unfused uplink's quantizer forms z + c in float32 a piece at a
+    time: with pieces of 1000 values over a (2, 3, 1001) leaf, its level
+    ints and new cache equal the whole-leaf formula bit for bit, in float32
+    and bf16, with and without a cache, and z and c stay as they were."""
+    from repro_torch.core import deploy
+    from repro_torch.core.compression import quantize_decode, quantize_encode
+    monkeypatch.setattr(deploy, "PIECE", 1000)
+    gen = torch.Generator().manual_seed(0)
+    q = dict(levels=255, vmin=-1.0, vmax=1.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        z = (torch.randn((2, 3, 1001), generator=gen) * 0.7).to(dtype)
+        c = (torch.randn(z.shape, generator=gen) * 0.01).to(dtype)
+        z0, c0 = z.clone(), c.clone()
+        w, nc = deploy._quantize_ef(z, c, q)
+        m = z.to(torch.float32) + c
+        want = quantize_encode(m, **q)
+        m -= quantize_decode(want, **q)
+        assert torch.equal(w, want) and w.dtype == torch.uint8
+        assert torch.equal(nc, m.to(dtype)) and nc.dtype == dtype
+        w0, none = deploy._quantize_ef(z, None, q)
+        assert none is None and torch.equal(w0, quantize_encode(z.to(torch.float32), **q))
+        assert torch.equal(z, z0) and torch.equal(c, c0)
 
 
 def _near_boundary(m, levels, vmin, vmax):

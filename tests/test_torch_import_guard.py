@@ -18,7 +18,8 @@ from repro_torch.bench import table_fault_tolerance, table_lossy_ef, table_plane
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.core.deploy import DeployFedLT
 from repro_torch.data import logistic, synthetic
-from repro_torch.examples import satellite_constellation, train_federated_lm
+from repro_torch.examples import (quickstart, satellite_constellation, serve_lm,
+                                  train_federated_lm)
 from repro_torch.launch import train
 from repro_torch.models import transformer
 from repro_torch.obs import report
@@ -52,7 +53,8 @@ def test_port_imports_with_jax_and_repro_blocked():
     for mod in ("moe", "mamba2", "rwkv6"):   # the MoE, Mamba2 and RWKV6 families
         assert f"repro_torch.models.{mod}" in names
     for mod in ("launch.mesh", "launch.sharding", "launch.dryrun", "bench.roofline",
-                "bench.dryrun_all", "bench.perf_iterations"):   # the launch slice
+                "bench.dryrun_all", "bench.perf_iterations",    # the launch slice
+                "examples.quickstart", "examples.serve_lm"):
         assert f"repro_torch.{mod}" in names
     for pkg in ("constellation", "sim", "channel", "faults", "obs", "bench",
                 "models", "configs", "launch", "examples"):
@@ -102,13 +104,15 @@ def test_no_jax_or_repro_import(path):
                                  synthetic.seeded(0), 1, 8),
     lambda: train_federated_lm.main(["--rounds", "1"]),
     lambda: convert.deploy_state_from_jax(None),
+    lambda: quickstart.main(rounds=1),
+    lambda: serve_lm.main(["--arch", "granite-20b", "--tokens", "2"]),
 ], ids=["resolve_device", "generate", "data_from_numpy", "Experiment",
         "run_canonical", "lossy_round", "round_pipeline", "init_params",
         "init_cache", "model_params_from_jax", "bench_problem", "table1",
         "table2", "fig4", "constellation_example", "table_lossy_ef",
         "table_fault_tolerance", "table_plane_agg", "convgate", "launch_train",
         "deploy_init", "make_batch", "train_federated_lm_example",
-        "deploy_state_from_jax"])
+        "deploy_state_from_jax", "quickstart_example", "serve_lm_example"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

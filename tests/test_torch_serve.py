@@ -87,26 +87,95 @@ def close_caches(ours, theirs, what: str) -> None:
         close(a, b, f"{what}: leaf {i}")
 
 
-@pytest.mark.parametrize("name", DENSE + ["h2o-danube-3-4b-gqa"] + LATER)
-def test_prefill_and_decode_match_jax(name):
+def serve_both(name: str, batch: dict, length: int):
+    """A prefill of ``batch`` (numpy leaves) and STEPS decode steps fed
+    JAX's greedy tokens, in both packages: logits and caches equal at
+    rtol 1e-4 / atol 1e-5 after each step.  Returns the port's last cache."""
     jcfg, tcfg, jparams, tparams = setup(name)
-    toks = prompts(jcfg.vocab_size)
     j_prefill = jax.jit(jserve.make_prefill_step(jcfg, backend="chunked"))
     j_decode = jax.jit(jserve.make_decode_step(jcfg, backend="chunked"))
     t_prefill, t_decode = make_prefill_step(tcfg), make_decode_step(tcfg)
 
-    jl, jc = j_prefill(jparams, {"tokens": jnp.asarray(toks)})
-    tl, tc = t_prefill(tparams, {"tokens": torch.from_numpy(toks)})
+    jl, jc = j_prefill(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tc = t_prefill(tparams, {k: torch.from_numpy(v) for k, v in batch.items()})
     close(tl, jl, f"{name} prefill logits")
     close_caches(tc, jc, f"{name} prefill cache")
-    assert tc["length"] == PROMPT
+    assert tc["length"] == length
     for step in range(STEPS):
         tok = np.asarray(jnp.argmax(jl, axis=-1))[:, None].astype(np.int32)
         jl, jc = j_decode(jparams, jc, jnp.asarray(tok))
         tl, tc = t_decode(tparams, tc, torch.from_numpy(tok))
         close(tl, jl, f"{name} decode step {step} logits")
         close_caches(tc, jc, f"{name} decode step {step} cache")
-    assert tc["length"] == PROMPT + STEPS
+    assert tc["length"] == length + STEPS
+    return tc
+
+
+@pytest.mark.parametrize("name", DENSE + ["h2o-danube-3-4b-gqa"] + LATER)
+def test_prefill_and_decode_match_jax(name):
+    jcfg, _ = configs(name)
+    serve_both(name, {"tokens": prompts(jcfg.vocab_size)}, PROMPT)
+
+
+def test_vlm_prefill_with_a_vision_prefix_matches_jax():
+    """qwen2-vl's prefill of the JAX package's VLM batch (``make_batch``,
+    vision_frac 0.25): 37 ``extra_embeds`` rows prepended to 113 text
+    tokens, at the M-RoPE grid positions (3, B, S) the batch carries; then
+    3 decode steps at the positions that follow the cache's length."""
+    from repro.data.synthetic import make_batch as jax_make_batch
+    jcfg, _ = configs("qwen2-vl-7b")
+    vlm = jax_make_batch(jcfg, jax.random.PRNGKey(2), BATCH, PROMPT)
+    batch = {k: np.array(vlm[k]) for k in ("tokens", "extra_embeds", "positions")}
+    s_vis = PROMPT // 4
+    assert batch["extra_embeds"].shape == (BATCH, s_vis, jcfg.d_model)
+    assert batch["positions"].shape == (3, BATCH, PROMPT)
+    assert (batch["positions"][0, :, :s_vis] == 0).all()     # the image's grid
+    serve_both("qwen2-vl-7b", batch, PROMPT)
+
+
+def test_local_rings_after_a_prompt_the_window_divides_match_jax():
+    """gemma3's smoke variant (window 128: five local layers at RoPE θ 1e4,
+    then a global one at θ 1e6) after a prompt of twice the window: each
+    local ring holds the last 128 positions in order, so decode writes the
+    slot of the position leaving the window; prefill and 3 decode steps
+    equal JAX's, logits and caches."""
+    jcfg, tcfg = configs("gemma3-27b")
+    assert tcfg.sliding_window == 128 and tcfg.rope_theta_local != tcfg.rope_theta
+    assert tcfg.scan_unit == ("attn_local",) * 5 + ("attn",)
+    prompt = 2 * tcfg.sliding_window
+    tc = serve_both("gemma3-27b", {"tokens": prompts(jcfg.vocab_size, prompt)}, prompt)
+    last = prompt + STEPS - 1
+    want = [p if p > last - 128 else p + 128 for p in range(prompt - 128, prompt)]
+    for slot in tc["scan"][:5]:
+        assert slot.pos.shape == (1, 128)
+        assert slot.pos[0].tolist() == want
+    assert tc["scan"][5].pos.shape == (1, prompt)
+
+
+@pytest.mark.parametrize("name", ["gemma3-27b", "granite-20b", "qwen2-vl-7b",
+                                  "musicgen-large"])
+def test_params_round_trip_through_convert(name):
+    """The smoke parameters both ways, bit for bit: the JAX package's tree
+    into the port and back, and the port's own draw out and back in, each
+    leaf under its JAX name, shape and dtype (granite's learned
+    ``pos_table``, gemma3's float32 q/k norms)."""
+    jcfg, tcfg, jparams, tparams = setup(name)
+    jflat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    back = jax.tree_util.tree_flatten_with_path(data_to_numpy(tparams))[0]
+    assert [p for p, _ in back] == [p for p, _ in jflat]
+    for (path, a), (_, b) in zip(back, jflat):
+        assert a.dtype == np.asarray(b).dtype, path
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=str(path))
+    names = {jax.tree_util.keystr(p) for p, _ in jflat}
+    assert ("['pos_table']" in names) == (name == "granite-20b")
+    assert any("q_norm" in n for n in names) == (name == "gemma3-27b")
+
+    own = ttf.init_params(tcfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    again = model_params_from_jax(data_to_numpy(own), device="cpu")
+    ours, theirs = tree_leaves(own), tree_leaves(again)
+    assert [(t.shape, t.dtype) for t in ours] == [(tuple(np.shape(b)), t.dtype)
+                                                  for t, (_, b) in zip(ours, jflat)]
+    assert all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(ours, theirs))
 
 
 def test_decode_step_updates_its_cache_in_place():
