@@ -219,16 +219,33 @@ into ``build/``, then, each phase failing the run:
     stablelm-1.6b's decode_32k (single and multi pod) and train_4k
     (unrolled, one repeat), each record's keys, chips, agents, positive
     counts and bottleneck checked.
+22. runs the JAX package's configurations that no other phase runs:
+    (22a) h2o-danube-3-4b served with the int8 KV cache at 4 x 8192 + 32
+    steps beside the bf16 cache (prefill logits equal bit for bit, the
+    ring's codes and scales equal ``_kv_quant`` on the CPU bit for bit,
+    decode logits within a derived limit, kv_int8_rel_l2), and at depth 2
+    in float32 against the CPU; (22b) stablelm-1.6b and h2o-danube-3-4b
+    at 1 x 32768 + 32 steps, and flash_attention_sm90 at that length
+    against its plain version on three blocks of 1024 query rows; (22d)
+    a stablelm-1.6b round at remat_group 4 against remat_group 1, equal
+    bit for bit; (22c) quorum rounds (agent 1 dropped) on the packed
+    fused, packed unfused and unpacked routes, equal bit for bit, the
+    dropped agent's cache its corrected message, ŷ the survivor's wire,
+    and at depth 2 in float32 against the CPU; (22e) the
+    train_federated_lm example's 100m preset for 5 rounds and its smoke
+    preset on the card against the CPU; (22f) the launcher with
+    ``--no-compress --trace --ledger``.
 
 Phases 11–16 run after phase 8, phase 17 after phase 9, phase 18 after
-phase 20.  The launch
+phase 22.  The launch
 counts are zeroed just before each main-path run (phases 3–4, each run of
 phase 5, each chain run of phase 7, phase 8, each cell of phase 12 and
 phase 13, each resumed run of phase 14, each card run of phase 15, the
 timed prefill, the decode steps and the depth-2 float32 prefills of phase
 9, the launcher's run and each later round of phase 17, and each timed
 prefill, decode run, float32 check and training round of phase 19, each
-round of phase 20) and read just after.  Then it prints each phase's seconds ([time]), the card's name and
+round of phase 20, each prefill, decode run and round of phase 22) and
+read just after.  Then it prints each phase's seconds ([time]), the card's name and
 power limit again, one JSON line with a record per kernel and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with an
 error and prints no result.
@@ -2034,15 +2051,21 @@ def n_attention_layers(cfg) -> int:
             + sum(k in ATTN_KINDS for k in cfg.tail))
 
 
-def train_attention_launches(cfg, dtype) -> dict:
-    """Attention launches of one round: each attention layer's forward
-    twice per epoch and agent (the forward, and remat's recompute in the
-    backward, on the dtype's route, both writing the backward's
-    statistics) and its backward once, reading the recompute's (no further
-    forward launch); none without attention layers."""
+def attention_launches(cfg, dtype, agents: int, epochs: int) -> dict:
+    """Attention launches of one round of ``agents`` x ``epochs`` local
+    epochs: each attention layer's forward twice per epoch and agent (the
+    forward, and remat's recompute in the backward, on the dtype's route,
+    both writing the backward's statistics) and its backward once, reading
+    the recompute's (no further forward launch); none without attention
+    layers."""
     from repro_torch.kernels import flash_attention as fa
-    n = n_attention_layers(cfg) * TRAIN_AGENTS * TRAIN_EPOCHS
+    n = n_attention_layers(cfg) * agents * epochs
     return {fa.route(dtype, DEV): 2 * n, fa.bwd_route(dtype, DEV): n} if n else {}
+
+
+def train_attention_launches(cfg, dtype) -> dict:
+    """attention_launches of one round at phase 17's agents and epochs."""
+    return attention_launches(cfg, dtype, TRAIN_AGENTS, TRAIN_EPOCHS)
 
 
 def phase_train(launches: dict) -> dict:
@@ -3045,6 +3068,780 @@ def phase_catalog(launches: dict, errors: dict) -> dict:
     lap("21 kernels")
     out["examples"] = run_examples()
     lap("21 examples")
+    return out
+
+
+# -- phase 22: the JAX package's configurations that run nowhere else ----------
+
+def kv_int8_rel_l2(head_dim: int) -> float:
+    """22a's limit on a decode logit row's relative L2 against the bf16
+    cache's, derived before the first run (PERF.md §2): a cached element is
+    off by at most half its code step, max|row|/254, so a cached vector of
+    ``head_dim`` values by at most sqrt(head_dim)/254 of its norm; a row is
+    held to that twice over (once through the keys, once through the
+    values)."""
+    return 2 * math.sqrt(head_dim) / 254
+
+
+# 22b: the dry-run's prefill_32k / decode_32k length at batch 1, and the
+# rows of each block held against the plain version
+LONG_ARCHS = ("stablelm-1.6b", "h2o-danube-3-4b")
+LONG_PROMPT, LONG_STEPS, LONG_BLOCK = 32768, 32, 1024
+# 22c: agent 1 misses the round's deadline; the float32 card-vs-CPU round
+# at depth 2 takes 1 x 128 tokens an agent (the CPU trains it too)
+QUORUM = [True, False]
+QUORUM_F32_BATCH, QUORUM_F32_SEQ = 1, 128
+# a quantized leaf may part from the CPU's by one level, where the level's
+# input lies within QUORUM_TIE·Δ of a half-level boundary
+QUORUM_TIE = 1e-4
+# 22d: checkpoint groups of 4 of stablelm-1.6b's 24 scan units
+REMAT_GROUP = 4
+# 22e: the federated-LM example's presets and rounds
+FEDLM_ROUNDS = {"100m": 5, "smoke": 3}
+FEDLM_RTOL = 1e-4
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a serving cache's buffers (codes, scales and positions)."""
+    from repro_torch.core.pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache)
+               if isinstance(t, torch.Tensor))
+
+
+def nonzero_counts() -> dict:
+    from repro_torch.kernels import ops
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def within(a, b, rtol: float, atol: float) -> tuple:
+    """(|a - b| <= atol + rtol |b| everywhere, max |a - b|), on b's device,
+    in float32 or b's wider dtype."""
+    dt = torch.promote_types(b.dtype, torch.float32)
+    a, b = a.to(b.device, dt), b.to(dt)
+    d = (a - b).abs()
+    return bool((d <= atol + rtol * b.abs()).all()), float(d.max()) if d.numel() else 0.0
+
+
+def row_rel_l2(a, b) -> torch.Tensor:
+    a, b = a.double(), b.double()
+    return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+
+def serve_greedy(params, cfg, cache, logits, steps: int, tokens=None):
+    """``steps`` decode steps from a prefill's (logits, cache): greedy, or
+    fed ``tokens`` (B, steps).  (each step's logits, the tokens fed, the
+    cache, ms per step)."""
+    from repro_torch.launch.serve import make_decode_step
+    decode = make_decode_step(cfg)
+    fed, outs = [], []
+
+    def run():
+        nonlocal logits, cache
+        for i in range(steps):
+            tok = logits.argmax(-1, keepdim=True) if tokens is None else tokens[:, i:i + 1]
+            fed.append(tok)
+            logits, cache = decode(params, cache, tok)
+            outs.append(logits)
+
+    _, ms = sync_ms(run)
+    return outs, torch.cat(fed, dim=1), cache, ms / steps
+
+
+def phase_kv_int8(launches: dict) -> dict:
+    """22a: danube3 at full width and depth in bf16, 4 x 8192 prompt tokens
+    and 32 decode steps, with the bf16 cache and with the int8 one
+    (``kv_cache_int8``).  The prompt is longer than the 4096-slot ring, so
+    prefill attends the fresh keys: its logits must equal the bf16 route's
+    bit for bit, each route one flash_attention_sm90 launch per layer.  The
+    ring's int8 codes and float32 scales of the first and last layers must
+    equal ``_kv_quant`` run on the CPU on the bf16 route's cached K and V,
+    bit for bit.  Decode, fed the bf16 route's greedy tokens, launches
+    nothing; every logit row within kv_int8_rel_l2(D) of the bf16 route's.
+    Each route's prefill and decode run with only its own ring on the card,
+    so each peak is that route's.
+    Then the depth-2 float32 model, card against CPU (check_kv_int8_f32)."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.attention import _kv_quant
+    from repro_torch.models.transformer import init_params
+    cfgs = {"bf16": serve_config(), "int8": serve_config(kv_cache_int8=True)}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(cfgs["bf16"], generator=gen, device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = {"tokens": torch.randint(0, cfgs["bf16"].vocab_size,
+                                       (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                                       device=DEV)}
+    n_layers, last = cfgs["bf16"].n_layers, cfgs["bf16"].scan_repeats - 1
+    runs, codes = {}, []
+    for name, cfg in cfgs.items():   # one route's ring on the card at a time
+        prefill = make_prefill_step(cfg)
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        sync_ms(lambda: prefill(params, prompts))       # the first, untimed
+        ops.reset_launch_counts()            # the main path: the timed prefill
+        (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, prompts))
+        counts = nonzero_counts()
+        check(counts == {"flash_attention_sm90": n_layers}, f"{name}-cache prefill "
+              f"launched {counts}, expected {n_layers} flash_attention_sm90")
+        if name == "int8":
+            for k, v in counts.items():
+                launches[k] += v
+        check(bool(torch.isfinite(logits).all()), f"{name}-cache prefill logits not finite")
+        slot = cache["scan"][0]
+        if name == "bf16":           # the cached K/V that the int8 ring quantizes,
+            kv = {(r, n): getattr(slot, n)[r].to("cpu", copy=True)   # before decode
+                  for r in (0, last) for n in ("k", "v")}
+            pos = slot.pos.clone()
+        else:
+            check(same_bits(logits, runs["bf16"]["logits"]), "int8-cache prefill logits "
+                  "differ from the bf16-cache route's: prefill past the ring attends the "
+                  "fresh K/V in both")
+            check(same_bits(slot.pos, pos), "the rings' slot positions differ")
+            for (r, n), x in kv.items():
+                want_q, want_s = _kv_quant(x)
+                got_q, got_s = getattr(slot, n)[r].cpu(), getattr(slot, f"{n}_scale")[r].cpu()
+                check(same_bits(got_q, want_q) and same_bits(got_s, want_s),
+                      f"layer {r} {n}: the card's int8 codes or scales differ from "
+                      f"_kv_quant on the CPU ({int((got_q != want_q).sum())} codes, "
+                      f"{int((got_s != want_s).sum())} scales)")
+                codes.append(got_q.numel())
+        ring_bytes = cache_bytes(cache)
+        del slot
+        ops.reset_launch_counts()        # the main path: decode
+        tokens = None if name == "bf16" else runs["bf16"]["fed"]
+        outs, fed, cache, ms = serve_greedy(params, cfg, cache, logits, SERVE_STEPS, tokens)
+        check(not nonzero_counts(), f"{name}-cache decode launched {nonzero_counts()}")
+        check(all(bool(torch.isfinite(x).all()) for x in outs),
+              f"{name}-cache decode logits not finite")
+        runs[name] = dict(logits=logits, prefill_ms=prefill_ms, ring_bytes=ring_bytes,
+                          outs=outs, fed=fed, decode_ms_per_step=ms,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        del cache
+    bf, q8 = runs["bf16"], runs["int8"]
+    rel = torch.stack([row_rel_l2(a, b) for a, b in zip(q8["outs"], bf["outs"])])
+    argmax_q = torch.stack([x.argmax(-1) for x in q8["outs"]], dim=1)
+    argmax_b = torch.stack([x.argmax(-1) for x in bf["outs"]], dim=1)
+    worst, head_dim = float(rel.max()), cfgs["bf16"].head_dim
+    limit = kv_int8_rel_l2(head_dim)
+    check(worst <= limit, f"int8-cache decode: a logit row's rel L2 {worst:.4e} "
+          f"against the bf16 cache's, over the derived limit {limit:.4e}")
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    out = {"params": n_params, "rel_l2_limit": limit,
+           "rel_l2_max": worst, "rel_l2_by_step": rel.max(dim=1).values.tolist(),
+           "greedy_agree": float((argmax_q == argmax_b).double().mean()),
+           "codes_checked": sum(codes),
+           "ring_ratio": q8["ring_bytes"] / bf["ring_bytes"]}
+    for name, r in runs.items():
+        out[name] = {k: r[k] for k in ("prefill_ms", "ring_bytes", "decode_ms_per_step",
+                                       "peak_bytes")}
+        out[name]["prefill_tok_s"] = tokens / r["prefill_ms"] * 1e3
+    print(f"[config] 22a {SERVE_ARCH} with the int8 KV cache, full width and depth, "
+          f"bf16: prefill {SERVE_BATCH} x {SERVE_PROMPT} {out['int8']['prefill_ms']:.1f} ms "
+          f"({out['int8']['prefill_tok_s']:.0f} tokens/s; bf16 cache "
+          f"{out['bf16']['prefill_ms']:.1f} ms), {n_layers} flash_attention_sm90 each, "
+          f"logits equal bit for bit; ring {q8['ring_bytes']} B against "
+          f"{bf['ring_bytes']} B ({out['ring_ratio']:.4f}; ({head_dim} + 4)/"
+          f"{2 * head_dim} = {(head_dim + 4) / (2 * head_dim):.4f}); "
+          f"codes and scales of layers 0 and {cfgs['bf16'].scan_repeats - 1} "
+          f"({sum(codes)} codes) equal _kv_quant on the CPU bit for bit; "
+          f"{SERVE_STEPS} decode steps fed the bf16 route's greedy tokens: "
+          f"{out['int8']['decode_ms_per_step']:.3f} ms per step (bf16 cache "
+          f"{out['bf16']['decode_ms_per_step']:.3f}), no launch, logit rows' rel L2 "
+          f"at most {worst:.4e} <= {limit:.4e} (per step "
+          + " ".join(f"{x:.2e}" for x in out["rel_l2_by_step"])
+          + f"), greedy tokens agree in {100 * out['greedy_agree']:.1f}% of "
+          f"{argmax_q.numel()}; peak memory int8 {out['int8']['peak_bytes'] / 2**30:.2f} "
+          f"GiB, bf16 {out['bf16']['peak_bytes'] / 2**30:.2f} GiB")
+    del params, runs, bf, q8, prompts
+    free_card()
+    out["f32"] = check_kv_int8_f32(launches)
+    return out
+
+
+def check_kv_int8_f32(launches: dict) -> dict:
+    """22a at depth 2 in float32 with the int8 cache: a prefill of 1 x
+    CHECK_PROMPT tokens (past the ring; two flash_attention launches) on the
+    card and on the CPU from the same weights, then CHECK_STEPS greedy
+    decode steps on the card (no launch), each also run on the CPU from a
+    copy of the card's ring before it.  Every logit row within relative L2
+    CHECK_REL_L2 of the CPU's, §2's limit for float32 at full width
+    (|card - CPU| is printed beside it: the two sum products of 3840 and
+    10240 terms in other orders).  The prefill rings' codes may part by one
+    level where the two K/V sums straddle a rounding tie: counted, each
+    one level; each decode step then reads the card's ring on both sides,
+    since every such flip moves a decode step's logits."""
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = serve_config(n_layers=2, scan_repeats=2, dtype="float32", kv_cache_int8=True)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    params = init_params(cfg, generator=gen, device=DEV)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CHECK_PROMPT), generator=gen, device=DEV)
+    on_cpu = lambda tree: tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                                   tree)
+    cpu = on_cpu(params)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    ops.reset_launch_counts()            # the main path: the float32 prefill
+    logits, cache = prefill(params, {"tokens": prompt})
+    counts = nonzero_counts()
+    check(counts == {"flash_attention": cfg.n_layers}, f"depth-2 float32 int8-cache "
+          f"prefill launched {counts}, expected {cfg.n_layers} flash_attention")
+    for k, v in counts.items():
+        launches[k] += v
+    logits_c, cache_c = prefill(cpu, {"tokens": prompt.cpu()})
+    diffs = [(getattr(a, n).cpu().int() - getattr(b, n).int()).abs()
+             for a, b in zip(cache["scan"], cache_c["scan"]) for n in ("k", "v")]
+    flips = sum(int(d.gt(0).sum()) for d in diffs)
+    check(all(int(d.max()) <= 1 for d in diffs), "depth-2 float32: the card's and the "
+          "CPU's prefill rings part by more than one code level")
+    worst, abs_err = [], []
+    for step in range(CHECK_STEPS + 1):
+        err = max_row_rel_l2(logits.cpu(), logits_c)
+        check(err <= CHECK_REL_L2, f"depth-2 float32 int8 cache, step {step}: a logit "
+              f"row of the card's parts from the CPU's by rel L2 {err} > {CHECK_REL_L2}")
+        worst.append(err)
+        abs_err.append(within(logits, logits_c, 0.0, 0.0)[1])
+        if step == CHECK_STEPS:
+            break
+        tok = logits.argmax(-1, keepdim=True)
+        start = on_cpu(cache)
+        ops.reset_launch_counts()
+        logits, cache = decode(params, cache, tok)
+        check(not nonzero_counts(), f"depth-2 float32 decode launched {nonzero_counts()}")
+        logits_c, _ = decode(cpu, start, tok.cpu())
+    out = {"rel_l2_by_step": worst, "max_abs_err_by_step": abs_err, "code_flips": flips,
+           "codes": sum(d.numel() for d in diffs)}
+    print(f"[config] 22a {SERVE_ARCH} at depth 2, float32, int8 cache: prefill 1 x "
+          f"{CHECK_PROMPT} on the card ({cfg.n_layers} flash_attention launches) and on "
+          f"the CPU, {flips} of {out['codes']} ring codes one level apart (the two K/V "
+          f"sums at a rounding tie); {CHECK_STEPS} decode steps, each on both from the "
+          f"card's ring: every logit row within rel L2 {CHECK_REL_L2} (prefill, then each "
+          "step: " + " ".join(f"{x:.2e}" for x in worst) + "; max |card - CPU| "
+          + " ".join(f"{x:.2e}" for x in abs_err) + ")")
+    del params, cpu, cache, cache_c, start
+    free_card()
+    return out
+
+
+def serve_long(arch: str, launches: dict, errors: dict) -> dict:
+    """22b: ``arch`` at full width and depth in bf16, a prefill of 1 x
+    LONG_PROMPT tokens (timed after a first one; one flash_attention_sm90
+    launch per attention layer and nothing else) and LONG_STEPS greedy
+    decode steps over the cache (plain one-token attention: no launch),
+    logits finite; then flash_attention_sm90 at that shape against its
+    plain version (check_long_flash)."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.transformer import init_params
+    cfg = family_config(arch)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = init_params(cfg, generator=gen, device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT),
+                                      generator=gen, device=DEV)}
+    prefill = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    warm_ms = sync_ms(lambda: prefill(params, prompt)[0])[1]
+    ops.reset_launch_counts()            # the main path: the timed prefill
+    (logits, cache), prefill_ms = sync_ms(lambda: prefill(params, prompt))
+    counts = nonzero_counts()
+    n_attn = n_attention_layers(cfg)
+    check(counts == {"flash_attention_sm90": n_attn}, f"{arch} 1 x {LONG_PROMPT} prefill "
+          f"launched {counts}, expected {n_attn} flash_attention_sm90")
+    for k, v in counts.items():
+        launches[k] += v
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab_size)
+          and cache["length"] == LONG_PROMPT, f"{arch} 1 x {LONG_PROMPT} prefill: logits "
+          f"{tuple(logits.shape)} finite {bool(torch.isfinite(logits).all())}, cache "
+          f"length {cache['length']}")
+    kv_bytes = cache_bytes(cache)
+    ops.reset_launch_counts()            # the main path: decode
+    outs, fed, cache, step_ms = serve_greedy(params, cfg, cache, logits, LONG_STEPS)
+    check(not nonzero_counts(), f"{arch} decode over {LONG_PROMPT} slots launched "
+          f"{nonzero_counts()}")
+    check(all(bool(torch.isfinite(x).all()) for x in outs) and
+          cache["length"] == LONG_PROMPT + LONG_STEPS, f"{arch} decode after "
+          f"{LONG_PROMPT} tokens: logits not finite or cache length {cache['length']}")
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(params=n_params, warm_prefill_ms=warm_ms, prefill_ms=prefill_ms,
+               prefill_tok_s=LONG_PROMPT / prefill_ms * 1e3, decode_ms_per_step=step_ms,
+               peak_bytes=peak, cache_bytes=kv_bytes,
+               logits_bytes=LONG_PROMPT * cfg.vocab_size * 2, launches=counts)
+    print(f"[config] 22b {arch}, full width and depth, bf16, {n_params} parameters: "
+          f"prefill 1 x {LONG_PROMPT} {prefill_ms:.1f} ms ({out['prefill_tok_s']:.0f} "
+          f"tokens/s; first {warm_ms:.1f} ms), {n_attn} flash_attention_sm90 launches; "
+          f"{LONG_STEPS} greedy decode steps {step_ms:.3f} ms per step, no launch, "
+          f"logits finite; cache {kv_bytes} B, the forward's bf16 logits "
+          f"{out['logits_bytes']} B; peak memory {peak / 2**30:.2f} GiB; sample "
+          f"{fed[0, :8].tolist()}")
+    del params, cache, logits, outs, prompt
+    free_card()
+    out["flash_max_abs_err"] = err = check_long_flash(cfg)
+    errors["flash_attention_sm90"] = max(errors["flash_attention_sm90"], err)
+    return out
+
+
+def check_long_flash(cfg) -> float:
+    """flash_attention_sm90 over 1 x LONG_PROMPT tokens at ``cfg``'s heads,
+    head dim and window (seeded bf16 inputs, one launch) against
+    ``ref.flash_attention_ref`` on blocks of LONG_BLOCK query rows, every
+    head: the first block, one in the middle and the last, each within
+    FLASH_TOL (the plain version holds a block's scores against every key
+    in float32: 4.3 GB at 32 heads).  max_abs_err."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    (window,) = layer_windows(cfg)
+    h, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_logit_softcap
+    q, k, v, pos = attention_inputs(1, LONG_PROMPT, h, hkv, d, torch.bfloat16, 5)
+    kw = dict(causal=True, window=window, softcap=cap)
+    out, took = flash_route_call(fa, q, k, v, pos, pos, **kw)
+    check(took == "flash_attention_sm90", f"{cfg.name} at S {LONG_PROMPT} ran {took}")
+    what = f"at {cfg.name}'s 1 x {LONG_PROMPT}, H={h}/{hkv} D={d} W={window} bf16"
+    errs = {}
+    for r0 in (0, LONG_PROMPT // 2 - LONG_BLOCK, LONG_PROMPT - LONG_BLOCK):
+        rows = slice(r0, r0 + LONG_BLOCK)
+        plain = ref.flash_attention_ref(q[:, rows], k, v, pos[rows], pos, **kw)
+        errs[r0] = flash_check(out[:, rows], plain, f"{what}, rows {r0}..{r0 + LONG_BLOCK}")
+        del plain
+        free_card()
+    print(f"[config] 22b flash_attention_sm90 {what}: query rows "
+          + ", ".join(f"{r}..{r + LONG_BLOCK} {e:.3e}" for r, e in errs.items())
+          + f" (max_abs_err), each within {FLASH_TOL[torch.bfloat16][1]} + "
+          f"{FLASH_TOL[torch.bfloat16][0]:.4g} |plain| of the plain version")
+    del q, k, v, out
+    free_card()
+    return max(errs.values())
+
+
+def deploy_alg(cfg, **changes):
+    """DeployFedLT with the launcher's round (2 epochs, γ 0.02, ρ 10, L 255)."""
+    from repro_torch.core.deploy import DeployFedLT
+    return DeployFedLT(cfg=cfg, **{"n_epochs": TRAIN_EPOCHS, "gamma": 0.02, "rho": 10.0,
+                                   **changes})
+
+
+def state_leaves(state) -> list:
+    """(name, tensor) of every leaf of a DeployState's five trees."""
+    from repro_torch.core.pytree import tree_flatten_with_names
+    return [(f"{field}.{n}", t) for field in ("x", "z", "c_up", "y_hat", "c_down")
+            for n, t in zip(*tree_flatten_with_names(getattr(state, field)))]
+
+
+def counted_round(alg, state, batch, want: dict, launches: dict, what: str, **kw):
+    """One ``round_step`` as a main-path run (counts zeroed before, read
+    after, added to ``launches``): its launches must be ``want`` and its
+    loss finite.  (new state, metrics, summary: ms, the peak memory, and
+    the peak above what was held before the round)."""
+    from repro_torch.kernels import ops
+    free_card()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (new, metrics), ms = sync_ms(lambda: alg.round_step(state, batch, **kw))
+    counts = nonzero_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    check(counts == want, f"{what} launched {counts}, expected {want}")
+    loss = float(metrics["loss"])
+    check(math.isfinite(loss), f"{what}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    return new, metrics, dict(ms=ms, peak_bytes=peak, round_peak_bytes=peak - held,
+                              loss=loss)
+
+
+def phase_remat_group(launches: dict) -> tuple:
+    """22d: one round of stablelm-1.6b at phase 17's shape from 17a's first
+    state (the launcher's seed) and batch, at remat_group 1 and at
+    REMAT_GROUP: the same launches, and the loss and every state leaf equal
+    bit for bit.  Returns (the summary, the remat_group-1 round's state,
+    which 22c starts from)."""
+    cfg = train_config()
+    check(cfg.scan_repeats % REMAT_GROUP == 0, f"remat_group {REMAT_GROUP} does not "
+          f"divide {cfg.name}'s {cfg.scan_repeats} scan units")
+    alg = deploy_alg(cfg)
+    s0 = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(0),
+                  device=DEV)
+    batch = train_batch(cfg, 0)
+    want = train_attention_launches(cfg, torch.bfloat16)
+    new, res = {}, {}
+    for g in (1, REMAT_GROUP):
+        a = dataclasses.replace(alg, cfg=dataclasses.replace(cfg, remat_group=g))
+        new[g], metrics, res[g] = counted_round(a, s0, batch, want, launches,
+                                                f"remat_group {g} round")
+    del s0
+    parted = [(n, float((a.double() - b.double()).abs().max() / b.double().abs().max()))
+              for (n, a), (_, b) in zip(state_leaves(new[REMAT_GROUP]), state_leaves(new[1]))
+              if not same_bits(a, b)]
+    same_loss = res[1]["loss"] == res[REMAT_GROUP]["loss"]
+    if parted or not same_loss:
+        print(f"[config] 22d remat_group {REMAT_GROUP} parts from remat_group 1: loss "
+              f"{res[REMAT_GROUP]['loss']!r} against {res[1]['loss']!r}; leaves (name, "
+              f"max |diff| / max |leaf|) {parted}")
+    check(all(r <= 1e-5 for _, r in parted) and math.isclose(
+        res[1]["loss"], res[REMAT_GROUP]["loss"], rel_tol=1e-5),
+        f"remat_group {REMAT_GROUP}: leaves past rtol 1e-5 {parted}")
+    out = {"loss": res[1]["loss"], "bit_for_bit": not parted and same_loss,
+           "parted": parted, "launches": want,
+           **{f"remat_{g}": {k: r[k] for k in ("ms", "peak_bytes", "round_peak_bytes")}
+              for g, r in res.items()}}
+    print(f"[config] 22d {TRAIN_ARCH} at full width, bf16, {TRAIN_AGENTS} agents x "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_EPOCHS} epochs, from the launcher's first "
+          f"state and batch: remat_group {REMAT_GROUP} against 1, loss {res[1]['loss']:.6f} "
+          f"and {len(state_leaves(new[1]))} state leaves "
+          + ("equal bit for bit" if out["bit_for_bit"] else "within rtol 1e-5")
+          + f"; launches {want} each; ms per round {res[1]['ms']:.1f} (group 1) and "
+          f"{res[REMAT_GROUP]['ms']:.1f} (group {REMAT_GROUP}); peak memory above what "
+          f"was held before the round {res[1]['round_peak_bytes'] / 2**30:.2f} and "
+          f"{res[REMAT_GROUP]['round_peak_bytes'] / 2**30:.2f} GiB (peaks "
+          f"{res[1]['peak_bytes'] / 2**30:.2f} and "
+          f"{res[REMAT_GROUP]['peak_bytes'] / 2**30:.2f} GiB, the second beside the "
+          "first round's state)")
+    del new[REMAT_GROUP]
+    free_card()
+    return out, new[1]
+
+
+def check_dropped(state, new, agent: int, what: str) -> None:
+    """The dropped ``agent``'s new uplink EF cache is its corrected message
+    z_new + c_up (in the leaf's dtype), bit for bit, a piece at a time."""
+    from repro_torch.core.compression import PIECE
+    from repro_torch.core.pytree import tree_leaves
+    for z, c, nc in zip(tree_leaves(new.z), tree_leaves(state.c_up), tree_leaves(new.c_up)):
+        zf, cf, nf = z[agent].reshape(-1), c[agent].reshape(-1), nc[agent].reshape(-1)
+        check(all(same_bits(nf[s:s + PIECE], zf[s:s + PIECE] + cf[s:s + PIECE])
+                  for s in range(0, nf.numel(), PIECE)),
+              f"{what}: agent {agent}'s new c_up of a {tuple(z.shape)} leaf is not its "
+              "z_new + c_up")
+
+
+def check_coordinator(alg, state, new, agent: int, what: str) -> None:
+    """With only ``agent`` in the quorum, the coordinator's mean z̄ is that
+    agent's decoded wire: the round's ŷ and c_down equal the downlink of
+    c_down + that wire (uplink_leaf of z_new and the old c_up), bit for bit,
+    leaf by leaf."""
+    from repro_torch.core.compression import quantize_decode
+    from repro_torch.core.deploy import _quantize_ef
+    from repro_torch.core.pytree import tree_leaves
+    q = alg.quant
+    for z, c, cd, yh, cdn in zip(tree_leaves(new.z), tree_leaves(state.c_up),
+                                 tree_leaves(state.c_down), tree_leaves(new.y_hat),
+                                 tree_leaves(new.c_down)):
+        g, _ = alg.uplink_leaf(z, c)
+        y = cd + g[agent].to(cd.dtype)
+        del g
+        yh_want = quantize_decode(_quantize_ef(y, None, q)[0], dtype=y.dtype, **q)
+        check(same_bits(yh_want, yh) and same_bits(y - yh_want, cdn),
+              f"{what}: ŷ or c_down of a {tuple(cd.shape)} leaf is not the downlink of "
+              f"agent {agent}'s decoded wire")
+
+
+def phase_quorum(state, launches: dict) -> dict:
+    """22c: quorum rounds of stablelm-1.6b at phase 17's shape, agent 1
+    dropped (QUORUM), from ``state`` (22d's round) and round 1's batch, on
+    three routes: packed fused (one quant_pipeline and one unpack_bits launch
+    per leaf of a tile), packed unfused (pack_bits instead) and unpacked.
+    All three equal bit for bit on every state leaf; the dropped agent's
+    cache its corrected message; ŷ and c_down the downlink of the survivor's
+    decoded wire; quorum_frac 0.5; and the survivor's cache what an
+    all-participate round gives it.  Then float32 at depth 2, card against
+    the CPU (check_quorum_f32)."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    cfg = train_config()
+    batch = train_batch(cfg, 1)
+    tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
+    attn = train_attention_launches(cfg, torch.bfloat16)
+    fused = deploy_alg(cfg, pack_wire=True)
+    routes = {"packed fused": (fused, dict(attn, quant_pipeline=tiles, unpack_bits=tiles)),
+              "packed unfused": (dataclasses.replace(fused, fuse_pipeline=False),
+                                 dict(attn, pack_bits=tiles, unpack_bits=tiles)),
+              "unpacked": (deploy_alg(cfg), attn)}
+    out, first = {}, None
+    for name, (alg, want) in routes.items():
+        new, metrics, res = counted_round(alg, state, batch, want, launches,
+                                          f"quorum round, {name}", survivors=QUORUM)
+        check(float(metrics["quorum_frac"]) == 0.5,
+              f"{name}: quorum_frac {float(metrics['quorum_frac'])}")
+        check_dropped(state, new, 1, f"quorum round, {name}")
+        check_coordinator(alg, state, new, 0, f"quorum round, {name}")
+        if first is None:
+            first = new
+        else:
+            parted = [n for (n, a), (_, b) in zip(state_leaves(new), state_leaves(first))
+                      if not same_bits(a, b)]
+            check(not parted, f"quorum round, {name}: leaves differ from the packed fused "
+                  f"route's: {parted}")
+        del new
+        out[name] = res
+        free_card()
+    every, _, res = counted_round(fused, state, batch, routes["packed fused"][1], launches,
+                                  "all-participate packed round")
+    check(all(same_bits(a[0], b[0]) for a, b in zip(tree_leaves(every.c_up),
+                                                    tree_leaves(first.c_up))),
+          "the survivor's new c_up differs from an all-participate round's")
+    out["all participate"] = res
+    del every, first
+    free_card()
+    print(f"[config] 22c {TRAIN_ARCH} quorum rounds at full width, bf16, {TRAIN_AGENTS} "
+          f"agents x {TRAIN_BATCH} x {TRAIN_SEQ}, L 255, survivors {QUORUM}: "
+          + "; ".join(f"{n} {r['ms']:.1f} ms, peak {r['peak_bytes'] / 2**30:.2f} GiB "
+                      f"({r['round_peak_bytes'] / 2**30:.2f} above the states held)"
+                      for n, r in out.items())
+          + f"; loss {out['packed fused']['loss']:.6f}; the three routes equal bit for "
+          f"bit on every leaf; agent 1's caches its z_new + c_up; ŷ and c_down the "
+          f"downlink of agent 0's decoded wire; quorum_frac 0.5; agent 0's caches "
+          f"those of the all-participate round; quant_pipeline / pack_bits and "
+          f"unpack_bits once per leaf of >= {_TILE_VALS} values ({tiles} leaves)")
+    out["f32"] = check_quorum_f32(launches)
+    return out
+
+
+def tie_flips(card, cpu, inputs, q: dict, also=None) -> tuple:
+    """Where a quantized leaf's card and CPU values part (beyond rtol 1e-4 /
+    atol 1e-5): they must be one level Δ apart, and the level's input on
+    the CPU (``inputs``) within QUORUM_TIE·Δ of a half-level boundary, or
+    ``also`` true there.  (flips, the mask of parted elements)."""
+    delta = (q["vmax"] - q["vmin"]) / q["levels"]
+    bad = (card - cpu).abs() > 1e-5 + 1e-4 * cpu.abs()
+    if not bool(bad.any()):
+        return 0, bad
+    one = ((card[bad].double() - cpu[bad].double()).abs() - delta).abs() <= 1e-5
+    u = (inputs.double()[bad].clamp(q["vmin"], q["vmax"]) - q["vmin"]) / delta
+    tie = (u - u.floor() - 0.5).abs() <= QUORUM_TIE
+    if also is not None:
+        tie |= also[bad]
+    return int(bad.sum()), bad if bool((one & tie).all()) else None
+
+
+def check_quorum_f32(launches: dict) -> dict:
+    """22c at depth 2 in float32, one local epoch: from a state after one
+    all-participate packed round on the card, a packed fused quorum round
+    (agent 1 dropped) on the card, and the same round on the CPU from the
+    same state and batch (QUORUM_F32_BATCH x QUORUM_F32_SEQ tokens an
+    agent) on the unpacked route: its level ints are the packed wire's, bit
+    for bit (the three routes' equality above; on the CPU,
+    tests/test_torch_deploy.py), and the CPU's plain pack and unpack of
+    10**9 values would take minutes.  The CPU's state is then held against
+    the card's on the card: the loss within rtol 1e-4; x and z within rtol
+    1e-4 / atol 1e-5; c_up, ŷ and c_down the same, save one level at a
+    rounding tie of the two devices' float32 sums (counted), as
+    tests/test_torch_deploy.py holds the port against JAX."""
+    from repro_torch.core.deploy import DeployState
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.data.synthetic import make_batch, seeded, stack_batches
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    cfg = train_config(n_layers=2, scan_repeats=2, dtype="float32")
+    alg = deploy_alg(cfg, pack_wire=True, n_epochs=1)
+
+    def batch(k, dev):
+        return stack_batches([make_batch(cfg, seeded(11 + i, k), QUORUM_F32_BATCH,
+                                         QUORUM_F32_SEQ, device=dev)
+                              for i in range(TRAIN_AGENTS)])
+
+    def moved(state, dev):
+        return DeployState(*(tree_map(lambda t: t.to(dev), f) for f in tuple(state)[:5]),
+                           k=state.k)
+
+    s0 = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(2),
+                  device=DEV)
+    state, _ = alg.round_step(s0, batch(0, DEV))
+    del s0
+    tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
+    want = dict(attention_launches(cfg, torch.float32, TRAIN_AGENTS, 1),
+                quant_pipeline=tiles, unpack_bits=tiles)
+    card, m_card, res = counted_round(alg, state, batch(1, DEV), want, launches,
+                                      "float32 quorum round", survivors=QUORUM)
+    t0 = time.perf_counter()
+    cpu, m_cpu = dataclasses.replace(alg, pack_wire=False).round_step(
+        moved(state, "cpu"), batch(1, "cpu"), survivors=QUORUM)
+    cpu_s = time.perf_counter() - t0
+    cpu = moved(cpu, DEV)
+    ok, err = within(m_card["loss"].reshape(1), m_cpu["loss"].reshape(1), 1e-4, 0.0)
+    check(ok, f"float32 quorum round: loss {float(m_card['loss'])} on the card, "
+          f"{float(m_cpu['loss'])} on the CPU")
+    worst = 0.0
+    for field in ("x", "z"):
+        for a, b in zip(tree_leaves(getattr(card, field)), tree_leaves(getattr(cpu, field))):
+            ok, err = within(a, b, 1e-4, 1e-5)
+            check(ok, f"float32 quorum round: a {tuple(b.shape)} leaf of {field} parts "
+                  f"from the CPU's by {err}")
+            worst = max(worst, err)
+    q, flips = alg.quant, 0
+    delta = (q["vmax"] - q["vmin"]) / q["levels"]
+    for i, (c_t, c_j, z_j, c0, yh_t, yh_j, cd_t, cd_j) in enumerate(zip(
+            *(tree_leaves(t) for t in (card.c_up, cpu.c_up, cpu.z, state.c_up, card.y_hat,
+                                       cpu.y_hat, card.c_down, cpu.c_down)))):
+        f_up, bad = tie_flips(c_t, c_j, z_j + c0, q)
+        check(bad is not None, f"float32 quorum round, c_up leaf {i}: card and CPU part "
+              "by other than one level at a tie")
+        up_flip = bad.any(dim=0)
+        f_y, bad_y = tie_flips(yh_t, yh_j, cd_j + yh_j, q, also=up_flip)
+        check(bad_y is not None, f"float32 quorum round, ŷ leaf {i}: card and CPU part "
+              "by other than one level at a tie or after an uplink flip")
+        gap = (cd_t - cd_j).abs()
+        bad_cd = gap > 1e-5 + 1e-4 * cd_j.abs()
+        check(bool(((bad_y | up_flip)[bad_cd]).all())
+              and bool((gap[bad_cd] <= delta + 1e-5).all()),
+              f"float32 quorum round, c_down leaf {i}: parts where no level flipped")
+        flips += f_up + f_y
+    n_vals = sum(t.numel() for t in tree_leaves(cpu.c_up)) + sum(
+        t.numel() for t in tree_leaves(cpu.y_hat))
+    out = dict(res, cpu_s=cpu_s, xz_max_abs_err=worst, flips=flips, values=n_vals)
+    print(f"[config] 22c {TRAIN_ARCH} at depth 2, float32, one epoch, quorum round packed "
+          f"on the card ({res['ms']:.1f} ms, launches {want}) and unpacked on the CPU "
+          f"({cpu_s:.1f} s), {TRAIN_AGENTS} agents x {QUORUM_F32_BATCH} x "
+          f"{QUORUM_F32_SEQ}: loss, x and z within rtol 1e-4 / atol 1e-5 (max |card - "
+          f"CPU| {worst:.3e}); {flips} of {n_vals} quantized values one level apart, each "
+          "at a rounding tie")
+    del card, cpu, state
+    free_card()
+    return out
+
+
+class round_times:
+    """Within the block, the card time of each ``DeployFedLT.round_step``
+    call (host clock between synchronizes), in ms, into the list it gives."""
+
+    def __enter__(self):
+        from repro_torch.core.deploy import DeployFedLT
+        self.orig = orig = DeployFedLT.round_step
+        self.ms = ms = []
+
+        def timed(alg, *args, **kwargs):
+            out, t = sync_ms(lambda: orig(alg, *args, **kwargs))
+            ms.append(t)
+            return out
+
+        DeployFedLT.round_step = timed
+        return ms
+
+    def __exit__(self, *exc):
+        from repro_torch.core.deploy import DeployFedLT
+        DeployFedLT.round_step = self.orig
+
+
+def phase_fed_lm(launches: dict) -> dict:
+    """22e: the port's examples/train_federated_lm.py on the card.  Its
+    100m preset (bf16, 4 agents x 4 x 256, 2 epochs, L 1023 over ±0.5) for
+    FEDLM_ROUNDS["100m"] rounds: losses finite, the last below the first,
+    the attention launches as attention_launches derives them and nothing
+    else, ms per round and peak memory.  Its smoke preset (float32) for
+    FEDLM_ROUNDS["smoke"] rounds on the card (the float32 routes) and on the
+    CPU (the plain versions), from the same weights, drawn on the CPU:
+    losses finite, and every round's within FEDLM_RTOL."""
+    from repro_torch.examples import train_federated_lm as ex
+    from repro_torch.kernels import ops
+    out = {}
+    for preset, rounds in FEDLM_ROUNDS.items():
+        cfg = ex.PRESETS[preset]
+        per_round = attention_launches(cfg, getattr(torch, cfg.dtype), 4, 2)
+        argv = ["--preset", preset, "--rounds", str(rounds)]
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()        # the main path: the example's rounds
+        with round_times() as ms:
+            losses = ex.main(argv, device=DEV)
+        counts = nonzero_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        want = {k: rounds * v for k, v in per_round.items()}
+        check(counts == want, f"train_federated_lm --preset {preset}: launched {counts}, "
+              f"expected {want} ({per_round} a round)")
+        check(len(losses) == rounds and all(math.isfinite(x) for x in losses)
+              and (preset != "100m" or losses[-1] < losses[0]),
+              f"train_federated_lm --preset {preset}: losses {losses}")
+        out[preset] = dict(losses=losses, ms_per_round=ms,
+                           peak_bytes=torch.cuda.max_memory_allocated(),
+                           launches_per_round=per_round)
+    cpu = ex.main(["--preset", "smoke", "--rounds", str(FEDLM_ROUNDS["smoke"])],
+                  device="cpu")
+    card = out["smoke"]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    check(max(gaps) <= FEDLM_RTOL, f"train_federated_lm --preset smoke: card losses "
+          f"{card}, CPU {cpu}: rel gaps {gaps} over {FEDLM_RTOL}")
+    out["smoke"]["cpu_losses"] = cpu
+    print("[config] 22e examples/train_federated_lm.py: "
+          + "; ".join(f"--preset {p} losses " + ", ".join(f"{x:.4f}" for x in r["losses"])
+                      + ", ms per round " + ", ".join(f"{x:.1f}" for x in r["ms_per_round"])
+                      + f", launches per round {r['launches_per_round']}, peak "
+                      f"{r['peak_bytes'] / 2**30:.2f} GiB" for p, r in out.items())
+          + f"; the smoke preset's losses on the CPU " + ", ".join(f"{x:.4f}" for x in cpu)
+          + f" (rel gaps at most {max(gaps):.2e} <= {FEDLM_RTOL})")
+    return out
+
+
+def phase_launcher_flags(launches: dict) -> dict:
+    """22f: ``repro_torch.launch.train.main`` on stablelm-1.6b at full width
+    (phase 17's traffic) for one round with ``--no-compress --trace
+    --ledger``: the loss finite, the streamed trace's ``loss`` series equal
+    to the loss the launcher returned, the ledger holding one entry, which
+    ``python -m repro_torch.obs report --ledger`` reads."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.obs.ledger import load_ledger
+    from repro_torch.obs.trace import load
+    trace, ledger = BUILD / "launcher_trace.jsonl", BUILD / "launcher_ledger.jsonl"
+    for p in (trace, ledger):
+        p.unlink(missing_ok=True)
+    cfg = train_config()
+    want = train_attention_launches(cfg, torch.bfloat16)
+    free_card()
+    ops.reset_launch_counts()            # the main path: the launcher's round
+    run, ms = sync_ms(lambda: train.main(TRAIN_ARGV + [
+        "--rounds", "1", "--no-compress", "--trace", str(trace), "--ledger", str(ledger)],
+        device=DEV))
+    for k, v in nonzero_counts().items():
+        launches[k] += v
+    check(run.launches == [want], f"the launcher's --no-compress round launched "
+          f"{run.launches}, expected [{want}]")
+    check(len(run.losses) == 1 and math.isfinite(run.losses[0]),
+          f"the launcher's --no-compress round: losses {run.losses}")
+    series = [r for r in load(str(trace)) if r.get("kind") == "series"
+              and r.get("name") == "loss"]
+    check([(r["step"], r["value"]) for r in series] == [(0, run.losses[0])],
+          f"the trace's loss series {series}, the launcher's losses {run.losses}")
+    entries = load_ledger(str(ledger))
+    check(len(entries) == 1, f"the ledger holds {len(entries)} entries")
+    import contextlib
+    import io
+    from repro_torch.obs.__main__ import main as obs_main
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = obs_main(["report", "--ledger", str(ledger)])
+    check(rc == 0 and entries[0]["run_id"] in text.getvalue(), f"python -m "
+          f"repro_torch.obs report --ledger (its main, in this process): exit {rc}, "
+          f"output {text.getvalue()[-500:]!r}")
+    out = {"loss": run.losses[0], "ms": ms, "run_id": entries[0]["run_id"],
+           "records": sum(1 for _ in load(str(trace)))}
+    print(f"[config] 22f python -m repro_torch.launch.train {TRAIN_ARCH} at full width, "
+          f"--no-compress --trace --ledger, one round: loss {run.losses[0]:.6f} "
+          f"(the trace's loss series the same), launches {want}, {out['records']} trace "
+          f"records, ledger entry {out['run_id']} read by obs report; {ms:.1f} ms with "
+          "set-up")
+    del run
+    free_card()
+    return out
+
+
+def phase_configs(launches: dict, errors: dict) -> dict:
+    """22: the JAX package's configurations that no other phase runs, each a
+    main-path run with counts zeroed before it, with laps of its own."""
+    out = {"kv_int8": phase_kv_int8(launches)}
+    lap("22a int8 KV cache")
+    out["long_prompt"] = {arch: serve_long(arch, launches, errors) for arch in LONG_ARCHS}
+    lap("22b 32768-token prompts")
+    out["remat_group"], state = phase_remat_group(launches)
+    lap("22d remat_group")
+    out["quorum"] = phase_quorum(state, launches)
+    del state
+    free_card()
+    lap("22c quorum rounds")
+    out["fed_lm"] = phase_fed_lm(launches)
+    lap("22e train_federated_lm")
+    out["launcher"] = phase_launcher_flags(launches)
+    lap("22f launcher flags")
     return out
 
 
@@ -4476,6 +5273,7 @@ def main() -> int:
     catalog = phase_catalog(launches, errors)   # zeroed per run; laps of its own
     launch = phase_launch(launches)      # zeroed per run
     lap("20 launch")
+    configs = phase_configs(launches, errors)   # zeroed per run; laps of its own
     print(f"[main path] launches over every main-path run: {launches}")
     check(all(launches[k] > 0 for k in SOURCES), f"a kernel of the paths never "
           f"launched: {launches}")
@@ -4517,6 +5315,7 @@ def main() -> int:
     print(f"[families] summary: {json.dumps(families)}")
     print(f"[catalog] summary: {json.dumps(catalog)}")
     print(f"[launch] summary: {json.dumps(launch)}")
+    print(f"[config] summary: {json.dumps(configs)}")
     print(f"[table2] summary: {json.dumps(table2)}")
     print(f"[resume] summary: {json.dumps(resume)}")
     print(f"[ledger] summary: {json.dumps({k: {f: v for f, v in rec.items() if f != 'rows'} for k, rec in ledger.items()})}")

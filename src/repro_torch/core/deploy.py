@@ -90,6 +90,17 @@ def _quantize_ef(z, c, q):
     return w.view(z.shape), None if c is None else newc.view(z.shape)
 
 
+def _revert_caches(nc, z, c, agents) -> None:
+    """The quorum revert: the uplink EF cache of each agent in ``agents``
+    (indices into dim 0) becomes its corrected message z + c, in place in
+    ``nc`` and in its dtype, a piece of ``PIECE`` values at a time, so no
+    whole-leaf temporary is made."""
+    for i in agents:
+        dst, zf, cf = nc[i].view(-1), z[i].reshape(-1), c[i].reshape(-1)
+        for s in range(0, dst.numel(), PIECE):
+            dst[s:s + PIECE] = zf[s:s + PIECE] + cf[s:s + PIECE]
+
+
 def emit_round_series(step: int, metrics: dict) -> None:
     """Fold one ``round_step`` metrics dict into the active trace as
     per-round series samples (no-op when tracing is off); the loss is read
@@ -232,9 +243,11 @@ class DeployFedLT:
         lay = _AgentLayout(x0) if is_dtensor(x0) else _Whole(x0)
         if agent_replicate_spec is not None:
             lay.check(state.x, agent_replicate_spec)
-        surv = None
+        surv, dropped = None, []
         if survivors is not None:
             surv = torch.as_tensor(survivors, dtype=torch.bool, device=_local(x0).device)
+            mine = surv[lay.first:lay.first + lay.n_local].tolist()
+            dropped = [i for i, kept in enumerate(mine) if not kept]
 
         def mask(t):
             return surv.reshape((-1,) + (1,) * (t.dim() - 1))
@@ -269,10 +282,7 @@ class DeployFedLT:
                     else:
                         with record_function("fedlt.uplink"):
                             g, nc = self.uplink_leaf(z, c, lay.gather)
-                            if surv is not None:
-                                mine = surv[lay.first:lay.first + lay.n_local]
-                                m = mine.reshape((-1,) + (1,) * (nc.dim() - 1))
-                                nc = torch.where(m, nc, _local(z) + _local(c)).to(nc.dtype)
+                            _revert_caches(nc, _local(z), _local(c), dropped)
                         c_up_new.append(lay.from_local(nc, c))
                     with record_function("fedlt.aggregate"):
                         z_bar.append(lay.from_local(agent_mean(g), lay.mean_layout(z)))

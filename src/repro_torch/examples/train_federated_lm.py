@@ -21,7 +21,7 @@ import time
 import torch
 
 from ..core.deploy import DeployFedLT
-from ..core.pytree import tree_leaves
+from ..core.pytree import tree_leaves, tree_map
 from ..data.synthetic import make_batch, seeded, stack_batches
 from ..device import resolve_device
 from ..models.config import ModelConfig
@@ -55,8 +55,11 @@ def main(argv=None, device=None) -> list:
     alg = DeployFedLT(cfg=cfg, n_epochs=args.n_epochs, gamma=0.02, rho=10.0,
                       compress=not args.no_compress, levels=1023,
                       vmin=-0.5, vmax=0.5)
-    state = alg.init(args.agents, generator=torch.Generator(device=dev).manual_seed(0),
-                     device=dev)
+    # weights drawn on the CPU from seed 0 and moved: the card and the CPU
+    # train the same model, so their losses can be held against each other
+    state = alg.init(args.agents, generator=torch.Generator().manual_seed(0), device="cpu")
+    state = state._replace(**{f: tree_map(lambda t: t.to(dev), getattr(state, f))
+                              for f in ("x", "z", "c_up", "y_hat", "c_down")})
     n_params = sum(x.numel() for x in tree_leaves(state.y_hat))
     print(f"model: {cfg.name}  params={n_params/1e6:.1f}M  "
           f"agents={args.agents}  compress={not args.no_compress}")

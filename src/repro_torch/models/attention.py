@@ -22,6 +22,7 @@ returns new buffers); the serving steps own their cache and hand it on.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -173,10 +174,19 @@ class QuantKVCache(NamedTuple):
     length: int
 
 
+@functools.lru_cache(maxsize=None)
+def _card_127(device: torch.device) -> torch.Tensor:
+    """127 as a 0-d tensor on a card, made once per card: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, one ulp off
+    the quotient (JAX's and the CPU's) for some dividends."""
+    return torch.full((), 127.0, device=device)
+
+
 def _kv_quant(x):
     """x (B,S,H,D) → int8 codes and a per-(B,S,H) float32 scale."""
     xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=-1) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / (_card_127(amax.device) if amax.is_cuda else 127.0)
     safe = torch.clamp(scale, min=1e-8)
     q = torch.round(xf / safe[..., None])
     return torch.clamp(q, -127, 127).to(torch.int8), scale

@@ -41,8 +41,18 @@ class Counter:
         self.cells: Dict[Tuple, float] = {}
 
     def add(self, value: float = 1.0, **labels) -> None:
+        self.add_each((value,), **labels)
+
+    def add_each(self, values: Sequence[float], **labels) -> None:
+        """``add(v, **labels)`` for each of ``values`` in turn: one cell,
+        summed in that order, its key built once."""
+        if not values:
+            return
         key = tuple(sorted(labels.items()))
-        self.cells[key] = self.cells.get(key, 0.0) + value
+        cell = self.cells.get(key, 0.0)
+        for v in values:
+            cell = cell + v
+        self.cells[key] = cell
 
     @property
     def total(self) -> float:
@@ -84,21 +94,30 @@ class Histogram:
         self.max = -math.inf
 
     def observe(self, value: float) -> None:
-        if self.lo is not None and value < self.lo:
-            self.underflow += 1
-        else:
-            i = 0
-            for b in self.bounds:
-                if value <= b:
-                    break
-                i += 1
-            self.counts[i] += 1
-        self.count += 1
-        self.sum += value
-        if value < self.min:
-            self.min = value
-        if value > self.max:
-            self.max = value
+        self.observe_each((value,))
+
+    def observe_each(self, values: Sequence[float]) -> None:
+        """``observe(v)`` for each of ``values`` in turn: the buckets and the
+        running sum, min and max taken in that order."""
+        bounds, lo, counts = self.bounds, self.lo, self.counts
+        total, vmin, vmax = self.sum, self.min, self.max
+        for value in values:
+            if lo is not None and value < lo:
+                self.underflow += 1
+            else:
+                i = 0
+                for b in bounds:
+                    if value <= b:
+                        break
+                    i += 1
+                counts[i] += 1
+            total += value
+            if value < vmin:
+                vmin = value
+            if value > vmax:
+                vmax = value
+        self.count += len(values)
+        self.sum, self.min, self.max = total, vmin, vmax
 
     @property
     def overflow(self) -> int:

@@ -257,35 +257,54 @@ class RoundResult:
 # untouched — with no active tracer the only cost is one module
 # attribute read per round.
 
-def _emit_round_trace(trc, res: "RoundResult", engine: str, k: int) -> None:
-    """Emit one sync round's records (kinds: delivery/arq/cohort/round)
-    and bump the byte/latency metrics."""
+def _emit_deliveries(trc, deliveries: Sequence[Delivery], **tags) -> tuple:
+    """Emit the delivery records (``Delivery.to_dict()`` plus ``kind`` and
+    ``tags``) and their ``arq`` events, and bump the byte, delivery and
+    latency metrics: each cell takes its deliveries' values in delivery
+    order, so its sum is that of one ``add`` per delivery, bit for bit.
+    Returns (bytes put on the air, deliveries that landed)."""
     mtr = trc.metrics
     lat = mtr.histogram("delivery_latency", lo=0.0)
     air_c = mtr.counter("bytes_air")
     retx_c = mtr.counter("bytes_retx")
     dlv_c = mtr.counter("deliveries")
+    air, status = {}, {}
+    retx, lats = [], []
     bytes_air = 0.0
-    n_lost = 0
-    for d in res.deliveries:
+    n_ok = 0
+    for d in deliveries:
         rec = d.to_dict()
         rec["kind"] = "delivery"
-        rec["round"] = k
+        rec.update(tags)
         trc.raw(rec)
-        bytes_air += d.nbytes_attempted
-        n_lost += not d.delivered
-        air_c.add(d.nbytes_attempted, station=d.station)
-        retx_c.add(d.nbytes_attempted - d.nbytes)
-        dlv_c.add(1.0, status="ok" if d.delivered else "lost")
-        lat.observe(d.t_done - d.t_start)
-        if d.retries or not d.delivered:
-            w = d.window
-            trc.event("arq", round=k, sat=int(d.sat),
-                      gateway=int(d.gateway), station=int(d.station),
-                      window=float(w) if w == w else None,
-                      retries=int(d.retries), delivered=bool(d.delivered),
-                      nbytes_attempted=float(d.nbytes_attempted),
-                      t_done=float(d.t_done))
+        att, ok = d.nbytes_attempted, d.delivered
+        bytes_air += att
+        n_ok += bool(ok)
+        air.setdefault(d.station, []).append(att)
+        retx.append(att - d.nbytes)
+        st = "ok" if ok else "lost"
+        status[st] = status.get(st, 0) + 1
+        lats.append(d.t_done - d.t_start)
+        if d.retries or not ok:
+            trc.event("arq", **tags, sat=rec["sat"], gateway=rec["gateway"],
+                      station=rec["station"], window=rec["window"],
+                      retries=rec["retries"], delivered=rec["delivered"],
+                      nbytes_attempted=rec["nbytes_attempted"], t_done=rec["t_done"])
+    for station, values in air.items():
+        air_c.add_each(values, station=station)
+    retx_c.add_each(retx)
+    for st, n in status.items():
+        dlv_c.add_each([1.0] * n, status=st)
+    lat.observe_each(lats)
+    return bytes_air, n_ok
+
+
+def _emit_round_trace(trc, res: "RoundResult", engine: str, k: int) -> None:
+    """Emit one sync round's records (kinds: delivery/arq/cohort/round)
+    and bump the byte/latency metrics."""
+    mtr = trc.metrics
+    bytes_air, n_ok = _emit_deliveries(trc, res.deliveries, round=k)
+    n_lost = len(res.deliveries) - n_ok
     for c in res.cohorts():
         w = c.window
         trc.event("cohort", round=k, station=int(c.station),
@@ -301,7 +320,6 @@ def _emit_round_trace(trc, res: "RoundResult", engine: str, k: int) -> None:
     # at most once — and for plane rounds counts head uplinks, keeping
     # the check() count invariant engine-agnostic; the member count rides
     # on the plane extras below
-    n_ok = sum(bool(d.delivered) for d in res.deliveries)
     extra = {}
     if res.merged is not None:
         extra = dict(topology="plane", bytes_isl=float(res.bytes_isl),
@@ -344,32 +362,7 @@ def _emit_async_trace(trc, deliveries: Sequence[Delivery], engine: str,
     """Emit one async run's records: per-delivery (``round=None``,
     tagged with the run index) plus a closing ``async_run`` summary."""
     mtr = trc.metrics
-    lat = mtr.histogram("delivery_latency", lo=0.0)
-    air_c = mtr.counter("bytes_air")
-    retx_c = mtr.counter("bytes_retx")
-    dlv_c = mtr.counter("deliveries")
-    bytes_air = 0.0
-    n_ok = 0
-    for d in deliveries:
-        rec = d.to_dict()
-        rec["kind"] = "delivery"
-        rec["round"] = None
-        rec["run"] = run
-        trc.raw(rec)
-        bytes_air += d.nbytes_attempted
-        n_ok += bool(d.delivered)
-        air_c.add(d.nbytes_attempted, station=d.station)
-        retx_c.add(d.nbytes_attempted - d.nbytes)
-        dlv_c.add(1.0, status="ok" if d.delivered else "lost")
-        lat.observe(d.t_done - d.t_start)
-        if d.retries or not d.delivered:
-            w = d.window
-            trc.event("arq", round=None, run=run, sat=int(d.sat),
-                      gateway=int(d.gateway), station=int(d.station),
-                      window=float(w) if w == w else None,
-                      retries=int(d.retries), delivered=bool(d.delivered),
-                      nbytes_attempted=float(d.nbytes_attempted),
-                      t_done=float(d.t_done))
+    bytes_air, n_ok = _emit_deliveries(trc, deliveries, round=None, run=run)
     for ev in fault_events:
         trc.event("fault", round=None, run=run, **ev)
         mtr.counter("faults").add(1.0, what=ev.get("what", "?"))

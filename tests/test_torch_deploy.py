@@ -305,6 +305,10 @@ ROUND_CASES = [
     ("packed-fused", dict(QUANT, pack_wire=True), None),
     ("packed-unfused", dict(QUANT, pack_wire=True, fuse_pipeline=False), None),
     ("survivors", dict(compress=True, levels=255, vmin=-4.0, vmax=4.0), [True, False]),
+    # the quorum revert after the packed uplink, fused and unfused
+    ("survivors-packed", dict(QUANT, pack_wire=True), [True, False]),
+    ("survivors-packed-unfused", dict(QUANT, pack_wire=True, fuse_pipeline=False),
+     [True, False]),
 ]
 
 

@@ -388,3 +388,51 @@ def test_cli_subcommands_match_the_reference(runs, canonical_trace, tmp_path, ca
                          capsys))
     assert hist[0] == hist[1] and hist[0][0] == 0
     assert os.path.exists(chrome_out)
+
+
+def test_launcher_trace_and_ledger_flags_match_the_reference_launcher(tmp_path, capsys,
+                                                                      monkeypatch):
+    """``repro_torch.launch.train.main`` with ``--smoke --no-compress
+    --trace --ledger`` on the CPU, one round: the loss finite, the trace's
+    ``loss`` series that loss, the ledger one entry, which ``obs report
+    --ledger`` reads; and the trace's record kinds and series names those of
+    the JAX launcher's trace under the same flags (the losses differ: the
+    packages draw other weights and tokens).  The port's trace also holds
+    what its attention's dispatch hook writes, as ``repro.kernels.ops``'
+    does for a dispatched kernel: a ``kernel`` record per call (the one
+    attention layer's forward and its recompute, per agent) and a
+    ``metrics`` record of those dispatches; the JAX package's model attends
+    in plain JAX, outside ``ops``, and writes neither."""
+    import sys
+
+    from repro.launch import train as jtrain
+    from repro.obs import trace as jtrace
+    from repro_torch.launch import train as ttrain
+    from repro_torch.obs import trace as ttrace
+    argv = ["--arch", "stablelm-1.6b", "--smoke", "--rounds", "1", "--agents", "2",
+            "--batch", "1", "--seq", "64", "--n-epochs", "1", "--no-compress"]
+    paths = {pkg: (str(tmp_path / f"{pkg}.jsonl"), str(tmp_path / f"{pkg}_ledger.jsonl"))
+             for pkg in ("port", "ref")}
+    run = ttrain.main(argv + ["--trace", paths["port"][0], "--ledger", paths["port"][1]],
+                      device="cpu")
+    monkeypatch.setattr(sys, "argv", ["train"] + argv + [
+        "--trace", paths["ref"][0], "--ledger", paths["ref"][1]])
+    jtrain.main()
+    capsys.readouterr()
+    assert len(run.losses) == 1 and np.isfinite(run.losses[0])
+    traces = {"port": ttrace.load(paths["port"][0]), "ref": jtrace.load(paths["ref"][0])}
+    losses = [r for r in traces["port"] if r["kind"] == "series" and r["name"] == "loss"]
+    assert [(r["step"], r["value"]) for r in losses] == [(0, run.losses[0])]
+    hook = [r for r in traces["port"] if r["kind"] in ("kernel", "metrics")]
+    assert [r.get("name") for r in hook] == ["attention"] * 4 + [None]
+    assert hook[-1]["counters"] == {"kernel_dispatches": {
+        "cells": {"name=attention": 4.0}, "total": 4.0}} and not hook[-1]["histograms"]
+    kinds = {pkg: sorted({r["kind"] for r in recs if r not in hook})
+             for pkg, recs in traces.items()}
+    names = {pkg: sorted({r["name"] for r in recs if r["kind"] == "series"})
+             for pkg, recs in traces.items()}
+    assert kinds["port"] == kinds["ref"] and names["port"] == names["ref"] == ["loss"]
+    entries = tledger.load_ledger(paths["port"][1])
+    assert len(entries) == 1 and len(jledger.load_ledger(paths["ref"][1])) == 1
+    rc, text = _cli(tcli.main, ["report", "--ledger", paths["port"][1]], capsys)
+    assert rc == 0 and entries[0]["run_id"] in text

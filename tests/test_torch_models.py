@@ -270,6 +270,56 @@ def test_scan_unroll_waits_for_the_launch_slice():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def test_lm_loss_at_remat_group_2_matches_jax_and_group_1(monkeypatch):
+    """cfg.remat_group 2 on stablelm-1.6b's smoke variant at two scan units:
+    the port checkpoints both units as one group, as the JAX package's
+    two-level remat does.  lm_loss and every gradient equal jax.jit's at
+    remat_group 2 (rtol 1e-5 on the loss, atol 1e-6 on the gradients,
+    float32, 64 tokens: one chunk) and the port's at remat_group 1 bit for
+    bit (a group only changes what the backward recomputes), through one
+    checkpoint where remat_group 1 takes one per unit.  The port runs
+    on one thread: the CPU's embedding backward sums a token's rows in
+    another order from call to call when it has several."""
+    from repro.data.synthetic import make_batch as jax_make_batch
+    from repro.models import transformer as jtf
+    from repro_torch.core.pytree import tree_unflatten
+    kw = dict(n_layers=2, scan_repeats=2, remat_group=2)
+    cfg_j = dataclasses.replace(jax_smoke(JAX_ARCHS["stablelm-1.6b"]), **kw)
+    cfg_t = dataclasses.replace(smoke_variant(ARCHS["stablelm-1.6b"]), **kw)
+    pj = jtf.init_params(jax.random.PRNGKey(0), cfg_j)
+    batch_j = jax_make_batch(cfg_j, jax.random.PRNGKey(3), 2, 64)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jtf.lm_loss(p, cfg_j, batch_j)))(pj)
+    pt = model_params_from_jax(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
+    batch_t = {k: t(v).long() for k, v in batch_j.items()}
+    segments, plain_checkpoint = [], ttf.checkpoint
+
+    def counted(fn, x, r0, **kw):
+        segments.append(r0)
+        return plain_checkpoint(fn, x, r0, **kw)
+
+    monkeypatch.setattr(ttf, "checkpoint", counted)
+    runs, threads = {}, torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for group in (2, 1):
+            leaves = [x.detach().clone().requires_grad_() for x in tree_leaves(pt)]
+            cfg = dataclasses.replace(cfg_t, remat_group=group)
+            loss = ttf.lm_loss(tree_unflatten(pt, leaves), cfg, batch_t)
+            runs[group] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    finally:
+        torch.set_num_threads(threads)
+    assert segments == [0, 0, 1]       # the first unit of each checkpointed segment
+    loss_t, grads_t = runs[2]
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=EW["rtol"])
+    leaves_j = jax.tree_util.tree_leaves(grads_j)
+    assert len(leaves_j) == len(grads_t)
+    for gj, gt in zip(leaves_j, grads_t):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), **EW)
+    assert torch.equal(runs[1][0], loss_t)
+    assert all(torch.equal(a, b) for a, b in zip(runs[1][1], grads_t))
+
+
 # (Sq, H, Hkv, D, window, softcap, chunk_q, chunk_k): Sq off the chunks pads
 # both the queries (position -1) and the keys (position 2**30)
 UNROLLED_CASES = [

@@ -44,6 +44,10 @@ LATER = ["grok-1-314b", "mixtral-8x7b", "mixtral-8x7b-capacity", "zamba2-2.7b",
          "rwkv6-3b"]
 #: a GQA variant of danube3 (the smoke variant has n_kv_heads == n_heads)
 GQA = dict(n_layers=2, scan_repeats=2, n_heads=4, n_kv_heads=2, head_dim=40)
+#: danube3 with the int8 KV cache (QuantKVCache rings: int8 codes and a
+#: float32 scale per batch row, slot and head; decode attends their
+#: dequantized values)
+INT8 = dict(kv_cache_int8=True)
 RTOL, ATOL = 1e-4, 1e-5
 BATCH, PROMPT, STEPS = 2, 150, 3
 
@@ -51,6 +55,7 @@ BATCH, PROMPT, STEPS = 2, 150, 3
 def configs(name: str):
     """The same reduced configuration in both packages."""
     variants = {"h2o-danube-3-4b-gqa": ("h2o-danube-3-4b", GQA),
+                "h2o-danube-3-4b-int8": ("h2o-danube-3-4b", INT8),
                 "mixtral-8x7b-capacity": ("mixtral-8x7b", dict(moe_dispatch="capacity"))}
     if name in variants:
         base, kw = variants[name]
@@ -115,6 +120,55 @@ def serve_both(name: str, batch: dict, length: int):
 def test_prefill_and_decode_match_jax(name):
     jcfg, _ = configs(name)
     serve_both(name, {"tokens": prompts(jcfg.vocab_size)}, PROMPT)
+
+
+def test_int8_kv_cache_prefill_and_decode_match_jax():
+    """danube3's smoke variant with ``kv_cache_int8``: prefill of 2 x 150
+    tokens into its 128-slot int8 ring, then three decode steps, each from
+    the JAX package's cache of the step before (converted, as the deploy
+    tests start each round from JAX's state) and fed JAX's greedy token,
+    against jax.jit of the JAX package's steps.  Logits, scales and
+    positions within rtol 1e-4 / atol 1e-5 after every step.  The int8
+    codes are equal, save one level where the value quantized lies within
+    1e-3 of a half-level tie (the two packages' float32 K and V sums part by
+    an ulp there), that value read from the port's float32 cache run in
+    lockstep (one layer, so its K/V are the int8 route's); the flips are
+    counted and stay under 1e-3 of the codes."""
+    jcfg, tcfg, jparams, tparams = setup("h2o-danube-3-4b-int8")
+    assert tcfg.kv_cache_int8 and tcfg.n_layers == 1 and PROMPT > tcfg.sliding_window
+    plain = dataclasses.replace(tcfg, kv_cache_int8=False)
+    j_prefill = jax.jit(jserve.make_prefill_step(jcfg, backend="chunked"))
+    j_decode = jax.jit(jserve.make_decode_step(jcfg, backend="chunked"))
+    t_decode, f_decode = make_decode_step(tcfg), make_decode_step(plain)
+    tok = prompts(jcfg.vocab_size)
+    jl, jc = j_prefill(jparams, {"tokens": jnp.asarray(tok)})
+    tl, tc = make_prefill_step(tcfg)(tparams, {"tokens": torch.from_numpy(tok)})
+    _, fc = make_prefill_step(plain)(tparams, {"tokens": torch.from_numpy(tok)})
+    flips = codes = 0
+    for step in range(STEPS + 1):
+        what = "prefill" if step == 0 else f"decode step {step - 1}"
+        close(tl, jl, f"int8 cache, {what} logits")
+        for ours, theirs, f32 in zip(tc["scan"], jc["scan"], fc["scan"]):
+            np.testing.assert_array_equal(ours.pos.numpy(), np.asarray(theirs.pos))
+            for name in ("k", "v"):
+                scale = getattr(ours, f"{name}_scale")
+                close(scale, getattr(theirs, f"{name}_scale"), f"{what}: {name} scales")
+                diff = getattr(ours, name).numpy().astype(int) - np.asarray(
+                    getattr(theirs, name)).astype(int)
+                u = (getattr(f32, name) / scale.clamp(min=1e-8)[..., None]).double().numpy()
+                tie = np.abs(u - np.floor(u) - 0.5) <= 1e-3
+                assert np.all(np.abs(diff) <= 1) and np.all(tie[diff != 0]), (what, name)
+                flips += int(np.count_nonzero(diff))
+                codes += diff.size
+        if step == STEPS:
+            break
+        nxt = np.asarray(jnp.argmax(jl, axis=-1))[:, None].astype(np.int32)
+        start = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, jc), device="cpu")
+        jl, jc = j_decode(jparams, jc, jnp.asarray(nxt))
+        tl, tc = t_decode(tparams, start, torch.from_numpy(nxt))
+        _, fc = f_decode(tparams, fc, torch.from_numpy(nxt))
+    assert tc["length"] == PROMPT + STEPS
+    assert flips <= 1e-3 * codes, flips
 
 
 def test_vlm_prefill_with_a_vision_prefix_matches_jax():
