@@ -532,7 +532,6 @@ def check_f32_bwd_smem() -> None:
           f"equals f32_bwd_smem_bytes for D = 1..{fa.MAX_HEAD_DIM}: {fn(64, 0)} and "
           f"{fn(64, 1)} B at D <= 64, {fn(128, 0)} and {fn(128, 1)} B above")
 
-
 def check_f32_bwd_sass(lib) -> None:
     """The float32 backward runs on the tensor cores: ``cuobjdump -sass`` of
     its library shows TF32 HMMA instructions in its dK/dV and dQ grids, and
@@ -1137,6 +1136,53 @@ def check_flash_stats(fa, ref, gen, dtype) -> float:
     return worst
 
 
+def check_f32_bwd_split(fa, ref, gen) -> float:
+    """The float32 backward where a group's dK/dV chain is split over
+    several blocks and their partials summed (f32_bwd_head_slices): 48
+    query heads on one KV head at S = 2048, D = 64 (the DP = 64 build;
+    phase 21 holds granite-20b's D = 128), causal, with aligned keys and
+    with keys 192 ahead of the queries (rows 0..191 see no key: each
+    slice adds its own such rows to dV, once); and a ragged case, 16/2
+    heads (8 over 2 slices), Sq = 2100 queries on the last of Sk = 2300
+    keys, D = 33 (4-byte loads), window 64 and softcap 30.  Each call one
+    forward and one backward launch, within FLASH_BWD_TOL, two calls bit
+    for bit; the largest max_abs_err."""
+    dtype, s, d, h, hkv = torch.float32, 2048, 64, 48, 1
+    name = fa.bwd_route(dtype, DEV)
+    q, k, v, qp, kp = flash_case(s, d, h, hkv, False, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device=DEV)
+    cases = [(f"S={s} D={d} H={h}/{hkv} causal, aligned", (q, k, v, do, qp, kp), {}),
+             (f"S={s} D={d} H={h}/{hkv} causal, keys 192 ahead",
+              (q, k, v, do, qp, kp + 192), {})]
+    sq, sk, d, h, hkv = 2100, 2300, 33, 16, 2
+    q, do = (torch.randn((1, sq, h, d), generator=gen, device=DEV) for _ in range(2))
+    k, v = (torch.randn((1, sk, hkv, d), generator=gen, device=DEV) for _ in range(2))
+    kp = torch.arange(sk, dtype=torch.int32, device=DEV)
+    cases.append((f"Sq={sq} Sk={sk} D={d} H={h}/{hkv} causal, window 64, softcap 30",
+                  (q, k, v, do, kp[sk - sq:], kp), dict(window=64, softcap=30.0)))
+    errs = []
+    for what, args, kw in cases:
+        q, k = args[0], args[1]
+        slices = fa.f32_bwd_head_slices(q.shape[2] // k.shape[2], q.shape[1])
+        what = f"float32 {what}, {len(slices)} slices {slices}"
+        check(len(slices) > 1, f"{name} {what}: not split")
+        got, made = launched(lambda: fa.flash_attention_bwd(*args, causal=True, **kw))
+        check(made == {name: 1, fa.route(dtype, DEV): 1}, f"{name} {what} launched {made}")
+        again = fa.flash_attention_bwd(*args, causal=True, **kw)
+        check(all(same_bits(a, b) for a, b in zip(got, again)),
+              f"{name} {what}: two calls differ")
+        errs.append(flash_bwd_check(got, ref.flash_attention_bwd_ref(*args, causal=True,
+                                                                     **kw), what))
+        if "ahead" in what:
+            check(float(got[0][:, :192].abs().max()) == 0.0,
+                  f"{name} {what}: rows that see no key have a nonzero dq")
+        print(f"[kernels] {name} {what}: the dK/dV chain summed by the fourth grid; "
+              f"max_abs_err of dq, dk, dv {errs[-1]:.3e} (within "
+              f"{FLASH_BWD_TOL[dtype][1]}); two calls equal bit for bit")
+        del got, again
+    return max(errs)
+
+
 def check_flash_bwd(err: dict) -> None:
     """The backward against its plain version over the forward grid's
     cases at S in FLASH_BWD_S, window in FLASH_BWD_WINDOWS, offset
@@ -1187,6 +1233,7 @@ def check_flash_bwd(err: dict) -> None:
                           + " ".join(f"{e:.1e}" for e in errs)
                           + f" (within {tol[1]} + {tol[0]:.4g} |plain|); two calls equal "
                           "bit for bit")
+    worst[torch.float32] = max(worst[torch.float32], check_f32_bwd_split(fa, ref, gen))
     ahead = torch.arange(192, 192 + 385, dtype=torch.int32, device=DEV)
     for dtype in FLASH_BWD_TOL:
         q, k, v, qp, _ = flash_case(385, 120, 32, 8, False, dtype, gen)
@@ -2852,6 +2899,11 @@ CATALOG_TRAIN = (("granite-20b", dict(n_layers=3, scan_repeats=3), 0.02),
 #: heads or window no other phase runs (GQA groups 2, 48 and 7; gemma3's
 #: window 1024 and its global layers): TRAIN_BATCH x TRAIN_SEQ
 CATALOG_BWD = ("gemma3-27b", "granite-20b", "qwen2-vl-7b")
+# the float32 backward's worst dK error at granite-20b's MQA training shape,
+# half of FLASH_BWD_TOL's 1e-4 (unless the float32 plain version is itself
+# further than this from a float64 one: then the kernel is held to the plain
+# version's own error against float64 plus 1e-5)
+F32_MQA_DK_TOL = 5e-5
 
 
 def check_catalog_bwd(arch: str, errors: dict) -> dict:
@@ -2862,7 +2914,11 @@ def check_catalog_bwd(arch: str, errors: dict) -> dict:
     flash_attention then flash_attention_bwd), each one launch, held
     against the plain versions one batch row at a time (FLASH_TOL,
     FLASH_BWD_TOL), a second backward call equal bit for bit; the worst
-    errors are folded into ``errors``."""
+    errors are folded into ``errors``.  In float32 also each row's dK
+    against a float64 plain version (bench/attention_bwd.py dk_f64), the
+    kernel's and the float32 plain version's; an MQA group is held to
+    F32_MQA_DK_TOL."""
+    from repro_torch.bench.attention_bwd import dk_f64
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     cfg = family_config(arch)
@@ -2888,19 +2944,45 @@ def check_catalog_bwd(arch: str, errors: dict) -> dict:
                   f"{bwd} {what}: two calls differ")
             del again
             e_f = e_b = 0.0
+            dk = {"plain": 0.0, "kernel_f64": 0.0, "plain_f64": 0.0}
             for i in range(TRAIN_BATCH):
                 row = lambda t: t[i:i + 1]
                 e_f = max(e_f, flash_check(row(o), ref.flash_attention_ref(
                     row(q), row(k), row(v), pos, pos, **kw), f"{fwd} {what}, row {i}"))
-                e_b = max(e_b, flash_bwd_check(
-                    tuple(row(g) for g in grads), ref.flash_attention_bwd_ref(
-                        row(q), row(k), row(v), row(do), pos, pos, **kw),
-                    f"{what}, row {i}"))
+                plain = ref.flash_attention_bwd_ref(row(q), row(k), row(v), row(do), pos,
+                                                    pos, **kw)
+                e_b = max(e_b, flash_bwd_check(tuple(row(g) for g in grads), plain,
+                                               f"{what}, row {i}"))
+                if dtype == torch.float32:
+                    dk64 = dk_f64(row(q), row(k), row(v), row(do), pos, w)
+                    for key, a, b in (("plain", row(grads[1]), plain[1]),
+                                      ("kernel_f64", row(grads[1]).double(), dk64),
+                                      ("plain_f64", plain[1].double(), dk64)):
+                        dk[key] = max(dk[key], float((a - b).abs().max()))
+                    del dk64
+                del plain
             errors[fwd], errors[bwd] = max(errors[fwd], e_f), max(errors[bwd], e_b)
             out[f"{w} {str(dtype)[6:]}"] = {"forward": e_f, "backward": e_b}
             print(f"[catalog] {fwd} (with the statistics) and {bwd} {what}: each batch "
                   f"row within tolerance of the plain versions, max_abs_err {e_f:.3e} "
                   f"(forward), {e_b:.3e} (dq, dk, dv); two backward calls equal bit for bit")
+            if dtype == torch.float32:
+                out[f"{w} {str(dtype)[6:]}"]["dk"] = dk
+                n_split = len(fa.f32_bwd_head_slices(h // hkv, TRAIN_SEQ))
+                mqa_ok = dk["plain"] <= F32_MQA_DK_TOL or (
+                    dk["plain_f64"] > F32_MQA_DK_TOL
+                    and dk["kernel_f64"] <= dk["plain_f64"] + 1e-5)
+                check(hkv > 1 or mqa_ok,
+                      f"{bwd} {what}: worst dK error {dk['plain']:.3e} over "
+                      f"{F32_MQA_DK_TOL} (against float64: kernel {dk['kernel_f64']:.3e}, "
+                      f"float32 plain {dk['plain_f64']:.3e})")
+                print(f"[catalog] {bwd} {what}: group {h // hkv} in {n_split} dK/dV "
+                      f"slice(s); worst dK error {dk['plain']:.3e} against the float32 "
+                      f"plain version ({FLASH_BWD_TOL[dtype][1] / max(dk['plain'], 1e-30):.2f}"
+                      f" times within the check's {FLASH_BWD_TOL[dtype][1]}"
+                      + (f", MQA held to {F32_MQA_DK_TOL}" if hkv == 1 else "")
+                      + f"); against a float64 plain version: kernel {dk['kernel_f64']:.3e},"
+                      f" float32 plain {dk['plain_f64']:.3e}")
             del q, k, v, do, o, lse, o32, grads
     free_card()
     return out
@@ -2912,8 +2994,9 @@ def time_catalog_attention() -> dict:
     forward; the backward's as time_flash_bwd counts it: five S^2 D
     products from the saved statistics at the dtype's peak): the bf16
     forward at each arch's prefill shape and window, the bf16 and float32
-    backward at the training shape, and, at granite-20b's MQA training
-    shape, the backward of torch.nn.functional.scaled_dot_product_attention
+    backward at the training shape (float32: with its dK/dV grid's block
+    count), and, at granite-20b's MQA training shape in both dtypes, the
+    backward of torch.nn.functional.scaled_dot_product_attention
     (enable_gqa, is_causal; timed only, the port never calls it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2950,7 +3033,7 @@ def time_catalog_attention() -> dict:
                 fns = {"kern": lambda: fa.flash_attention_bwd(q, k, v, do, pos, pos,
                                                               window=w, stats=stats)}
                 iters = {"kern": 5}
-                mqa = hkv == 1 and dtype == torch.bfloat16 and w is None
+                mqa = hkv == 1 and w is None
                 if mqa:
                     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                                   for x in (q, k, v))
@@ -2974,6 +3057,9 @@ def time_catalog_attention() -> dict:
                            dtype=str(dtype)[6:], ms=ms, ms_runs=runs["kern"],
                            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
                            tflops=flops / ms / 1e9)
+                if dtype == torch.float32:
+                    rec["dkdv_blocks"] = (TRAIN_BATCH * hkv * -(-TRAIN_SEQ // fa.BWD_BLOCK_K)
+                                          * len(fa.f32_bwd_head_slices(h // hkv, TRAIN_SEQ)))
                 if mqa:
                     rec.update(library_ms=min(runs["sdpa"]), library_ms_runs=runs["sdpa"],
                                library="scaled_dot_product_attention backward "
@@ -2987,6 +3073,8 @@ def time_catalog_attention() -> dict:
                       + ", ".join(f"{x:.3f}" for x in runs["kern"]) + f"), "
                       f"{rec['tflops']:.1f} TFLOP/s, {100 * rec['bound_share']:.1f}% of "
                       f"the bound {b_ms:.4f} ms by {b_by}"
+                      + (f"; {rec['dkdv_blocks']} blocks in the dK/dV grid"
+                         if "dkdv_blocks" in rec else "")
                       + (f"; scaled_dot_product_attention's backward (enable_gqa) "
                          f"{rec['library_ms']:.3f} ms (runs "
                          + ", ".join(f"{x:.3f}" for x in runs["sdpa"])

@@ -44,6 +44,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def cap_test_worker_threads() -> None:
+    """Run torch's CPU ops on one intra-op thread in a pytest-xdist worker
+    (``PYTEST_XDIST_WORKER`` set), and leave them alone elsewhere.
+
+    Only the port's test modules call it, when they are imported.  Under
+    ``-n 6`` each worker imports every test module, and at torch's default
+    of a thread per core the workers' pools (which spin while they wait)
+    competed for the cores with one another and with the JAX package's
+    slowest test file, which then took the longest of any worker.
+    """
+    import os
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
+
+
 def is_dtensor(t) -> bool:
     """Whether ``t`` is a ``torch.distributed.tensor.DTensor`` (a tensor
     laid out over a device mesh)."""

@@ -70,10 +70,12 @@ KERNELS = {
                              (_P,) * 6 + (_L,) * 9 + (_I,) * 9 + (_F, _F, _P, _P, _I)),
     # q, k, v, dout, dq, dk, dv, lse and o (the forward's), delta and nokey
     # (scratch), q_pos, k_pos, B, H, Hkv, Sq, Sk, D, lse's row, causal,
-    # window, scale, softcap (float32 only); one call enqueues its three
-    # grids and counts as one
+    # window, scale, softcap (float32 only), the dK/dV grid's slices per
+    # group and their partial dK and dV (float32 scratch where there are
+    # several, else null); one call enqueues its three grids (four with
+    # slices) and counts as one
     "flash_attention_bwd": ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
-                            (_P,) * 13 + (_I,) * 9 + (_F, _F)),
+                            (_P,) * 13 + (_I,) * 9 + (_F, _F, _I, _P, _P)),
     # q, k, v, dout, dq, dk, dv, lse and o32 (the forward's), delta and
     # nokey (scratch), q_pos, k_pos, the (B, S, H) strides of q, k, v and
     # dout, B, H, Hkv, Sq, Sk, D, padded D, lse's row, causal, window,

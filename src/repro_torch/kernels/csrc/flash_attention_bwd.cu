@@ -25,23 +25,48 @@
 // log2(l_i), +inf for a row that sees no key and for the rows past Sq, in
 // rows of lse_stride floats.  O is the float32 route's own output.  So
 // P = 2**(s' log2(e) - LSE) with no second pass over the keys.  One call
-// enqueues three grids:
+// enqueues three grids, or four when a group's chain is split:
 //
 //   prep  one block per (b, h, 64 rows): D_i = rowsum(dO o O) by a warp per
 //         row, an xor butterfly over the lanes, 0 past Sq, and the count of
 //         the rows that see no key; bound by bytes (dO and O once);
-//   dkdv  one block per (b, hk, 64 keys), longest first: K and V stay in
-//         shared memory, a cp.async ring of Q and dO tiles of 32 rows and
-//         their LSE and D, over the group's heads and the visible query
-//         tiles; warp w owns keys 16 w .. 16 w + 15:
+//   dkdv  n_split blocks per (b, hk, 64 keys), longest first: K and V stay
+//         in shared memory, a cp.async ring of Q and dO tiles of 32 rows
+//         and their LSE and D, over a contiguous slice of the group's heads
+//         (all of them when n_split = 1) and the visible query tiles; warp
+//         w owns keys 16 w .. 16 w + 15:
 //
 //           S^T = K Q^T,  dP^T = V dO^T       B read K-major
 //           P^T = 2**(S^T scale log2e - LSE),  dS^T = P^T (dP^T - D) chain
 //           dV += P^T dO,  then dK += dS^T Q  A from the accumulators,
 //                                             B read MN-major
 //
-//         then adds the rows that see no key (their dO / Sk) to dV and
-//         writes dK (times 1/sqrt(D)) and dV;
+//         then adds the slice's rows that see no key (their dO / Sk) to dV
+//         and writes dK (times 1/sqrt(D)) and dV, or, when n_split > 1,
+//         its partial dK (unscaled) and dV to float32 scratch (n_split, B,
+//         Sk, Hkv, D);
+//   sum   only when n_split > 1, bound by bytes: dK = (the partials summed
+//         in slice order) / sqrt(D), dV = the partials summed in slice
+//         order.
+//
+//         Why the split.  A block's dK and dV are one sequential float32
+//         sum over every (head, query tile) it visits.  At granite-20b's
+//         MQA training shape (48 heads on one KV head, S = 2048) that was
+//         3072 steps, whose worst dK element drifted from the plain
+//         version by 9.9e-5 against the check's 1e-4, and only 64 blocks
+//         on 132 SMs.  So the caller gives each (b, hk, key tile) n_split
+//         blocks, slice g taking heads g n_rep / n_split .. (g + 1) n_rep /
+//         n_split - 1, which cover the group once for any 1 <= n_split <=
+//         n_rep.  The wrapper's rule (flash_attention.py
+//         f32_bwd_head_slices) takes the fewest slices that keep every
+//         chain within BWD_CHAIN_TILES = 512 query tiles (whole heads, at
+//         least one): a group of 8 heads at S = 2048, so the catalog's
+//         other groups at their training shape (2, 7, 8 query heads per KV
+//         head) keep one block per key tile and only MQA's 48 splits, into
+//         6 blocks of 8 heads; a chain of 8 heads is held to the check at
+//         S = 2048 by chip_smoke.py, and the bf16 kernel's CHAIN_TILES is
+//         the same rule.  Where n_split = 1 the block is the unsplit
+//         kernel's, bit for bit;
 //   dq    one block per (b, h, 64 query rows), longest first: Q and dO stay
 //         in shared memory, a ring of K and V tiles of 64 keys; warp w owns
 //         rows 16 w .. 16 w + 15:
@@ -91,6 +116,7 @@
 // as float32 FMAs at 67 TFLOP/s.
 #include "common.cuh"
 
+#include <algorithm>
 #include <climits>
 
 namespace {
@@ -102,6 +128,7 @@ constexpr int NT = 128;               // threads: four warps of 16 rows each
 constexpr int STAGES = 2;             // tiles in flight in each ring
 constexpr int NOKEY_ROWS = 64;        // rows per no-key count (a prep block)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int SUM_THREADS = 256;      // threads per block of the sum grid
 
 struct Params {
   const float* q;             // (B, Sq, H, D) contiguous
@@ -117,7 +144,10 @@ struct Params {
   float* dv;
   const int* q_pos;
   const int* k_pos;
-  int H, Hkv, n_rep, Sq, Sk, D, causal, window, lse_stride, vec;
+  float* dk_part;             // (n_split, B, Sk, Hkv, D) when n_split > 1
+  float* dv_part;
+  long long part_size;        // B Sk Hkv D: floats of one slice's partials
+  int H, Hkv, n_rep, Sq, Sk, D, causal, window, lse_stride, vec, n_split;
   float scale, softcap;
 };
 
@@ -466,9 +496,12 @@ flash_attention_bwd_prep_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// dkdv: block (key tile, bhk), key tiles in increasing order (the longest
-// first under causal masks).
-template <int DP>
+// dkdv: block (key tile, bhk, slice), key tiles in increasing order (the
+// longest first under causal masks); slice g walks the group's heads
+// g n_rep / n_split .. (g + 1) n_rep / n_split - 1.  SPLIT: n_split > 1
+// (an instantiation of its own, so that the unsplit one compiles as the
+// kernel did before the split: the same registers and speed).
+template <int DP, bool SPLIT>
 __global__ void __launch_bounds__(NT, DP == 64 ? 2 : 1)
 flash_attention_bwd_dkdv_kernel(const Params p) {
   constexpr int LD = DP + 4, KD = DP / 8, NQ = BQ_KV / 8, ND = DP / 8;
@@ -481,10 +514,14 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
   float* dlS = lseS + STAGES * BQ_KV;               // STAGES x [BQ_KV]
   float* mean = dlS + STAGES * BQ_KV;               // [DP]
 
-  const int n_bhk = static_cast<int>(gridDim.x) / ((p.Sk + BK - 1) / BK);
-  const int kt = static_cast<int>(blockIdx.x) / n_bhk;
-  const int bhk = static_cast<int>(blockIdx.x) - kt * n_bhk;
+  const int n_unit = static_cast<int>(gridDim.x) / ((p.Sk + BK - 1) / BK);
+  const int kt = static_cast<int>(blockIdx.x) / n_unit;
+  const int unit = static_cast<int>(blockIdx.x) - kt * n_unit;
+  const int n_split = SPLIT ? p.n_split : 1;
+  const int bhk = unit / n_split, slice = unit - bhk * n_split;
   const int b = bhk / p.Hkv, hk = bhk - b * p.Hkv;
+  const int r_lo = SPLIT ? slice * p.n_rep / n_split : 0;
+  const int r_hi = SPLIT ? (slice + 1) * p.n_rep / n_split : p.n_rep;
   const int k0 = kt * BK;
   const int n_qt = (p.Sq + BQ_KV - 1) / BQ_KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
@@ -538,7 +575,7 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
 
   int first_kind = 0;
   const int q_first = next_q(0, first_kind);
-  int r = 0, qt = q_first, kind = first_kind, stage = 0;
+  int r = r_lo, qt = q_first, kind = first_kind, stage = 0;
   if (qt < n_qt) load_item(r, qt, stage);
   while (qt < n_qt) {
     cp_wait_all();
@@ -547,7 +584,7 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
     // the next item: the next visited tile of this head, else the next head's first
     int next_kind = 0, nr = r;
     int nq = next_q(qt + 1, next_kind);
-    if (nq == n_qt && ++nr < p.n_rep) {
+    if (nq == n_qt && ++nr < r_hi) {
       nq = q_first;
       next_kind = first_kind;
     }
@@ -626,12 +663,13 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
   cp_wait_all();                      // K and V's copies, when no tile was visited
 
   // -- rows that see no key: P = 1/Sk over every key, so every dV_j gains
-  //    the sum of their dO over the group's heads, over Sk (column tid; in
-  //    head, tile and row order) ------------------------------------------
+  //    the sum of their dO over the slice's heads, over Sk (column tid; in
+  //    head, tile and row order); each row is in one slice, so it is added
+  //    once -----------------------------------------------------------------
   const int tid = threadIdx.x;
   const int n_nk = p.lse_stride / NOKEY_ROWS;
   bool any = false;
-  for (int rr = 0; rr < p.n_rep && !any; ++rr) {
+  for (int rr = r_lo; rr < r_hi && !any; ++rr) {
     const long long bh = static_cast<long long>(b) * p.H + hk * p.n_rep + rr;
     for (int t = 0; t < n_nk; ++t) any = any || p.nokey[bh * n_nk + t] != 0;
   }
@@ -639,7 +677,7 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
     if (tid < DP) {
       float sum = 0.f;
       if (tid < p.D) {
-        for (int rr = 0; rr < p.n_rep; ++rr) {
+        for (int rr = r_lo; rr < r_hi; ++rr) {
           const int h = hk * p.n_rep + rr;
           const long long bh = static_cast<long long>(b) * p.H + h;
           for (int t = 0; t < n_nk; ++t) {
@@ -659,8 +697,35 @@ flash_attention_bwd_dkdv_kernel(const Params p) {
 
   const long long kvb =
       static_cast<long long>(b) * p.Sk * krow + static_cast<long long>(hk) * p.D;
-  store_rows<ND>(dk, p.dk + kvb, krow, k0 + 16 * warp, p.Sk, p.D, p.scale, nullptr);
-  store_rows<ND>(dv, p.dv + kvb, krow, k0 + 16 * warp, p.Sk, p.D, 1.f, any ? mean : nullptr);
+  if constexpr (!SPLIT) {
+    store_rows<ND>(dk, p.dk + kvb, krow, k0 + 16 * warp, p.Sk, p.D, p.scale, nullptr);
+    store_rows<ND>(dv, p.dv + kvb, krow, k0 + 16 * warp, p.Sk, p.D, 1.f,
+                   any ? mean : nullptr);
+  } else {
+    const long long at = slice * p.part_size + kvb;
+    store_rows<ND>(dk, p.dk_part + at, krow, k0 + 16 * warp, p.Sk, p.D, 1.f, nullptr);
+    store_rows<ND>(dv, p.dv_part + at, krow, k0 + 16 * warp, p.Sk, p.D, 1.f,
+                   any ? mean : nullptr);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sum (n_split > 1): dK and dV from the slices' partials, each element's
+// sum in slice order (consecutive threads read consecutive floats).
+__global__ void __launch_bounds__(SUM_THREADS)
+flash_attention_bwd_sum_kernel(const Params p) {
+  const long long n = p.part_size;
+  const long long step = static_cast<long long>(gridDim.x) * SUM_THREADS;
+  for (long long i = blockIdx.x * static_cast<long long>(SUM_THREADS) + threadIdx.x; i < n;
+       i += step) {
+    float k = p.dk_part[i], v = p.dv_part[i];
+    for (int s = 1; s < p.n_split; ++s) {
+      k += p.dk_part[s * n + i];
+      v += p.dv_part[s * n + i];
+    }
+    p.dk[i] = k * p.scale;
+    p.dv[i] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -804,7 +869,8 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
 
 template <int DP>
 cudaError_t launch_all(const Params& p, int B, cudaStream_t st) {
-  const auto dkdv = flash_attention_bwd_dkdv_kernel<DP>;
+  const auto dkdv = p.n_split > 1 ? flash_attention_bwd_dkdv_kernel<DP, true>
+                                  : flash_attention_bwd_dkdv_kernel<DP, false>;
   const auto dq = flash_attention_bwd_dq_kernel<DP>;
   const int kv_smem = 4 * dkdv_floats<DP>(), q_smem = 4 * dq_floats<DP>();
   cudaError_t err = set_smem(dkdv, kv_smem);
@@ -813,8 +879,14 @@ cudaError_t launch_all(const Params& p, int B, cudaStream_t st) {
   const unsigned bh = static_cast<unsigned>(B) * p.H, bhk = static_cast<unsigned>(B) * p.Hkv;
   flash_attention_bwd_prep_kernel<<<bh * (p.lse_stride / NOKEY_ROWS), 256, 0, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkdv<<<bhk * ((p.Sk + BK - 1) / BK), NT, kv_smem, st>>>(p);
+  dkdv<<<bhk * p.n_split * ((p.Sk + BK - 1) / BK), NT, kv_smem, st>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (p.n_split > 1) {
+    const unsigned blocks = static_cast<unsigned>(
+        std::min<long long>((p.part_size + SUM_THREADS - 1) / SUM_THREADS, 65536));
+    flash_attention_bwd_sum_kernel<<<blocks, SUM_THREADS, 0, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   dq<<<bh * ((p.Sq + BQ_DQ - 1) / BQ_DQ), NT, q_smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -829,14 +901,20 @@ cudaError_t launch_all(const Params& p, int B, cudaStream_t st) {
 // int32, both written; dq (B, Sq, H, D), dk and dv (B, Sk, Hkv, D) float32
 // contiguous, written.  q_pos (Sq,) and k_pos (Sk,) int32.  window <= 0
 // means none, softcap <= 0 none.  D <= 128; 0 < Sk, 0 < Sq; the grids are
-// one-dimensional.  Enqueues three grids.
+// one-dimensional.  n_split (1 <= n_split <= H / Hkv) is the dK/dV grid's
+// blocks per (b, KV head, key tile); when it is above 1, dk_part and
+// dv_part are float32 scratch of (n_split, B, Sk, Hkv, D), written, else
+// they may be null.  Enqueues three
+// grids, four when n_split > 1.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
     void* dv, const void* lse, const void* o, void* delta, void* nokey, const void* q_pos,
     const void* k_pos, int B, int H, int Hkv, int Sq, int Sk, int D, int lse_stride,
-    int causal, int window, float scale, float softcap, void* stream) {
+    int causal, int window, float scale, float softcap, int n_split, void* dk_part,
+    void* dv_part, void* stream) {
   if (D < 1 || D > 128 || Hkv < 1 || H % Hkv != 0 || Sk < 1 || Sq < 1 || lse_stride < Sq ||
-      lse_stride % 128 != 0)
+      lse_stride % 128 != 0 || n_split < 1 || n_split > H / Hkv ||
+      (n_split > 1 && (dk_part == nullptr || dv_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
   Params p;
@@ -862,6 +940,10 @@ extern "C" int repro_flash_attention_bwd(
   p.causal = causal;
   p.window = window;
   p.lse_stride = lse_stride;
+  p.n_split = n_split;
+  p.dk_part = static_cast<float*>(dk_part);
+  p.dv_part = static_cast<float*>(dv_part);
+  p.part_size = static_cast<long long>(B) * Sk * Hkv * D;
   p.vec = D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout);
   p.scale = scale;
   p.softcap = softcap;

@@ -51,9 +51,11 @@ fallback from one route to another:
   a_hi·b_lo + a_hi·b_hi), through ``cp.async`` rings, on the statistics
   the float32 forward saves (each row's log-sum-exp; O is its output): a
   byte-bound pass for D = rowsum(dO∘O), dK/dV per :data:`BWD_BLOCK_K` keys
-  over query tiles of :data:`BWD_KV_BLOCK_Q` rows, dQ per
-  :data:`BWD_BLOCK_Q` query rows over key tiles of :data:`BWD_BLOCK_K`;
-  :func:`f32_bwd_smem_bytes` is its shared memory;
+  over query tiles of :data:`BWD_KV_BLOCK_Q` rows (a group's heads split
+  over several blocks by :func:`f32_bwd_head_slices`, whose partials a
+  byte-bound pass sums), dQ per :data:`BWD_BLOCK_Q` query rows over key
+  tiles of :data:`BWD_BLOCK_K`; :func:`f32_bwd_smem_bytes` is its shared
+  memory;
 * bf16 on the card, ``csrc/flash_attention_bwd_sm90.cu`` (launch name
   ``flash_attention_bwd_sm90``): TMA and ``wgmma``, with P and dS in two
   bf16 terms, on the statistics the bf16 forward saves (each row's
@@ -80,7 +82,8 @@ import torch.nn.functional as F
 from ..device import is_dtensor
 from . import _build, ref
 
-__all__ = ["FlashAttention", "bwd_route", "f32_bwd_smem_bytes",
+__all__ = ["FlashAttention", "bwd_route", "f32_bwd_head_slices",
+           "f32_bwd_partials_shape", "f32_bwd_smem_bytes",
            "f32_smem_bytes", "flash_attention", "flash_attention_bwd", "route",
            "sm90_bwd_block_q", "sm90_bwd_smem_bytes", "tile_plan", "tma_layout",
            "vec_ready"]
@@ -102,6 +105,11 @@ F32_BLOCK_Q, F32_BLOCK_K, F32_STAGES, F32_K_STRIDE, F32_PLAN_TILES = 128, 64, 2,
 #: ring, and query rows per tile of the dK/dV grid's ring
 BWD_BLOCK_Q = BWD_BLOCK_K = 64
 BWD_KV_BLOCK_Q = 32
+#: query tiles of BWD_KV_BLOCK_Q rows that one block of the float32
+#: backward's dK/dV grid walks at most, in whole heads (at least one): a
+#: group of 8 heads at S = 2048 (``csrc/flash_attention_bwd.cu``'s header
+#: says why)
+BWD_CHAIN_TILES = 512
 #: ``csrc/flash_attention_bwd_sm90.cu`` (bf16): keys per tile of both grids
 #: and query rows per tile of the dQ grid; the rows of the LSE the forward
 #: saves are padded to :data:`BLOCK_Q`
@@ -133,6 +141,31 @@ def f32_bwd_smem_bytes(d: int):
     dkdv = 2 * BWD_BLOCK_K * ld + 2 * stages * bq * ld + 2 * stages * bq + dp
     dq = 2 * BWD_BLOCK_Q * ld + 2 * stages * BWD_BLOCK_K * ld
     return 4 * dkdv, 4 * dq
+
+
+def f32_bwd_head_slices(n_rep: int, sq: int) -> list:
+    """The float32 backward's dK/dV blocks per (batch row, KV head, key
+    tile) for a group of ``n_rep`` query heads and ``sq`` query rows: for
+    each block, in order, the range ``(lo, hi)`` of the group's heads it
+    walks over every visible query tile.  As few blocks as keep each
+    block's chain within :data:`BWD_CHAIN_TILES` tiles (whole heads, at
+    least one), the heads shared out evenly and in order, as the kernel
+    walks them for the count it is given (``n_split``)."""
+    per = max(1, BWD_CHAIN_TILES // -(-sq // BWD_KV_BLOCK_Q))
+    n = -(-n_rep // per)
+    return [(g * n_rep // n, (g + 1) * n_rep // n) for g in range(n)]
+
+
+def f32_bwd_partials_shape(q_shape, k_shape):
+    """Shape of each of the float32 backward's partial dK and dV (float32
+    scratch the wrapper allocates) for q of ``q_shape`` (B, Sq, H, D) and
+    k of ``k_shape`` (B, Sk, Hkv, D): (slices, B, Sk, Hkv, D) where
+    :func:`f32_bwd_head_slices` gives a group several blocks, else None
+    (the dK/dV grid writes dK and dV itself)."""
+    b, sq, h, d = q_shape
+    sk, hkv = k_shape[1], k_shape[2]
+    n = len(f32_bwd_head_slices(h // hkv, sq))
+    return (n, b, sk, hkv, d) if n > 1 else None
 
 
 def sm90_bwd_block_q(d: int) -> int:
@@ -482,9 +515,15 @@ def flash_attention_bwd(q, k, v, dout, q_pos=None, k_pos=None, *, causal: bool =
     if name == "flash_attention_bwd":
         q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # the partial dK and dV of a group's split chain (the kernel's header
+        # says why)
+        parts = f32_bwd_partials_shape(q.shape, k.shape)
+        scratch = [torch.empty(parts, dtype=torch.float32, device=q.device)
+                   for _ in range(2)] if parts else [None, None]
         _build.launch("flash_attention_bwd", q, k, v, dout, dq, dk, dv, lse, o32, delta,
                       nokey, q_pos, k_pos, b, h, hkv, sq, sk, d, lse.shape[-1],
-                      int(causal), window or 0, 1.0 / math.sqrt(d), float(softcap or 0.0))
+                      int(causal), window or 0, 1.0 / math.sqrt(d), float(softcap or 0.0),
+                      parts[0] if parts else 1, *scratch)
         return dq, dk, dv
     return _launch_bwd_sm90(q, k, v, dout, q_pos, k_pos, causal, window, softcap, lse, o32,
                             delta, nokey)

@@ -28,6 +28,9 @@ from repro.models.attention import (_mask_value, _repeat_kv, _softcap, attention
                                     attention_xla)
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ATOL = 1e-5
 
@@ -216,6 +219,72 @@ def test_f32_bwd_shared_memory_fits_at_every_head_dim():
     assert tfa.f32_bwd_smem_bytes(128) == (
         4 * (2 * 64 * 132 + 2 * 2 * 32 * 132 + 2 * 2 * 32 + 128),
         4 * (2 * 64 * 132 + 2 * 2 * 64 * 132))
+
+
+# the catalog's groups (stablelm 32/32, gemma3 32/16, qwen2-vl 28/4, 8 query
+# heads per KV head, granite's MQA 48/1) at the training shape's S and at
+# ragged ones (S = 2100: a group of 8 no longer fits 512 tiles; S = 40000:
+# one head is longer than the chain)
+@pytest.mark.parametrize("sq", [2048, 2100, 40000])
+@pytest.mark.parametrize("n_rep", [1, 2, 7, 8, 48])
+def test_f32_bwd_head_slices_visit_every_head_and_tile_once(n_rep, sq):
+    """The float32 backward's dK/dV split: the blocks of one (batch row,
+    KV head, key tile) take contiguous runs of the group's heads, in head
+    order, so that every (head, query tile) is walked by exactly one block;
+    no block's chain is longer than BWD_CHAIN_TILES query tiles unless one
+    head is; and there are as few blocks as that allows, evenly loaded.
+    At S = 2048 only granite's 48 heads split, into 6 blocks of 8."""
+    slices = tfa.f32_bwd_head_slices(n_rep, sq)
+    n_qt = -(-sq // tfa.BWD_KV_BLOCK_Q)
+    assert slices[0][0] == 0 and slices[-1][1] == n_rep
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    walked = [(h, qt) for lo, hi in slices for h in range(lo, hi) for qt in range(n_qt)]
+    assert walked == [(h, qt) for h in range(n_rep) for qt in range(n_qt)]
+    chains = [(hi - lo) * n_qt for lo, hi in slices]
+    assert min(chains) > 0 and max(chains) <= max(tfa.BWD_CHAIN_TILES, n_qt)
+    per = max(1, tfa.BWD_CHAIN_TILES // n_qt)      # most heads a chain may take
+    assert len(slices) == -(-n_rep // per)
+    assert max(hi - lo for lo, hi in slices) - min(hi - lo for lo, hi in slices) <= 1
+    if sq == 2048:
+        assert slices == ([(0, n_rep)] if n_rep <= 8 else
+                          [(8 * g, 8 * g + 8) for g in range(6)])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d", [
+    (2, 2048, 2048, 32, 32, 64),        # stablelm-1.6b: one block per key tile
+    (2, 2048, 2048, 28, 4, 128),        # qwen2-vl-7b
+    (2, 2048, 2048, 48, 1, 128),        # granite-20b: 6 slices
+    (1, 2100, 2300, 16, 2, 33),         # ragged S and D: 8 heads over 2 slices
+    (1, 300, 300, 4, 4, 8),
+], ids=["stablelm", "qwen2-vl", "granite", "ragged", "small"])
+def test_f32_bwd_allocates_partials_only_for_a_split(b, sq, sk, h, hkv, d):
+    """The float32 wrapper's scratch for a split chain: (slices, B, Sk, Hkv,
+    D) float32, one each for dK and dV, only when f32_bwd_head_slices gives
+    a group several blocks; the launch gets the slice count the kernel
+    checks against its own rule.  The wrapper runs on meta tensors (shapes
+    only: the launch is handed to _build.meta_hook, nothing runs)."""
+    from repro_torch.kernels import _build
+    n = len(tfa.f32_bwd_head_slices(h // hkv, sq))
+    want = (n, b, sk, hkv, d) if n > 1 else None
+    assert tfa.f32_bwd_partials_shape((b, sq, h, d), (b, sk, hkv, d)) == want
+    meta = dict(dtype=torch.float32, device="meta")
+    q, do = torch.empty((b, sq, h, d), **meta), torch.empty((b, sq, h, d), **meta)
+    k, v = torch.empty((b, sk, hkv, d), **meta), torch.empty((b, sk, hkv, d), **meta)
+    lse = torch.empty((b, h, -(-sq // tfa.BLOCK_Q) * tfa.BLOCK_Q), **meta)
+    seen = []
+    hook, _build.meta_hook = _build.meta_hook, lambda name, args: seen.append((name, args))
+    try:
+        dq, dk, dv = tfa.flash_attention_bwd(q, k, v, do, stats=(lse, q))
+    finally:
+        _build.meta_hook = hook
+    assert [name for name, _ in seen] == ["flash_attention_bwd"]
+    *_, n_split, dk_part, dv_part = seen[0][1]
+    assert n_split == n and dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    if want is None:
+        assert dk_part is None and dv_part is None
+    else:
+        assert all(t.shape == want and t.dtype == torch.float32 for t in (dk_part, dv_part))
+        assert dk_part is not dv_part
 
 
 @pytest.mark.parametrize("bq", [tfa.sm90_bwd_block_q(64), tfa.sm90_bwd_block_q(128)])

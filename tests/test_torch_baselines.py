@@ -53,6 +53,9 @@ from repro_torch.core import error_feedback as te
 from repro_torch.core import fedlt as tf
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.data import logistic as tl
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 N, M, D = 8, 16, 10
 COMPRESSORS = {"identity": {}, "quant": dict(levels=10, vmin=-1.0, vmax=1.0, clip=True),

@@ -31,6 +31,9 @@ from repro_torch.bench import BENCHMARKS, metric, run_benchmarks
 from repro_torch.bench import compare, sim_scale, timing
 from repro_torch.bench.__main__ import emit
 from repro_torch.bench.__main__ import main as bench_main
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -29,6 +29,9 @@ from repro_torch.bench import common, kernel_bench, profile_round
 from repro_torch.bench import sim_scale, wire_bench
 from repro_torch.kernels import ops
 from repro_torch.sim import Engine
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -15,6 +15,9 @@ import re
 import pytest
 
 from repro_torch.kernels import _build
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 # C parameter type -> the ctypes type it must be bound as
 KINDS = {
@@ -60,10 +63,12 @@ def test_every_source_is_bound():
 
 def test_a_mismatch_is_seen():
     """The parser reads what is written: the float32 backward's entry takes
-    13 pointers, 9 ints and 2 floats before the stream, and a table with
-    one int fewer would not match it."""
+    13 pointers, 9 ints and 2 floats, then the dK/dV grid's slice count
+    and its two partials, before the stream, and a table with one int
+    fewer would not match it."""
     kinds = c_signature("flash_attention_bwd.cu", "repro_flash_attention_bwd")
     assert kinds == [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     assert kinds != [*(ctypes.c_void_p,) * 13, *(ctypes.c_int,) * 8,
-                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p]

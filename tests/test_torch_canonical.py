@@ -25,6 +25,9 @@ from repro.data import logistic as jl
 from repro.obs import report as jrep
 from repro_torch import convert
 from repro_torch.obs import report as trep
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 REFERENCE = json.loads((Path(__file__).resolve().parents[1]
                         / "CONV_reference.json").read_text())

@@ -44,6 +44,9 @@ from repro_torch.core import fedlt as tf
 from repro_torch.core.pytree import (tree_flatten_with_names, tree_leaves,
                                      tree_unflatten)
 from repro_torch.data import logistic as tl
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 N, M, D = 100, 16, 8
 R = 4                                  # resume at round R of 2R

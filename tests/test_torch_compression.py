@@ -16,6 +16,9 @@ import torch
 
 from repro.core import compression as jc
 from repro_torch.core import compression as tc
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 RANGES = [(10, -1.0, 1.0), (255, -1.0, 1.0), (1000, -10.0, 10.0),
           (1023, -10.0, 10.0), (7, -0.3, 0.9)]

@@ -40,6 +40,9 @@ from repro_torch.kernels.pack_bits import _TILE_VALS
 from repro_torch.launch import train
 from repro_torch.models import transformer as ttf
 from repro_torch.models.config import ModelConfig
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 CFG_KW = dict(name="deploy-port-test", arch_type="dense", n_layers=2, d_model=64,
               n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=128, max_seq=128,

@@ -21,6 +21,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 RUNS = {"decode_single": ["--arch", "stablelm-1.6b", "--shape", "decode_32k"],

@@ -20,6 +20,9 @@ from repro.kernels import erasure_mask as jem
 from repro.kernels import ref as jref
 from repro_torch.kernels import erasure_mask as tem
 from repro_torch.kernels import ops, ref
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 PS = (0.0, 0.1, 0.25, 1.0)
 SEEDS = (0, 7, 2**32 + 5)

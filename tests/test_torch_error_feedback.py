@@ -26,6 +26,9 @@ from repro_torch.core import pytree as tpt
 from repro_torch.core.error_feedback import (EFChannel, GroupedEFChannel,
                                             resync_cache)
 from repro_torch.core.pytree import tree_leaves, tree_map
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 QUANT = UniformQuantizer(levels=50, vmin=-2.0, vmax=2.0, clip=True)
 

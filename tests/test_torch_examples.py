@@ -19,6 +19,9 @@ import torch
 from repro_torch import obs
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.examples import quickstart, serve_lm
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ("alg1_no_ef", "alg2_ef")

@@ -39,6 +39,9 @@ from repro_torch.core import error_feedback as te
 from repro_torch.core import fedlt as tf
 from repro_torch.data import logistic as tl
 from repro_torch.kernels import ops
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 N, M, D = 100, 16, 8
 TUNED = dict(n_epochs=10, gamma=0.005, rho=20.0)

@@ -51,6 +51,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, N, M, D = 4, 8, 20, 12

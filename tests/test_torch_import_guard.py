@@ -23,6 +23,9 @@ from repro_torch.examples import (quickstart, satellite_constellation, serve_lm,
 from repro_torch.launch import train
 from repro_torch.models import transformer
 from repro_torch.obs import report
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

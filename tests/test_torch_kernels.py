@@ -39,6 +39,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pack_bits as tpb
 from repro_torch.kernels import quantize_ef as tqe
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 PACK_CASES = [(70_001, 1), (70_001, 7), (10_000, 4)]
 QUANT_CASES = [(10, -1.0, 1.0), (10, -10.0, 10.0), (255, -1.0, 1.0),

@@ -43,6 +43,9 @@ from repro_torch.obs import ledger as tledger
 from repro_torch.obs import prof as tprof
 from repro_torch.obs import report as trep
 from repro_torch.sim import Engine, get_scenario
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 N, M, D = 100, 8, 6

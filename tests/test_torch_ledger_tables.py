@@ -32,6 +32,9 @@ from repro_torch.bench import table_plane_agg as tplane
 from repro_torch.core.fedlt import optimality_error
 from repro_torch.data import logistic as tl
 from repro_torch.sim import Engine
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 EXACT = {
     "lossy": ("loss_rate", "arm", "lost", "received", "bytes_up"),

@@ -27,6 +27,9 @@ from repro.configs import smoke_variant as jax_smoke
 from repro.models import mamba2 as jm
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.models import mamba2 as tm
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ORACLE = dict(rtol=2e-4, atol=2e-4)

@@ -26,6 +26,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as tatt
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as ttf
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 EW = dict(rtol=1e-5, atol=1e-6)
 MM = dict(rtol=1e-4, atol=1e-5)

@@ -16,6 +16,9 @@ import torch
 from repro.kernels.compress_pipeline import quant_pipeline as jax_quant_pipeline
 from repro_torch.kernels import compress_pipeline as tcp
 from repro_torch.kernels import ops, ref
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 CONFIGS = [(255, -1.0, 1.0), (1023, -0.5, 0.5), (10, -4.0, 4.0)]
 

@@ -24,6 +24,9 @@ from repro.configs import smoke_variant as jax_smoke
 from repro.models import rwkv6 as jr
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.models import rwkv6 as tr
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ORACLE = dict(rtol=5e-4, atol=5e-4)

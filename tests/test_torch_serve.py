@@ -35,6 +35,9 @@ from repro_torch.convert import (data_to_numpy, kv_cache_from_jax,
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.launch.serve import make_decode_step, make_prefill_step
 from repro_torch.models import transformer as ttf
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 DENSE = ["stablelm-1.6b", "h2o-danube-3-4b", "gemma3-27b", "granite-20b",
          "musicgen-large", "qwen2-vl-7b"]

@@ -29,6 +29,9 @@ from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import sharding as ts
 from repro_torch.models.transformer import init_cache, init_params
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 MESHES = {"single": (JMesh((16, 16), ("data", "model")),
                      tmesh.AbstractMesh((16, 16), ("data", "model"))),

@@ -16,6 +16,9 @@ import pytest
 from repro import sim as jsim
 from repro.constellation.links import message_bytes
 from repro_torch import sim as tsim
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 MSG = message_bytes(10_000, 10.0)
 SCENARIOS = ["walker-kiruna", "dual-station", "lossy-uplink",

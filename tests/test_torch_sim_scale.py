@@ -24,6 +24,9 @@ from repro import sim as jsim
 from repro.channel import ChannelModel, SelectiveRepeatARQ
 from repro_torch.bench import sim_scale as tss
 from repro_torch.kernels import ops
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 N_SATS, ROUNDS, SEED = 20, 2, 0

@@ -25,6 +25,9 @@ from repro_torch.core import fedlt as tf
 from repro_torch.data import logistic as tl
 from repro_torch.obs import summary as ts
 from repro_torch.sim import Engine, get_scenario
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 DATA = Path(__file__).resolve().parent / "data"
 N, M, D = 100, 8, 6

@@ -24,6 +24,9 @@ from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.data import synthetic as tsyn
 from repro_torch.optim import solvers as tsolvers
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 
 def test_markov_tokens_deterministic_and_in_range():

@@ -35,6 +35,9 @@ from repro_torch.bench import table_fault_tolerance as tfault
 from repro_torch.bench import table_lossy_ef as tlossy
 from repro_torch.bench import wire_bench as twire
 from repro_torch.data import logistic as tl
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 
 def reference_problem(seed=0, scale=1.0, device=None):

@@ -25,6 +25,9 @@ from repro_torch.core import compression as tc
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.wire import codecs as tw
 from repro_torch.wire.message import LeafWire
+from repro_torch.device import cap_test_worker_threads
+
+cap_test_worker_threads()
 
 CASES = [(10, -1.0, 1.0, (100,)), (255, -1.0, 1.0, (3, 5, 7)),
          (1000, -10.0, 10.0, (8, 40))]
