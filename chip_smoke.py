@@ -19,7 +19,12 @@ into ``build/``, then, each phase failing the run:
    unpack_bits at b in {1, 4, 7, 8, 13, 17, 24, 32} (7, 17 and 24: the
    sparse codec's index widths at 100, 70,001 and 2**24 values), the erasure mask
    over p, seeds and segment lengths; quantize_ef against the unpack of
-   quant_pipeline; sign_pipeline at 100, 70,001, 2**24, 1 and 32,769
+   quant_pipeline, and (redesigned) at every pair of float32, bf16 and fp16
+   msg and cache, with no cache, on views one element off at odd tails,
+   and on 2**31 + 4097 bf16 values; pack_bits (redesigned) from uint8,
+   uint16, int32 and bool values where they lie, at widths up to and past
+   theirs, one element off, and on that leaf's uint8 wire; sign_pipeline
+   at 100, 70,001, 2**24, 1 and 32,769
    values with exact zeros and -0.0, and on msg and cache views off 16
    bytes (its 4-byte load path) (words equal, scale rtol 1e-6, new cache
    atol 1e-6; the scale bit for bit a numpy model of the kernel's
@@ -159,11 +164,16 @@ into ``build/``, then, each phase failing the run:
     the first, each round's launches 96 flash_attention_bwd_sm90 and 192
     flash_attention_sm90 (24 layers x 2 agents x 2 epochs, the forward
     twice under remat, the second time with the backward's statistics)
-    and nothing else, the checkpoint restoring bit for
-    bit, ms per round and peak memory; then one round with pack_wire=True
-    (17b): one quant_pipeline and one unpack_bits launch per leaf of at
-    least 32768 values, and the fused uplink equal bit for bit to the
-    unfused one leaf by leaf (words, gathered values, means, caches); a
+    and two quantize_ef a leaf (uplink, and downlink with no cache), and
+    nothing else, the checkpoint restoring bit for bit, ms per round and
+    peak memory, and one more round whose c_up, ŷ and c_down equal the old
+    route's (the plain quantizer, ``ref.quantize_ef_ref``, called
+    directly) bit for bit on the largest leaf of each dtype; then one round
+    with pack_wire=True (17b): one quant_pipeline and one unpack_bits
+    launch per leaf of at least 32768 values and quantize_ef for the rest
+    and the downlink, the state against the old route as in 17a, and the
+    fused uplink equal bit for bit to the unfused one (quantize_ef and
+    pack_bits) leaf by leaf (words, gathered values, means, caches); a
     profiled round; and the model at depth 2 in float32 (17c), one round
     with compression off through the kernels against plain attention
     (autograd), every state leaf within rtol 1e-4 / atol 1e-5.
@@ -201,7 +211,9 @@ into ``build/``, then, each phase failing the run:
     zamba2 at full depth, rwkv6 at 16 of 32 layers at γ 0.01; 3 rounds
     each): losses
     finite and falling, each round's launches the attention layers' and
-    nothing else, ms per round and peak memory; one mixtral round with
+    the wire's quantize_ef and nothing else, round 0's quantized state the
+    old route's on the largest leaf per dtype, ms per round and peak
+    memory; one mixtral round with
     pack_wire=True checked as 17b; and zamba2's lm_loss gradient at 2 units
     in float32 through the kernels against plain attention, with its
     controls, as 17c;
@@ -631,6 +643,7 @@ def phase_kernels(rng) -> dict:
             err["unpack_bits"] = max(err["unpack_bits"], int_err(back, back_p))
         print(f"[kernels] pack_bits/unpack_bits n={n} b={BITS} (unpack also from "
               f"words one word off 16 bytes): {TOL}")
+    check_pack_widths(rng, err)
     for n in SIZES:
         for levels, vmin, vmax in QUANT_CONFIGS:
             msg, cache = quant_inputs(n, levels, vmin, vmax, rng)
@@ -654,6 +667,47 @@ def phase_kernels(rng) -> dict:
     check_flash_bwd(err)
     torch.cuda.synchronize()
     return err
+
+
+def card_ints(a: np.ndarray, dtype) -> torch.Tensor:
+    """numpy integers as a card tensor of ``dtype`` (uint16 through an
+    int16 view: no uint16 cast kernel is needed)."""
+    if dtype == torch.uint16:
+        return torch.from_numpy(a.astype(np.uint16).view(np.int16)).to(DEV).view(dtype)
+    np_dtype = {torch.uint8: np.uint8, torch.int32: np.int32, torch.bool: np.bool_}[dtype]
+    return torch.from_numpy(a.astype(np_dtype)).to(DEV)
+
+
+def check_pack_widths(rng, err: dict) -> None:
+    """pack_bits (redesigned: a block per tile, four columns a thread, the
+    values read at their own width) from uint8, uint16, int32 and bool
+    values against its plain version, word for word: at the paths' sizes
+    and odd tails, at bit widths up to and past the values' width (planes
+    above it are zero), from a base one element off its vector (value by
+    value), and from int32 values that are negative at b = 32 (two's
+    complement words)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pack_bits import pack_bits
+    widths = {torch.uint8: (1, 4, 8, 11), torch.uint16: (4, 8, 13, 16),
+              torch.int32: (1, 2, 4, 8, 13, 17, 32), torch.bool: (1, 3)}
+    for n in (AGENT_N, UPDATE_N, 70_001, BIG_N + 3):
+        for dtype, bit_list in widths.items():
+            for bits in bit_list:
+                hi = 2 if dtype == torch.bool else 2 ** min(bits, 8 * dtype.itemsize)
+                vals = card_ints(rng.integers(0, hi, n + 1), dtype)
+                for what, x in (("aligned", vals[:n]), ("one element off", vals[1:])):
+                    (words, made) = launched(lambda: pack_bits(x, bits))
+                    want = ref.pack_bits_ref(x, bits)
+                    check(made == {"pack_bits": 1} and same_bits(words, want),
+                          f"pack_bits from {dtype} n={n} b={bits} ({what}): launches "
+                          f"{made}, or words differ from its plain version")
+                    err["pack_bits"] = max(err["pack_bits"], int_err(words, want))
+        print(f"[kernels] pack_bits redesigned, n={n}, from {[str(d)[6:] for d in widths]} "
+              f"values read where they lie, b up to and past their width, aligned and "
+              f"one element off: one launch each, {TOL}")
+    neg = card_ints(rng.integers(-2**31, 2**31, 70_001), torch.int32)
+    check(same_bits(pack_bits(neg, 32), ref.pack_bits_ref(neg, 32)),
+          "pack_bits of negative int32 at b=32 differs from its plain version")
 
 
 def check_quant_bf16(rng) -> None:
@@ -680,7 +734,8 @@ def check_quant_bf16(rng) -> None:
 
 def check_quantize_ef(rng, err: dict) -> None:
     """quantize_ef against its plain version, and against the unpack of
-    quant_pipeline's words on the same inputs."""
+    quant_pipeline's words on the same inputs; then (check_quantize_ef_widths)
+    at every dtype pair, with no cache, on views and past 2**31 values."""
     from repro_torch.core.compression import wire_index_bits
     from repro_torch.kernels import ref
     from repro_torch.kernels.compress_pipeline import quant_pipeline
@@ -705,6 +760,128 @@ def check_quantize_ef(rng, err: dict) -> None:
                   "of quant_pipeline")
         print(f"[kernels] quantize_ef n={n} (L, vmin, vmax) in {EF_CONFIGS}: "
               f"{TOL}; wire == unpack_bits(quant_pipeline) and caches equal")
+    check_quantize_ef_widths(rng, err)
+
+
+#: quantize_ef's element types (msg and cache each)
+EF_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+#: a bf16 leaf past the C int range: gemma3-27b's tied table with two
+#: agents is 2.82e9 values; this is ~15 GB of msg, cache, wire and new cache
+EF_HUGE_N = 2**31 + 4097
+
+
+def ef_pair_inputs(n: int, levels: int, m_dtype, c_dtype, rng):
+    """quant_inputs' values (half-level boundaries, their neighbours, out
+    of range, signed zeros) as a msg of ``m_dtype`` and the rest in a cache
+    of ``c_dtype``: exact where the cache holds it, so msg + cache is the
+    boundary itself in float32."""
+    msg, cache = quant_inputs(n, levels, -1.0, 1.0, rng)
+    m = msg.to(m_dtype)
+    return m, (msg - m.to(torch.float32) + cache).to(c_dtype)
+
+
+def same_bits_big(a: torch.Tensor, b: torch.Tensor, piece: int = 2**28) -> bool:
+    """same_bits a piece at a time (a temporary of ``piece`` bools, not of
+    the whole leaf)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return a.numel() == b.numel() and all(same_bits(a[s:s + piece], b[s:s + piece])
+                                          for s in range(0, a.numel(), piece))
+
+
+def check_quantize_ef_widths(rng, err: dict) -> None:
+    """quantize_ef (redesigned: 16-byte vectors of msg, any float type of
+    msg and cache, a no-cache form, 64-bit n) against its plain version on
+    the card, bit for bit, one launch each: every (msg, cache) dtype pair
+    at L 255 and 1023 (ties exact where the cache holds the rest), the
+    no-cache form of each msg dtype (also against quantize_encode of msg
+    in float32), msg and cache views one element off their vectors (the
+    value-by-value loop) at odd tails, and a bf16 leaf of EF_HUGE_N values
+    with and without a cache; and pack_bits of that leaf's uint8 wire
+    against its plain version a piece of tiles at a time."""
+    from repro_torch.core.compression import quantize_encode
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize_ef import quantize_ef
+
+    def held(what, msg, cache, **kw):
+        (wire, newc), made = launched(lambda: quantize_ef(msg, cache, **kw))
+        wire_p, newc_p = ref.quantize_ef_ref(msg, cache, **kw)
+        check(made == {"quantize_ef": 1} and same_wire(wire, wire_p)
+              and (newc is None if cache is None else
+                   newc.dtype == msg.dtype and same_bits(newc, newc_p)),
+              f"quantize_ef {what}: launches {made}, or the wire or new cache differs "
+              "from its plain version")
+        err["quantize_ef"] = max(err["quantize_ef"], int_err(wire, wire_p))
+        return wire
+
+    for n in (70_001, BIG_N + 5):
+        for levels in (255, 1023):
+            kw = dict(levels=levels, vmin=-1.0, vmax=1.0)
+            for m_dtype in EF_DTYPES:
+                for c_dtype in EF_DTYPES:
+                    msg, cache = ef_pair_inputs(n, levels, m_dtype, c_dtype, rng)
+                    what = f"{m_dtype} msg, {c_dtype} cache, n={n} L={levels}"
+                    held(what, msg, cache, **kw)
+                    # views one element off their vectors, n - 3 values
+                    buf_m, buf_c = torch.cat([msg[:1], msg]), torch.cat([cache[:1], cache])
+                    held(what + ", one element off", buf_m[1:n - 2], buf_c[1:n - 2], **kw)
+                    del cache, buf_m, buf_c
+                wire = held(f"{m_dtype} msg, no cache, n={n} L={levels}", msg, None, **kw)
+                check(same_wire(wire, quantize_encode(msg.to(torch.float32), **kw)),
+                      f"quantize_ef {m_dtype} msg, no cache: not quantize_encode")
+                del msg, wire
+        print(f"[kernels] quantize_ef redesigned, n={n}, L in (255, 1023): every (msg, "
+              f"cache) pair of {[str(d)[6:] for d in EF_DTYPES]}, the no-cache form "
+              f"(== quantize_encode of msg in float32), views one element off at odd "
+              f"tails: one launch each, {TOL}")
+    check_huge_leaf(err)
+
+
+def check_huge_leaf(err: dict) -> None:
+    """quantize_ef on a bf16 leaf of EF_HUGE_N values (past the C int
+    range), with a bf16 cache and with none, and pack_bits of its uint8
+    wire, against their plain versions a piece at a time: one launch
+    each, bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pack_bits import _TILE_VALS, pack_bits
+    from repro_torch.kernels.quantize_ef import quantize_ef
+    free_card()
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    msg = torch.empty(EF_HUGE_N, dtype=torch.bfloat16, device=DEV)
+    cache = torch.empty_like(msg)
+    piece = 2**28
+    for s in range(0, EF_HUGE_N, piece):   # drawn in pieces: no 8 GB float32 draw
+        part = torch.randn(min(piece, EF_HUGE_N - s), generator=gen, device=DEV)
+        msg[s:s + part.numel()] = 0.6 * part
+        cache[s:s + part.numel()] = 0.004 * part.flip(0)
+        del part
+    kw = dict(levels=255, vmin=-1.0, vmax=1.0)
+    (wire, newc), made = launched(lambda: quantize_ef(msg, cache, **kw))
+    (wire0, none), made0 = launched(lambda: quantize_ef(msg, None, **kw))
+    check(made == made0 == {"quantize_ef": 1} and none is None,
+          f"quantize_ef on {EF_HUGE_N} values launched {made} and {made0}")
+    for s in range(0, EF_HUGE_N, piece):
+        w_p, nc_p = ref.quantize_ef_ref(msg[s:s + piece], cache[s:s + piece], **kw)
+        w0_p, _ = ref.quantize_ef_ref(msg[s:s + piece], None, **kw)
+        check(same_wire(wire[s:s + piece], w_p) and same_bits(newc[s:s + piece], nc_p)
+              and same_wire(wire0[s:s + piece], w0_p),
+              f"quantize_ef on {EF_HUGE_N} bf16 values, from value {s}: the wire, the "
+              "new cache or the no-cache wire differs from its plain version")
+        del w_p, nc_p, w0_p
+    del msg, cache, newc, wire0
+    words, made = launched(lambda: pack_bits(wire, 8))
+    check(made == {"pack_bits": 1}, f"pack_bits on {EF_HUGE_N} values launched {made}")
+    piece = 2048 * _TILE_VALS
+    for s in range(0, EF_HUGE_N, piece):
+        w_ref = ref.pack_bits_ref(wire[s:s + piece], 8)
+        check(same_bits(words[s // 4:s // 4 + w_ref.numel()], w_ref),
+              f"pack_bits on {EF_HUGE_N} uint8 values, from value {s}: differs from its "
+              "plain version")
+        del w_ref
+    print(f"[kernels] quantize_ef on {EF_HUGE_N} bf16 values (past 2**31), with a bf16 "
+          f"cache and with none, L=255: one launch each, {TOL}; pack_bits of its uint8 "
+          f"wire at b=8: one launch, words equal the plain version's word for word")
+    del wire, words
+    free_card()
 
 
 def check_erasure_mask(rng, err: dict) -> None:
@@ -2115,6 +2292,70 @@ def train_attention_launches(cfg, dtype) -> dict:
     return attention_launches(cfg, dtype, TRAIN_AGENTS, TRAIN_EPOCHS)
 
 
+def quant_launches(alg, agents: int) -> dict:
+    """The uplink's and downlink's kernel launches of one unsharded round of
+    ``alg`` with ``agents`` agents, derived from its model's leaves (the
+    parameter tree on the meta device): with compression, the downlink one
+    quantize_ef (no cache) per leaf; the uplink one quantize_ef per leaf,
+    but a leaf of at least one tile of values with its agent axis, with
+    ``pack_wire``, takes one quant_pipeline (fused) or quantize_ef and one
+    pack_bits (unfused), and one unpack_bits."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels.pack_bits import _TILE_VALS
+    from repro_torch.models.transformer import init_params
+    if not alg.compress:
+        return {}
+    sizes = [agents * t.numel() for t in tree_leaves(init_params(alg.cfg, device="meta"))]
+    tiles = sum(n >= _TILE_VALS for n in sizes) if alg.pack_wire else 0
+    fused = tiles if alg.fuse_pipeline else 0
+    out = {"quantize_ef": 2 * len(sizes) - fused}
+    if tiles:
+        out.update({"quant_pipeline" if fused else "pack_bits": tiles, "unpack_bits": tiles})
+    return out
+
+
+def hold_quant_leaves(state) -> dict:
+    """What check_quant_plain needs of a round's input ``state``, for one
+    leaf per dtype (the largest): {leaf index: (its c_up, its c_down)}.
+    Holding them keeps those two tensors alive past the round."""
+    from repro_torch.core.pytree import tree_leaves
+    xs, largest = tree_leaves(state.x), {}
+    for i, x in enumerate(xs):
+        if x.dtype not in largest or x.numel() > xs[largest[x.dtype]].numel():
+            largest[x.dtype] = i
+    cu, cd = tree_leaves(state.c_up), tree_leaves(state.c_down)
+    return {i: (cu[i], cd[i]) for i in largest.values()}
+
+
+def check_quant_plain(alg, held: dict, new, what: str) -> dict:
+    """The round's quantized state against the old route on the leaves of
+    ``held`` (hold_quant_leaves of its input): the pieced plain quantizer
+    (ref.quantize_ef_ref, PyTorch ops) called directly on the round's z_new
+    and the old c_up, the decode, the agent mean and the downlink (the
+    plain quantizer with no cache) as round_step computes them; the new
+    c_up, ŷ and c_down bit for bit (every agent in the quorum).  Returns
+    {dtype: the leaf's shape}."""
+    from repro_torch.core.compression import quantize_decode
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ref
+    z, cu, yh, cd = (tree_leaves(getattr(new, f)) for f in ("z", "c_up", "y_hat", "c_down"))
+    q, out = alg.quant, {}
+    for i, (c_old, cd_old) in held.items():
+        w, nc = ref.quantize_ef_ref(z[i], c_old, **q)
+        check(same_bits_big(nc, cu[i]), f"{what}: the new c_up of a {tuple(z[i].shape)} "
+              f"{z[i].dtype} leaf differs from the plain quantizer's")
+        del nc
+        y = cd_old + quantize_decode(w, dtype=z[i].dtype, **q).mean(dim=0).to(cd_old.dtype)
+        del w
+        y_hat = quantize_decode(ref.quantize_ef_ref(y, None, **q)[0], dtype=y.dtype, **q)
+        check(same_bits_big(y_hat, yh[i]) and same_bits_big(y - y_hat, cd[i]),
+              f"{what}: ŷ or c_down of a {tuple(z[i].shape)} {z[i].dtype} leaf differs "
+              "from the plain downlink of the plain uplink's mean")
+        out[str(z[i].dtype)[6:]] = list(z[i].shape)
+        del y, y_hat
+    return out
+
+
 def phase_train(launches: dict) -> dict:
     """17a: ``repro_torch.launch.train.main`` on stablelm-1.6b at full width
     and depth in bf16 (random weights from the launcher's seed), TRAIN_ROUNDS
@@ -2122,10 +2363,12 @@ def phase_train(launches: dict) -> dict:
     last below the first, each round's attention launches as derived, and
     the checkpoint restoring bit for bit."""
     from repro_torch.checkpoint import store
+    from repro_torch.core.deploy import DeployFedLT
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     cfg = train_config()
+    alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0)   # the launcher's
     ckpt = BUILD / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.synchronize()
@@ -2139,10 +2382,11 @@ def phase_train(launches: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     for k, v in counts.items():
         launches[k] += v
-    want = train_attention_launches(cfg, torch.bfloat16)
+    want = dict(train_attention_launches(cfg, torch.bfloat16),
+                **quant_launches(alg, TRAIN_AGENTS))
     check(all(r == want for r in run.launches), f"training rounds launched "
-          f"{run.launches}, expected {want} each (no other kernel: the wire is not "
-          "packed)")
+          f"{run.launches}, expected {want} each (attention, and quantize_ef once per "
+          "leaf on the uplink and once on the downlink: the wire is not packed)")
     check(all(math.isfinite(x) for x in run.losses) and run.losses[-1] < run.losses[0],
           f"training losses {run.losses}: not finite, or the last not below the first")
     restored = store.restore(run.checkpoints[-1], run.state.y_hat)
@@ -2150,10 +2394,23 @@ def phase_train(launches: dict) -> dict:
                                               tree_leaves(run.state.y_hat))),
           "the last round's checkpoint of y_hat does not restore bit for bit")
     del restored
+    # one more of the launcher's rounds from its last state, against the old
+    # route (the plain quantizer) on one leaf per dtype
+    held = hold_quant_leaves(run.state)
+    ops.reset_launch_counts()            # the main path: one more round
+    new, _ = alg.round_step(run.state, train_batch(cfg, TRAIN_ROUNDS))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    for k, v in counts.items():
+        launches[k] += v
+    check(counts == want, f"a launcher round from the last state launched {counts}, "
+          f"expected {want}")
+    plain = check_quant_plain(alg, held, new, "17a, a launcher round")
+    del new, held
     n_params = sum(t.numel() for t in tree_leaves(run.state.y_hat))
     out = {"arch": TRAIN_ARCH, "params": n_params, "losses": run.losses,
            "ms_per_round": [1e3 * x for x in run.seconds], "launches_per_round": want,
-           "peak_bytes": peak, "total_s": total_s, "checkpoint": run.checkpoints[-1]}
+           "peak_bytes": peak, "total_s": total_s, "checkpoint": run.checkpoints[-1],
+           "plain_route_leaves": plain}
     print(f"[train] {TRAIN_ARCH} at full width and depth, bf16, {n_params} parameters, "
           f"{TRAIN_AGENTS} agents x batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
           f"{TRAIN_EPOCHS} epochs a round: losses "
@@ -2161,6 +2418,8 @@ def phase_train(launches: dict) -> dict:
           + ", ".join(f"{x:.1f}" for x in out["ms_per_round"])
           + f" (host clock to the loss read back); launches per round {want} "
           f"(flash_attention_bwd_sm90 from the card's kernel, never the plain version); "
+          f"a further round's c_up, ŷ and c_down equal to the old route's (the plain "
+          f"quantizer) bit for bit on its largest leaf per dtype {plain}; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); checkpoint "
           f"round {TRAIN_ROUNDS} restores bit for bit; {total_s:.1f} s with set-up")
     return out, run.state
@@ -2207,9 +2466,11 @@ def phase_train_packed(state, launches: dict) -> dict:
 def packed_round(state, launches: dict, cfg) -> tuple:
     """One round of ``cfg`` with ``pack_wire=True`` from ``state``: one
     quant_pipeline and one unpack_bits launch per leaf of at least one
-    tile (bf16 weights and float32 norms alike) beside the attention
-    layers', and a finite loss.  Returns (the packed DeployFedLT, the new
-    state, the round's summary)."""
+    tile (bf16 weights and float32 norms alike), one quantize_ef per
+    smaller leaf and one per leaf on the downlink (quant_launches), beside
+    the attention layers', and a finite loss.  Returns (the packed
+    DeployFedLT, the new state, the round's summary, whose "held" is
+    hold_quant_leaves of ``state`` for check_packed_round)."""
     from repro_torch.core.deploy import DeployFedLT
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
@@ -2217,6 +2478,7 @@ def packed_round(state, launches: dict, cfg) -> tuple:
     alg = DeployFedLT(cfg=cfg, n_epochs=TRAIN_EPOCHS, gamma=0.02, rho=10.0, pack_wire=True)
     batch = train_batch(cfg, TRAIN_ROUNDS)
     tiles = [x.numel() for x in tree_leaves(state.x) if x.numel() >= _TILE_VALS]
+    held = hold_quant_leaves(state)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()            # the main path: one packed round
     (new, metrics), ms = sync_ms(lambda: alg.round_step(state, batch))
@@ -2225,29 +2487,32 @@ def packed_round(state, launches: dict, cfg) -> tuple:
     for k, v in counts.items():
         launches[k] += v
     want = dict(train_attention_launches(cfg, torch.bfloat16),
-                quant_pipeline=len(tiles), unpack_bits=len(tiles))
+                **quant_launches(alg, TRAIN_AGENTS))
     check(counts == want, f"{cfg.name} packed round launched {counts}, expected {want}")
     check(math.isfinite(float(metrics["loss"])), f"{cfg.name} packed round's loss not finite")
     return alg, new, {"ms": ms, "launches": counts, "tile_leaves": len(tiles),
                       "largest_leaf": max(tiles), "peak_bytes": peak,
-                      "loss": float(metrics["loss"])}
+                      "loss": float(metrics["loss"]), "held": held}
 
 
 def check_packed_round(alg, new, c_up, res: dict) -> dict:
     """17b's checks of a packed round (``packed_round``: its DeployFedLT,
     new state and summary) from a state whose EF caches were ``c_up``:
-    leaf by leaf: unpack_bits of quant_pipeline's words and
-    of pack_bits' words equal to the plain quantizer's level ints
-    (``deploy._quantize_ef``, PyTorch ops) and quant_pipeline's new cache
-    to its cache, bit for bit; the fused uplink against the unfused one
-    (the quantizer and pack_bits): words, gathered values, their agent mean
-    and the new EF cache equal bit for bit, and the round's cache the fused
-    one's; and on the largest leaf, quant_pipeline and pack_bits against
-    their plain versions word for word.  Returns the summary, completed."""
-    from repro_torch.core.deploy import _quantize_ef
+    the round's c_up, ŷ and c_down against the old route on its largest
+    leaf per dtype (check_quant_plain); leaf by leaf: unpack_bits of
+    quant_pipeline's words and of pack_bits' words equal to the plain
+    quantizer's level ints (``ref.quantize_ef_ref``, PyTorch ops a piece at
+    a time) and quant_pipeline's new cache to its cache, bit for bit; the
+    fused uplink against the unfused one (quantize_ef and pack_bits): words,
+    gathered values, their agent mean and the new EF cache equal bit for
+    bit, and the round's cache the fused one's; and on the largest leaf,
+    quant_pipeline and pack_bits against their plain versions word for
+    word.  Returns the summary, completed."""
     from repro_torch.core.pytree import tree_leaves
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pack_bits import _TILE_VALS
+    res = dict(res)
+    plain = check_quant_plain(alg, res.pop("held"), new, f"{alg.cfg.name} packed round")
     unfused = dataclasses.replace(alg, fuse_pipeline=False)
     q = alg.quant
     bits, n_vals, dtypes = alg.wire_word_bits, 0, {}
@@ -2257,7 +2522,7 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
         if z.numel() < _TILE_VALS:
             continue
         what = f"packed uplink of a {tuple(z.shape)} {z.dtype} leaf"
-        ints, nc_plain = _quantize_ef(z, c, q)
+        ints, nc_plain = ref.quantize_ef_ref(z, c, **q)
         words_f, nc_q = ops.quant_pipeline(z, c, **q)
         words_u = ops.pack_bits(ints, bits)
         check(same_ints(ops.unpack_bits(words_f, bits, z.numel()), ints)
@@ -2288,7 +2553,8 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
           f"({100 * leaf_bound / leaf_ms:.1f}% of it)")
     del z, c
     out = dict(res, values=n_vals, largest_leaf_kernel_ms=leaf_ms,
-               largest_leaf_bound_ms=leaf_bound, leaf_dtypes=dtypes)
+               largest_leaf_bound_ms=leaf_bound, leaf_dtypes=dtypes,
+               plain_route_leaves=plain)
     print(f"[train] {alg.cfg.name} packed wire (levels {alg.levels}, {bits}-bit words), "
           f"one round: {out['ms']:.1f} ms, launches {out['launches']}: one quant_pipeline "
           f"and one unpack_bits per leaf of >= {_TILE_VALS} values ({out['tile_leaves']} "
@@ -2297,7 +2563,9 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
           f"quant_pipeline's cache to the plain one, bit for bit; fused and unfused "
           f"uplinks equal bit for bit (words, gathered values, agent means, new "
           f"caches); on the largest leaf quant_pipeline and pack_bits equal to their "
-          f"plain versions word for word; peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
+          f"plain versions word for word; c_up, ŷ and c_down equal to the old route's "
+          f"(the plain quantizer) bit for bit on the largest leaf per dtype {plain}; "
+          f"peak memory {out['peak_bytes'] / 2**30:.2f} GiB")
     return out
 
 
@@ -2744,9 +3012,11 @@ def train_family(arch: str, changes: dict, gamma: float, launches: dict,
     settings and batches but γ: TRAIN_AGENTS agents x TRAIN_BATCH x
     TRAIN_SEQ, TRAIN_EPOCHS epochs, ρ 10, L=255, FAMILY_TRAIN_ROUNDS
     rounds): every loss finite and the last below the first, each round's
-    launches the attention layers' (train_attention_launches) and nothing
-    else; with ``packed``, then one packed round from the last state,
-    checked as 17b.  Returns the summary."""
+    launches the attention layers' (train_attention_launches) and the
+    wire's (quant_launches) and nothing else, round 0's quantized state the
+    old route's on one leaf per dtype (check_quant_plain); with ``packed``,
+    then one packed round from the last state, checked as 17b.  Returns the
+    summary."""
     from repro_torch.core.deploy import DeployFedLT
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops
@@ -2756,15 +3026,20 @@ def train_family(arch: str, changes: dict, gamma: float, launches: dict,
     state = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(0),
                      device=DEV)
     n_params = sum(x.numel() for x in tree_leaves(state.y_hat))
-    want = train_attention_launches(cfg, torch.bfloat16)
+    want = dict(train_attention_launches(cfg, torch.bfloat16),
+                **quant_launches(alg, TRAIN_AGENTS))
     losses, ms = [], []
     for r in range(FAMILY_TRAIN_ROUNDS):
         batch = train_batch(cfg, r)
+        held = hold_quant_leaves(state) if r == 0 else None
         ops.reset_launch_counts()                # the main path: one round
         (state, metrics), t = sync_ms(lambda: alg.round_step(state, batch))
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         check(counts == want, f"{arch} training round {r} launched {counts}, "
               f"expected {want}")
+        if held is not None:
+            plain = check_quant_plain(alg, held, state, f"{arch} training round 0")
+            del held
         for k, v in counts.items():
             launches[k] += v
         losses.append(float(metrics["loss"]))
@@ -2774,13 +3049,16 @@ def train_family(arch: str, changes: dict, gamma: float, launches: dict,
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"{arch} training losses {losses}: not finite, or the last not below the first")
     out = dict(arch=arch, layers=cfg.n_layers, params=n_params, gamma=gamma,
-               losses=losses, ms_per_round=ms, launches_per_round=want, peak_bytes=peak)
+               losses=losses, ms_per_round=ms, launches_per_round=want, peak_bytes=peak,
+               plain_route_leaves=plain)
     print(f"[families] train {arch}, {cfg.n_layers} of {family_config(arch).n_layers} "
           f"layers, bf16, {n_params} parameters, {TRAIN_AGENTS} agents x batch "
           f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_EPOCHS} epochs a round, γ {gamma}: "
           "losses "
           + ", ".join(f"{x:.4f}" for x in losses) + "; ms per round "
           + ", ".join(f"{x:.1f}" for x in ms) + f"; launches per round {want or 'none'}; "
+          f"round 0's c_up, ŷ and c_down equal to the old route's (the plain quantizer) "
+          f"bit for bit on the largest leaf per dtype {plain}; "
           f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     if packed:       # the old state goes with the round but its EF caches
         c_up = state.c_up
@@ -3553,7 +3831,9 @@ def phase_remat_group(launches: dict) -> tuple:
     s0 = alg.init(TRAIN_AGENTS, generator=torch.Generator(device=DEV).manual_seed(0),
                   device=DEV)
     batch = train_batch(cfg, 0)
-    want = train_attention_launches(cfg, torch.bfloat16)
+    want = dict(train_attention_launches(cfg, torch.bfloat16),
+                **quant_launches(alg, TRAIN_AGENTS))
+    held = hold_quant_leaves(s0)
     new, res = {}, {}
     for g in (1, REMAT_GROUP):
         a = dataclasses.replace(alg, cfg=dataclasses.replace(cfg, remat_group=g))
@@ -3589,6 +3869,9 @@ def phase_remat_group(launches: dict) -> tuple:
           "first round's state)")
     del new[REMAT_GROUP]
     free_card()
+    out["plain_route_leaves"] = check_quant_plain(alg, held, new[1], "remat_group 1 round")
+    del held
+    free_card()
     return out, new[1]
 
 
@@ -3607,34 +3890,39 @@ def check_dropped(state, new, agent: int, what: str) -> None:
 
 def check_coordinator(alg, state, new, agent: int, what: str) -> None:
     """With only ``agent`` in the quorum, the coordinator's mean z̄ is that
-    agent's decoded wire: the round's ŷ and c_down equal the downlink of
-    c_down + that wire (uplink_leaf of z_new and the old c_up), bit for bit,
-    leaf by leaf."""
+    agent's decoded wire: on the old route, the pieced plain quantizer
+    (``ref.quantize_ef_ref``) on z_new and the old c_up, that agent's new
+    c_up is the round's, and the round's ŷ and c_down equal the plain
+    downlink of c_down + its decoded wire, bit for bit, leaf by leaf."""
     from repro_torch.core.compression import quantize_decode
-    from repro_torch.core.deploy import _quantize_ef
     from repro_torch.core.pytree import tree_leaves
+    from repro_torch.kernels import ref
     q = alg.quant
-    for z, c, cd, yh, cdn in zip(tree_leaves(new.z), tree_leaves(state.c_up),
-                                 tree_leaves(state.c_down), tree_leaves(new.y_hat),
-                                 tree_leaves(new.c_down)):
-        g, _ = alg.uplink_leaf(z, c)
-        y = cd + g[agent].to(cd.dtype)
-        del g
-        yh_want = quantize_decode(_quantize_ef(y, None, q)[0], dtype=y.dtype, **q)
+    for z, c, cn, cd, yh, cdn in zip(tree_leaves(new.z), tree_leaves(state.c_up),
+                                     tree_leaves(new.c_up), tree_leaves(state.c_down),
+                                     tree_leaves(new.y_hat), tree_leaves(new.c_down)):
+        w, nc = ref.quantize_ef_ref(z[agent], c[agent], **q)
+        check(same_bits(nc, cn[agent]), f"{what}: agent {agent}'s new c_up of a "
+              f"{tuple(z.shape)} leaf differs from the plain quantizer's")
+        y = cd + quantize_decode(w, dtype=z.dtype, **q).to(cd.dtype)
+        del w, nc
+        yh_want = quantize_decode(ref.quantize_ef_ref(y, None, **q)[0], dtype=y.dtype, **q)
         check(same_bits(yh_want, yh) and same_bits(y - yh_want, cdn),
-              f"{what}: ŷ or c_down of a {tuple(cd.shape)} leaf is not the downlink of "
-              f"agent {agent}'s decoded wire")
+              f"{what}: ŷ or c_down of a {tuple(cd.shape)} leaf is not the plain downlink "
+              f"of agent {agent}'s decoded wire")
 
 
 def phase_quorum(state, launches: dict) -> dict:
     """22c: quorum rounds of stablelm-1.6b at phase 17's shape, agent 1
     dropped (QUORUM), from ``state`` (22d's round) and round 1's batch, on
     three routes: packed fused (one quant_pipeline and one unpack_bits launch
-    per leaf of a tile), packed unfused (pack_bits instead) and unpacked.
+    per leaf of a tile), packed unfused (quantize_ef and pack_bits instead)
+    and unpacked, each with quantize_ef for the rest (quant_launches).
     All three equal bit for bit on every state leaf; the dropped agent's
-    cache its corrected message; ŷ and c_down the downlink of the survivor's
-    decoded wire; quorum_frac 0.5; and the survivor's cache what an
-    all-participate round gives it.  Then float32 at depth 2, card against
+    cache its corrected message; the survivor's cache, ŷ and c_down those of
+    the plain quantizer on the survivor's wire (check_coordinator);
+    quorum_frac 0.5; and the survivor's cache what an all-participate round
+    gives it.  Then float32 at depth 2, card against
     the CPU (check_quorum_f32)."""
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels.pack_bits import _TILE_VALS
@@ -3643,10 +3931,10 @@ def phase_quorum(state, launches: dict) -> dict:
     tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
     attn = train_attention_launches(cfg, torch.bfloat16)
     fused = deploy_alg(cfg, pack_wire=True)
-    routes = {"packed fused": (fused, dict(attn, quant_pipeline=tiles, unpack_bits=tiles)),
-              "packed unfused": (dataclasses.replace(fused, fuse_pipeline=False),
-                                 dict(attn, pack_bits=tiles, unpack_bits=tiles)),
-              "unpacked": (deploy_alg(cfg), attn)}
+    routes = {name: (alg, dict(attn, **quant_launches(alg, TRAIN_AGENTS))) for name, alg in (
+        ("packed fused", fused),
+        ("packed unfused", dataclasses.replace(fused, fuse_pipeline=False)),
+        ("unpacked", deploy_alg(cfg)))}
     out, first = {}, None
     for name, (alg, want) in routes.items():
         new, metrics, res = counted_round(alg, state, batch, want, launches,
@@ -3679,10 +3967,12 @@ def phase_quorum(state, launches: dict) -> dict:
                       f"({r['round_peak_bytes'] / 2**30:.2f} above the states held)"
                       for n, r in out.items())
           + f"; loss {out['packed fused']['loss']:.6f}; the three routes equal bit for "
-          f"bit on every leaf; agent 1's caches its z_new + c_up; ŷ and c_down the "
-          f"downlink of agent 0's decoded wire; quorum_frac 0.5; agent 0's caches "
-          f"those of the all-participate round; quant_pipeline / pack_bits and "
-          f"unpack_bits once per leaf of >= {_TILE_VALS} values ({tiles} leaves)")
+          f"bit on every leaf; agent 1's caches its z_new + c_up; agent 0's caches, ŷ "
+          f"and c_down those of the plain quantizer on agent 0's wire (the old route); "
+          f"quorum_frac 0.5; agent 0's caches those of the all-participate round; "
+          f"quant_pipeline / pack_bits and unpack_bits once per leaf of >= {_TILE_VALS} "
+          f"values ({tiles} leaves), quantize_ef for the rest and the downlink: "
+          + "; ".join(f"{n} {w}" for n, (_, w) in routes.items()))
     out["f32"] = check_quorum_f32(launches)
     return out
 
@@ -3720,7 +4010,6 @@ def check_quorum_f32(launches: dict) -> dict:
     from repro_torch.core.deploy import DeployState
     from repro_torch.core.pytree import tree_leaves, tree_map
     from repro_torch.data.synthetic import make_batch, seeded, stack_batches
-    from repro_torch.kernels.pack_bits import _TILE_VALS
     cfg = train_config(n_layers=2, scan_repeats=2, dtype="float32")
     alg = deploy_alg(cfg, pack_wire=True, n_epochs=1)
 
@@ -3737,9 +4026,8 @@ def check_quorum_f32(launches: dict) -> dict:
                   device=DEV)
     state, _ = alg.round_step(s0, batch(0, DEV))
     del s0
-    tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
     want = dict(attention_launches(cfg, torch.float32, TRAIN_AGENTS, 1),
-                quant_pipeline=tiles, unpack_bits=tiles)
+                **quant_launches(alg, TRAIN_AGENTS))
     card, m_card, res = counted_round(alg, state, batch(1, DEV), want, launches,
                                       "float32 quorum round", survivors=QUORUM)
     t0 = time.perf_counter()
@@ -3815,17 +4103,21 @@ def phase_fed_lm(launches: dict) -> dict:
     """22e: the port's examples/train_federated_lm.py on the card.  Its
     100m preset (bf16, 4 agents x 4 x 256, 2 epochs, L 1023 over ±0.5) for
     FEDLM_ROUNDS["100m"] rounds: losses finite, the last below the first,
-    the attention launches as attention_launches derives them and nothing
-    else, ms per round and peak memory.  Its smoke preset (float32) for
-    FEDLM_ROUNDS["smoke"] rounds on the card (the float32 routes) and on the
-    CPU (the plain versions), from the same weights, drawn on the CPU:
-    losses finite, and every round's within FEDLM_RTOL."""
+    the attention launches as attention_launches derives them, quantize_ef's
+    as quant_launches does, and nothing else, ms per round and peak memory.
+    Its smoke preset (float32) for FEDLM_ROUNDS["smoke"] rounds on the card
+    (the float32 routes) and on the CPU (the plain versions), from the same
+    weights, drawn on the CPU: losses finite, and every round's within
+    FEDLM_RTOL."""
+    from repro_torch.core.deploy import DeployFedLT
     from repro_torch.examples import train_federated_lm as ex
     from repro_torch.kernels import ops
     out = {}
     for preset, rounds in FEDLM_ROUNDS.items():
         cfg = ex.PRESETS[preset]
-        per_round = attention_launches(cfg, getattr(torch, cfg.dtype), 4, 2)
+        # the example's round: 4 agents, 2 epochs, L 1023, the wire not packed
+        per_round = dict(attention_launches(cfg, getattr(torch, cfg.dtype), 4, 2),
+                         **quant_launches(DeployFedLT(cfg=cfg, levels=1023), 4))
         argv = ["--preset", preset, "--rounds", str(rounds)]
         free_card()
         torch.cuda.reset_peak_memory_stats()
@@ -4050,7 +4342,6 @@ def launch_deploy(mesh, launches: dict) -> tuple:
     from repro_torch.core.deploy import DeployFedLT, DeployState
     from repro_torch.core.pytree import tree_leaves, tree_map
     from repro_torch.kernels import ops
-    from repro_torch.kernels.pack_bits import _TILE_VALS
     from repro_torch.launch.sharding import P, distribute, param_specs
 
     cfg = train_config(scan_repeats=LAUNCH_LAYERS, n_layers=LAUNCH_LAYERS)
@@ -4064,9 +4355,8 @@ def launch_deploy(mesh, launches: dict) -> tuple:
     put = lambda tree, specs: tree_map(lambda x, sp: distribute(x, mesh, sp), tree, specs)
     sharded = DeployState(x=put(state.x, ps), z=put(state.z, ps), c_up=put(state.c_up, ps),
                           y_hat=put(state.y_hat, pc), c_down=put(state.c_down, pc), k=0)
-    tiles = sum(x.numel() >= _TILE_VALS for x in tree_leaves(state.x))
-    want = dict(train_attention_launches(cfg, torch.bfloat16), quant_pipeline=tiles,
-                unpack_bits=tiles)
+    want = dict(train_attention_launches(cfg, torch.bfloat16),
+                **quant_launches(alg, TRAIN_AGENTS))
     res = {}
     for tag, st, kw in (("plain", state, {}),
                         ("sharded", sharded, dict(agent_replicate_spec=rep))):
@@ -4675,10 +4965,11 @@ def phase_profile(run, rounds: int, tag: str, unit: str = "round") -> float:
               f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:70]}")
     for e in device:                     # a backward's three grids each by name
         found = next(((n, m) for n in SOURCES for m in
-                      [re.search(rf"\b{n}(_prep|_dq|_dkdv)?_kernel\b", e.key)] if m), None)
+                      [re.search(rf"\b{n}(32)?(_prep|_dq|_dkdv)?_kernel\b", e.key)] if m),
+                     None)
         if found:
             name, m = found
-            grid = f" ({m.group(1)[1:]} grid)" if m.group(1) else ""
+            grid = f" ({m.group(2)[1:]} grid)" if m.group(2) else ""
             args = re.match(r"<[^>]*>", e.key[m.end():])    # the instantiation
             grid += f" {args.group(0)}" if args else ""
             print(f"[profile] {tag}: {name}{grid}: {e.self_device_time_total / e.count:.2f}"
@@ -4760,20 +5051,15 @@ def phase_times(rng) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.compress_pipeline import quant_pipeline
     from repro_torch.kernels.pack_bits import n_tiles, pack_bits, unpack_bits
-    out = {}
+    out = {"pack_bits": time_pack_bits(rng), "quantize_ef": time_quantize_ef(rng)}
     bits = 4
-    shapes = {"pack_bits": AGENT_N, "unpack_bits": MAIN_N, "quant_pipeline": MAIN_N}
+    shapes = {"unpack_bits": MAIN_N, "quant_pipeline": MAIN_N}
     for name, main_n in shapes.items():
         for n in (main_n, BIG_N):
             iters = 200 if n < BIG_N else 20
             word_bytes = 4 * n_tiles(n) * bits * 1024
             bit_ops = 4 * bits * n           # shift, and, shift, or per bit
-            if name == "pack_bits":
-                vals = torch.from_numpy(rng.integers(0, 2**bits, n).astype(np.uint32)).to(DEV)
-                kern = lambda: pack_bits(vals, bits)
-                plain = lambda: ref.pack_bits_ref(vals, bits)
-                nbytes, ops = 4 * n + word_bytes, bit_ops
-            elif name == "unpack_bits":
+            if name == "unpack_bits":
                 words = pack_bits(torch.from_numpy(
                     rng.integers(0, 2**bits, n).astype(np.uint32)).to(DEV), bits)
                 kern = lambda: unpack_bits(words, bits, n)
@@ -4795,18 +5081,9 @@ def phase_times(rng) -> dict:
         lambda: ref.quant_pipeline_ref(msg, cache, levels=255, vmin=-1.0, vmax=1.0),
         20, 7 * BIG_N, 12 * BIG_N + 32 * BIG_N)
     del msg, cache
-    # the transport's kernels at its shapes: one satellite's update (2,048
-    # values, L=255 → uint8) and one tile of 8-bit words (8,192 words)
+    # the transport's erasure mask at its shape: one tile of 8-bit words
+    # (8,192 words)
     from repro_torch.kernels.erasure_mask import erasure_mask
-    from repro_torch.kernels.quantize_ef import quantize_ef
-    for n in (UPDATE_N, BIG_N):
-        msg, cache = quant_inputs(n, 255, -1.0, 1.0, rng)
-        out.setdefault("quantize_ef", []).append(time_record(
-            "quantize_ef", n, 8,
-            lambda: quantize_ef(msg, cache, levels=255, vmin=-1.0, vmax=1.0),
-            lambda: ref.quantize_ef_ref(msg, cache, levels=255, vmin=-1.0,
-                                        vmax=1.0),
-            200 if n < BIG_N else 20, 13 * n, 12 * n))
     for n in (WORDS_N, BIG_N):
         words = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64)
                                  .astype(np.uint32)).to(DEV)
@@ -4857,12 +5134,149 @@ def phase_times(rng) -> dict:
     return out
 
 
+def largest_train_leaf() -> tuple:
+    """The shape of phase 17's largest leaf with its agent axis (stablelm-
+    1.6b's MLP weights, 2 x 24 x 2048 x 5632 = 5.54e8 values), from the
+    parameter tree on the meta device."""
+    from repro_torch.core.pytree import tree_leaves
+    from repro_torch.models.transformer import init_params
+    leaf = max(tree_leaves(init_params(train_config(), device="meta")), key=lambda t: t.numel())
+    return (TRAIN_AGENTS,) + tuple(leaf.shape)
+
+
+def time_quantize_ef(rng) -> list:
+    """quantize_ef (redesigned) at the training round's path shape, the
+    largest leaf as a bf16 msg and cache at L=255 (7 B a value: 4 read, a
+    uint8 wire and a bf16 new cache written), then at 2**24 float32 values
+    (13 B; the shape of the earlier design's row), at 2**24 bf16, and with
+    no cache at the leaf (the downlink: 3 B a value); the host's cost per
+    call at the cohort transport's shape (one satellite's 2,048 float32
+    values)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize_ef import quantize_ef
+    kw = dict(levels=255, vmin=-1.0, vmax=1.0)
+    shape = largest_train_leaf()
+    n = math.prod(shape)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    msg = (0.6 * torch.randn(shape, generator=gen, device=DEV)).to(torch.bfloat16)
+    cache = (0.004 * torch.randn(shape, generator=gen, device=DEV)).to(torch.bfloat16)
+    recs = [time_record("quantize_ef", n, 8, lambda: quantize_ef(msg, cache, **kw),
+                        lambda: ref.quantize_ef_ref(msg, cache, **kw), 5, 7 * n, 12 * n,
+                        warmup=1)]
+    recs[0]["shape"], recs[0]["dtype"] = list(shape), "bfloat16"
+    no_cache = time_record("quantize_ef", n, 8, lambda: quantize_ef(msg, None, **kw),
+                           lambda: ref.quantize_ef_ref(msg, None, **kw), 5, 3 * n, 8 * n,
+                           warmup=1)
+    del msg, cache
+    pairs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        msg, cache = (t.to(dtype) for t in quant_inputs(BIG_N, 255, -1.0, 1.0, rng))
+        pairs.append((msg, cache))
+        recs.append(time_record(
+            "quantize_ef", BIG_N, 8, lambda: quantize_ef(msg, cache, **kw),
+            lambda: ref.quantize_ef_ref(msg, cache, **kw), 20,
+            (13 if dtype == torch.float32 else 7) * BIG_N, 12 * BIG_N))
+    recs[2]["dtype"] = "bfloat16"
+    recs.append(no_cache)
+    for rec, (m, c) in zip(recs[1:3], pairs):   # the host's ~25-50 µs a call can hide it
+        rec["device_us"] = graph_us(lambda: quantize_ef(m, c, **kw))
+    no_cache["dtype"], no_cache["no_cache"] = "bfloat16", True
+    msg, zeros = quant_inputs(UPDATE_N, 255, -1.0, 1.0, rng)[0], torch.zeros(
+        UPDATE_N, device=DEV)
+    host = host_ms_per_call(lambda: quantize_ef(msg, zeros, **kw), 2000)
+    recs[0]["host_us_cohort"] = 1e3 * host
+    recs[0]["device_us_cohort"] = graph_us(lambda: quantize_ef(msg, zeros, **kw))
+    print(f"[times] quantize_ef at the path shape {shape} bf16 msg and cache (the "
+          f"training round's largest leaf): {recs[0]['ms']:.4f} ms, bound "
+          f"{recs[0]['bound_ms']:.4f} ({100 * recs[0]['bound_share']:.1f}%); no cache "
+          f"{no_cache['ms']:.4f} ms, bound {no_cache['bound_ms']:.4f} "
+          f"({100 * no_cache['bound_share']:.1f}%); host {1e3 * host:.2f} µs per call at the "
+          f"cohort shape ({UPDATE_N} float32 values, calls enqueued back to back), device "
+          f"{recs[0]['device_us_cohort']:.3f} µs there (a CUDA graph of 20 calls); device "
+          f"µs at 2**24 (graph; inputs in the L2 when they fit): float32 "
+          f"{recs[1]['device_us']:.3f}, bf16 {recs[2]['device_us']:.3f}")
+    return recs
+
+
+def time_pack_bits(rng) -> list:
+    """pack_bits (redesigned) at the training round's path shape, the
+    largest leaf's uint8 level ints at b=8 (the unfused packed uplink: 1 B
+    read, 1 B of words written a value), then at 2**24 values from uint32
+    at b=4 (4.5 B; the shape of the earlier design's row) and from uint8 at
+    b=4 (1.5 B); the host's cost per call at the cohort transport's shape
+    (one satellite's 2,048 uint8 ints at b=8)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pack_bits import n_tiles, pack_bits
+    shape = largest_train_leaf()
+    n = math.prod(shape)
+    vals = torch.randint(0, 256, shape, dtype=torch.uint8, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(6))
+    word_bytes = lambda n, b: 4 * n_tiles(n) * b * 1024
+    recs = [time_record("pack_bits", n, 8, lambda: pack_bits(vals, 8),
+                        lambda: ref.pack_bits_ref(vals, 8), 5, n + word_bytes(n, 8),
+                        32 * n, warmup=1)]
+    recs[0]["shape"], recs[0]["dtype"] = list(shape), "uint8"
+    del vals
+    for dtype in (np.uint32, np.uint8):
+        vals = torch.from_numpy(rng.integers(0, 16, BIG_N).astype(dtype)).to(DEV)
+        recs.append(time_record("pack_bits", BIG_N, 4, lambda: pack_bits(vals, 4),
+                                lambda: ref.pack_bits_ref(vals, 4), 20,
+                                vals.element_size() * BIG_N + word_bytes(BIG_N, 4),
+                                16 * BIG_N))
+        recs[-1]["dtype"] = np.dtype(dtype).name
+        # device time: at 2**24 the host's ~25-50 µs a call can hide the kernel's
+        recs[-1]["device_us"] = graph_us(lambda: pack_bits(vals, 4))
+    wire = torch.from_numpy(rng.integers(0, 256, UPDATE_N).astype(np.uint8)).to(DEV)
+    host = host_ms_per_call(lambda: pack_bits(wire, 8), 2000)
+    # the earlier wrapper's route: an int32 copy of the uint8 ints, then the launch
+    host_copy = host_ms_per_call(lambda: pack_bits(wire.to(torch.int32), 8), 2000)
+    recs[0]["host_us_cohort"] = 1e3 * host
+    recs[0]["host_us_cohort_int32_copy"] = 1e3 * host_copy
+    recs[0]["device_us_cohort"] = graph_us(lambda: pack_bits(wire, 8))
+    print(f"[times] pack_bits at the path shape {shape} uint8 ints, b=8 (the training "
+          f"round's largest leaf, unfused): {recs[0]['ms']:.4f} ms, bound "
+          f"{recs[0]['bound_ms']:.4f} ({100 * recs[0]['bound_share']:.1f}%); host "
+          f"{1e3 * host:.2f} µs per call at the cohort shape ({UPDATE_N} uint8 ints, "
+          f"calls enqueued back to back; {1e3 * host_copy:.2f} with the int32 copy the "
+          f"earlier wrapper made), device {recs[0]['device_us_cohort']:.3f} µs there (a "
+          f"CUDA graph of 20 calls); device µs at 2**24, b=4 (graph; inputs in the L2): "
+          f"from uint32 {recs[1]['device_us']:.3f}, from uint8 {recs[2]['device_us']:.3f}")
+    return recs
+
+
 def sign_two_pass_bytes(n: int, l2_bytes: int) -> float:
     """The least bytes sign_pipeline's two-pass design moves to and from
     device memory: the function's 12.125 n (msg and cache read, new cache
     written, one word per 32 values) and the second read of msg and cache,
     after the scale, less what the L2 can hold of them."""
     return 12.125 * n + max(0, 8 * n - l2_bytes)
+
+
+def graph_us(fn, calls: int = 20) -> float:
+    """Device µs per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the replay timed with CUDA events (least of three), so the
+    host's dispatch, which can take longer than a small kernel, is not in
+    the time.  Outputs are allocated in the graph's own pool."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                               # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(1e3 * start.elapsed_time(end) / calls)
+    del graph
+    return min(runs)
 
 
 def host_ms_per_call(fn, calls: int) -> float:
@@ -5203,13 +5617,13 @@ def bwd_device_us(fn):
     return out or None
 
 
-def time_record(name, n, bits, kern, plain, iters, nbytes, ops) -> dict:
+def time_record(name, n, bits, kern, plain, iters, nbytes, ops, warmup: int = 10) -> dict:
     """Kernel and plain version timed in turns (plain, kernel, kernel,
     plain), least of each, beside the bound for ``nbytes`` and ``ops``."""
-    plain_ms = time_ms(plain, iters)
-    ms = time_ms(kern, iters)
-    ms2 = time_ms(kern, iters)
-    plain_ms2 = time_ms(plain, iters)
+    plain_ms = time_ms(plain, iters, warmup)
+    ms = time_ms(kern, iters, warmup)
+    ms2 = time_ms(kern, iters, warmup)
+    plain_ms2 = time_ms(plain, iters, warmup)
     b_ms, b_by = bound(nbytes, ops)
     rec = {"n": n, "bits": bits, "ms": min(ms, ms2), "library_ms": None,
            "plain_ms": min(plain_ms, plain_ms2), "bound_ms": b_ms,
@@ -5380,7 +5794,7 @@ def main() -> int:
                "bound_by": main_rec["bound_by"],
                "library_ms": main_rec["library_ms"],
                "ptxas": [e for e in PTXAS.get(Path(source).name, [])
-                         if re.fullmatch(rf"{name}(_prep|_dq|_dkdv)?_kernel",
+                         if re.fullmatch(rf"{name}(32|_prep|_dq|_dkdv)?_kernel",
                                          e["entry"].split("<")[0])]}
         if name.startswith("flash_attention"):
             rec.update({k: v for k, v in main_rec.items() if k not in rec and not
@@ -5391,12 +5805,22 @@ def main() -> int:
             big_rec = times[name][1]
             rec.update(n=main_rec["n"], bits=main_rec["bits"],
                        at_2p24={k: v for k, v in big_rec.items() if k in (
-                           "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")
-                           or k.startswith("bound_ms_two_pass")})
+                           "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
+                           "device_us") or k.startswith("bound_ms_two_pass")})
             if name in ("quant_pipeline", "sign_pipeline"):
                 rec["at_2p24_bf16"] = {k: v for k, v in times[f"{name}_bf16"].items()
                                        if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "bound_share", "bound_ms_two_pass")}
+            if name in ("pack_bits", "quantize_ef"):     # redesigned: the leaf's shape
+                keep = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "dtype")
+                keep += ("device_us",)
+                rec.update(shape=main_rec["shape"], dtype=main_rec["dtype"],
+                           host_us_cohort=main_rec["host_us_cohort"],
+                           device_us_cohort=main_rec["device_us_cohort"],
+                           at_2p24_narrow={k: v for k, v in times[name][2].items()
+                                           if k in keep})
+                if name == "quantize_ef":
+                    rec["no_cache"] = {k: v for k, v in times[name][3].items() if k in keep}
         kernels.append(rec)
     print(f"[serve] summary: {json.dumps(serve)}")
     print(f"[train] summary: {json.dumps(train)}")

@@ -8,14 +8,17 @@ Algorithm 2 runs inside the round:
 
   1. v = 2·ŷ − z;  N_e prox-gradient epochs on the LM loss   (local training)
   2. z ← z + 2(x − ŷ)
-  3. uplink: wire = Q(z + c_up) as integer level indices     (uplink EF);
-     with ``pack_wire=True`` the indices of each leaf of at least one
-     kernel tile (32768 values) are bit-packed into b-bit uint32 wire
-     words, by one ``quant_pipeline`` launch (``fuse_pipeline=True``) or
-     by the quantizer and one ``pack_bits`` launch, and unpacked with
-     ``unpack_bits`` on the coordinator side
+  3. uplink: wire = Q(z + c_up) as integer level indices     (uplink EF),
+     one ``quantize_ef`` launch per leaf (uint8 ints for L ≤ 255, uint16
+     up to 65535; a larger L is refused); with ``pack_wire=True`` the
+     indices of each leaf of at least one kernel tile (32768 values) are
+     bit-packed into b-bit uint32 wire words, by one ``quant_pipeline``
+     launch (``fuse_pipeline=True``) or by ``quantize_ef`` and one
+     ``pack_bits`` launch, and unpacked with ``unpack_bits`` on the
+     coordinator side
   4. ȳ = mean_A decode(wire);  y = c_down + ȳ
-  5. ŷ = decode(Q(y));  c_down = y − ŷ                      (downlink EF)
+  5. ŷ = decode(Q(y));  c_down = y − ŷ                      (downlink EF):
+     Q(y) is ``quantize_ef`` with no cache, one launch per leaf
 
 Each epoch takes ``torch.autograd.grad`` of ``lm_loss`` on one agent's
 slice; with the ``chunked`` backend attention runs the hand-written
@@ -63,31 +66,10 @@ from torch.profiler import record_function
 from ..device import DTensor, is_dtensor
 from ..kernels import ops
 from ..kernels.pack_bits import _TILE_VALS
+from ..kernels.ref import wire_dtype
 from ..models.transformer import init_params, lm_loss
-from .compression import (PIECE, _int_dtype, quantize_decode, quantize_encode,
-                          wire_index_bits)
+from .compression import PIECE, quantize_decode, wire_index_bits
 from .pytree import tree_leaves, tree_map, tree_unflatten
-
-
-def _quantize_ef(z, c, q):
-    """Level ints of z + c, formed in float32, and the new EF cache in z's
-    dtype; with ``c`` None, the level ints of z alone.  A piece of
-    ``PIECE`` values at a time, so the float32 copies of an agent-stacked
-    leaf never exist whole (gemma3-27b's embedding table with two agents
-    is 2.8e9 values, 11 GB a float32 copy)."""
-    zf = z.reshape(-1)
-    w = torch.empty(zf.shape, dtype=_int_dtype(q["levels"]), device=z.device)
-    newc = None if c is None else torch.empty(zf.shape, dtype=z.dtype, device=z.device)
-    cf = None if c is None else c.reshape(-1)
-    for s in range(0, zf.numel(), PIECE):
-        m = zf[s:s + PIECE].to(torch.float32)
-        if c is not None:
-            m = m + cf[s:s + PIECE]            # a new tensor: z is never written
-        w[s:s + PIECE] = quantize_encode(m, **q)
-        if c is not None:
-            m -= quantize_decode(w[s:s + PIECE], **q)
-            newc[s:s + PIECE] = m
-    return w.view(z.shape), None if c is None else newc.view(z.shape)
 
 
 def _revert_caches(nc, z, c, agents) -> None:
@@ -147,6 +129,10 @@ class DeployFedLT:
     # the quantizer and pack_bits; the words are equal either way
     fuse_pipeline: bool = True
     backend: str = "chunked"
+
+    def __post_init__(self):
+        if self.compress:
+            wire_dtype(self.levels)          # the uplink kernel's uint8/uint16 wire
 
     @property
     def wire_word_bits(self) -> int:
@@ -210,7 +196,7 @@ class DeployFedLT:
                 with record_function("fedlt.uplink.fused_pipeline"):
                     words, newc = ops.quant_pipeline(zl, cl, **q)
             else:
-                w, newc = _quantize_ef(zl, cl, q)
+                w, newc = ops.quantize_ef(zl, cl, **q)
                 words = ops.pack_bits(w, bits)
                 del w
             blocks = [words] if gather is None else gather(words[None]).unbind(0)
@@ -218,7 +204,7 @@ class DeployFedLT:
             idx = [ops.unpack_bits(b, bits, zl.numel()).reshape(zl.shape) for b in blocks]
             idx = idx[0] if len(idx) == 1 else torch.cat(idx)
             return quantize_decode(idx, dtype=z.dtype, **q), newc
-        w, newc = _quantize_ef(zl, cl, q)
+        w, newc = ops.quantize_ef(zl, cl, **q)
         return quantize_decode(w if gather is None else gather(w), dtype=z.dtype, **q), newc
 
     # -- one round ----------------------------------------------------------
@@ -298,7 +284,8 @@ class DeployFedLT:
                     if self.compress:
                         q = self.quant
                         y_hat = tree_map(lambda m: lay.from_local(quantize_decode(
-                            _quantize_ef(_local(m), None, q)[0], dtype=m.dtype, **q), m), y)
+                            ops.quantize_ef(_local(m), None, **q)[0], dtype=m.dtype, **q),
+                            m), y)
                         c_down_new = tree_map(torch.sub, y, y_hat)
                     else:
                         y_hat, c_down_new = y, state.c_down

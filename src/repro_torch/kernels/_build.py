@@ -9,9 +9,10 @@ library with a plain C interface, all of them at once, on first use:
 The libraries land in ``build/repro_torch_kernels/`` at the repository
 root, keyed by a hash of every file in ``csrc/`` and the flags, and are
 loaded with ``ctypes``.  Every C entry point takes raw device pointers,
-``int`` sizes and the current stream, and returns ``cudaGetLastError()``
-after its launch; :func:`launch` raises when that is not 0 and counts the
-launch only when it succeeded.
+sizes (``int``, or ``long long`` where the table says) and the current
+stream, and returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises when that is not 0 and counts the launch only when
+it succeeded.
 
 Nothing is built when this module is imported: the CPU tests import it on
 machines with no ``nvcc``.
@@ -40,17 +41,20 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
 #: kernel name -> (source, C entry point, argument types without the stream)
 KERNELS = {
-    # vals, words, n, bits, tiles
-    "pack_bits": ("pack_bits.cu", "repro_pack_bits", (_P, _P, _I, _I, _I)),
+    # vals, words, n (64-bit), bits, tiles, the values' width in bytes (1,
+    # 2 or 4)
+    "pack_bits": ("pack_bits.cu", "repro_pack_bits", (_P, _P, _L, _I, _I, _I)),
     # words, vals, n, bits, tiles
     "unpack_bits": ("pack_bits.cu", "repro_unpack_bits", (_P, _P, _I, _I, _I)),
     # msg, cache, words, new_cache, n, bits, tiles, levels, vmin, vmax,
     # delta, 1/delta, bf16 (msg and cache bf16, else float32)
     "quant_pipeline": ("quant_pipeline.cu", "repro_quant_pipeline",
                        (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I)),
-    # msg, cache, wire, new_cache, n, levels, vmin, vmax, delta, 1/delta
+    # msg, cache (null for none), wire, new_cache (null with no cache), n
+    # (64-bit), levels, vmin, vmax, delta, 1/delta, msg's and cache's types
+    # (0 float32, 1 bf16, 2 fp16)
     "quantize_ef": ("quantize_ef.cu", "repro_quantize_ef",
-                    (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F)),
+                    (_P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I)),
     # words, masked, keep, n, segment_words, seed_lo, seed_hi, threshold
     "erasure_mask": ("erasure_mask.cu", "repro_erasure_mask",
                      (_P, _P, _P, _I, _U, _U, _U, _U)),

@@ -11,11 +11,11 @@
 //   word  j of column c at flat index  (tile * bits + j) * 1024 + c
 //
 // This is the JAX package's layout word for word, tile padding included.
-// pack_bits and quant_pipeline give each thread one column (unpack_bits
-// takes four, pack_bits.cu): neighbouring threads take
-// neighbouring lanes, so each of the 32 value loads and each of the b word
-// stores of a warp is one coalesced 128-byte access, and the 32 values of
-// a group sit in registers while their planes are built.
+// quant_pipeline gives each thread one column (pack_bits and unpack_bits
+// take four, pack_bits.cu): neighbouring threads take neighbouring lanes,
+// so each of the 32 value loads and each of the b word stores of a warp is
+// one coalesced 128-byte access, and the 32 values of a group sit in
+// registers while their planes are built.
 #pragma once
 
 #include "common.cuh"

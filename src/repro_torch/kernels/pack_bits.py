@@ -14,13 +14,17 @@ The word buffer keeps the tile padding (``tiles·b·R·LANES`` words, zero
 past the data); the logical on-wire size is ``ceil(n/32)·b`` words.
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor on
-the card goes to the CUDA kernel in ``csrc/pack_bits.cu``.  Its
-``unpack_bits`` runs one block of :data:`UNPACK_THREADS` threads per tile,
-thread t on columns ``UNPACK_COLS·t ..`` of it: one 16-byte load per word
-plane when the word buffer's base is 16-byte aligned (four 4-byte loads
-when it is not, as for a view into a wire payload) and one streaming
-16-byte store per value row, value by value where a group of four
-crosses n.
+the card goes to the CUDA kernels in ``csrc/pack_bits.cu``.  Both run one
+block of :data:`UNPACK_THREADS` threads per tile, thread t on columns
+``UNPACK_COLS·t ..`` of it.  ``pack_bits`` reads uint8 and uint16 values
+(and bool as uint8) where they lie, and 32-bit ones as uint32 words, with
+one load of a row's four columns when the values' base is aligned to it
+(value by value when not, and in a tile that crosses n), and stores each
+bit plane of its columns as one 16-byte word group.  ``unpack_bits`` does
+one 16-byte load per word plane when the word buffer's base is 16-byte
+aligned (four 4-byte loads when it is not, as for a view into a wire
+payload) and one streaming 16-byte store per value row, value by value
+where a group of four crosses n.
 """
 from __future__ import annotations
 
@@ -33,8 +37,8 @@ GROUP = 32      # values per packed group (= bits per uint32 word)
 R = 8           # groups stacked per tile (tile rows = 32·R)
 
 _TILE_VALS = GROUP * R * LANES
-#: csrc/pack_bits.cu unpack_bits: threads per block (a block per tile) and
-#: neighbouring columns per thread
+#: csrc/pack_bits.cu, pack_bits and unpack_bits alike: threads per block
+#: (a block per tile) and neighbouring columns per thread
 UNPACK_THREADS, UNPACK_COLS = 256, 4
 
 
@@ -55,22 +59,28 @@ def n_tiles(n: int) -> int:
 
 
 def check_cuda_size(n: int) -> None:
-    """The kernels index with ``int`` sizes."""
+    """The kernels whose C entry points take ``int`` sizes (all but
+    pack_bits and quantize_ef) refuse 2**31 values or more."""
     if n >= 2**31:
         raise ValueError(f"{n} values exceed the kernels' int sizes")
 
 
-def _as_uint32(flat):
-    """Integer values as uint32 words (two's complement for negatives, as
-    ``ref.to_uint32``): through int32 where the dtype fits in it, so a
-    leaf of 9.4e8 uint8 levels takes 4 bytes a value on the way, not the
-    int64 detour's 16."""
-    if flat.dtype == torch.uint32:
-        return flat
-    if flat.dtype in (torch.uint8, torch.int8, torch.int16, torch.int32):
-        return flat.to(torch.int32).view(torch.uint32)
+#: value dtypes the pack kernel reads where they lie, by width in bytes
+_PACK_WIDTHS = {torch.uint8: 1, torch.bool: 1, torch.uint16: 2, torch.int32: 4,
+                torch.uint32: 4}
+
+
+def _pack_input(flat):
+    """(values, width in bytes) for the pack kernel: uint8, bool, uint16,
+    int32 and uint32 as they are (negative int32 as two's complement
+    words); int8 and int16 through int32, so their negatives keep their
+    sign bits; int64 as ``ref.to_uint32`` takes it."""
+    if flat.dtype in _PACK_WIDTHS:
+        return flat, _PACK_WIDTHS[flat.dtype]
+    if flat.dtype in (torch.int8, torch.int16):
+        return flat.to(torch.int32), 4
     from .ref import as_int64, to_uint32  # lazy: ref imports this module
-    return to_uint32(as_int64(flat))
+    return to_uint32(as_int64(flat)), 4
 
 
 def pack_bits(x, bits: int):
@@ -85,16 +95,16 @@ def pack_bits(x, bits: int):
     if x.device.type == "cpu":
         from .ref import pack_bits_ref  # lazy: ref imports this module
         return pack_bits_ref(x, bits)
-    flat = _as_uint32(x.reshape(-1)).contiguous()
+    flat, width = _pack_input(x.reshape(-1))
+    flat = flat.contiguous()
     n = flat.numel()
-    check_cuda_size(n)
     tiles = n_tiles(n)
     if n == 0:
         return torch.zeros(tiles * bits * R * LANES, dtype=torch.uint32,
                            device=x.device)
     words = torch.empty(tiles * bits * R * LANES, dtype=torch.uint32,
                         device=x.device)
-    _build.launch("pack_bits", flat, words, n, bits, tiles)
+    _build.launch("pack_bits", flat, words, n, bits, tiles, width)
     return words
 
 
@@ -113,7 +123,7 @@ def unpack_bits(words, bits: int, n: int):
         return unpack_bits_ref(words, bits, n)
     if words.dtype != torch.uint32:
         raise TypeError(f"words must be uint32, got {words.dtype}")
-    check_cuda_size(words.numel())
+    check_cuda_size(max(n, words.numel()))
     words = words.reshape(-1).contiguous()
     vals = torch.empty(n, dtype=torch.uint32, device=words.device)
     if n == 0:

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from ..core.compression import decode_levels, level_index, wire_index_bits
+from ..core.compression import PIECE, decode_levels, level_index, wire_index_bits
 from .pack_bits import GROUP, LANES, R, _TILE_VALS, _check_bits, n_tiles
 
 _MASK32 = 0xFFFFFFFF
@@ -39,34 +39,55 @@ def to_uint32(t64: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize_ef(msg, cache, levels, vmin, vmax):
-    """Level indices (float32) and new cache of the EF uplink step."""
-    corrected = msg.to(torch.float32) + cache.to(torch.float32)
+    """Level indices (float32) of msg + cache, formed in float32, and the
+    new cache in msg's dtype; with ``cache`` None, the indices of msg alone
+    and no new cache."""
+    corrected = msg.to(torch.float32)
+    if cache is not None:
+        corrected = corrected + cache          # a new tensor: msg is never written
     idx = level_index(torch.clamp(corrected, vmin, vmax), levels, vmin, vmax)
     idx = torch.clamp(idx, 0, levels)
-    decoded = decode_levels(idx, levels, vmin, vmax)
-    return idx, (corrected - decoded).to(msg.dtype)
+    if cache is None:
+        return idx, None
+    return idx, (corrected - decode_levels(idx, levels, vmin, vmax)).to(msg.dtype)
 
 
 def quantize_ef_ref(msg, cache, *, levels: int, vmin: float, vmax: float):
     """Fused uplink step (paper Alg. 2 lines 15–16):
 
-        corrected = msg + cache
-        wire      = level_index(clip(corrected))      (uint8/uint16)
-        new_cache = corrected − decode(wire)
+        corrected = msg + cache                   (float32)
+        wire      = level_index(clip(corrected))  (uint8/uint16)
+        new_cache = corrected − decode(wire)      (msg's dtype)
 
-    Returns (wire, new_cache).
+    Returns (wire, new_cache), both in msg's shape; with ``cache`` None,
+    (the wire of msg alone, None): the downlink's ``quantize_encode``.
+    msg and cache may be of any float dtypes.  It runs a piece of
+    :data:`PIECE` values at a time, so the float32 and float64 copies of
+    an agent-stacked leaf never exist whole (gemma3-27b's embedding table
+    with two agents is 2.8e9 values, 11 GB a float32 copy).
     """
-    idx, new_cache = _quantize_ef(msg, cache, levels, vmin, vmax)
-    idx = idx.to(torch.int32)
-    if levels <= 255:
-        return idx.to(torch.uint8), new_cache
+    wire = torch.empty(msg.shape, dtype=wire_dtype(levels), device=msg.device)
+    new_cache = None if cache is None else torch.empty(msg.shape, dtype=msg.dtype,
+                                                       device=msg.device)
+    m = msg.reshape(-1)
+    c = None if cache is None else cache.reshape(-1)
     # uint16 through an int16 view: no uint16 cast kernel is needed
-    idx = torch.where(idx >= 2**15, idx - 2**16, idx).to(torch.int16)
-    return idx.view(torch.uint16), new_cache
+    w = wire.view(-1) if levels <= 255 else wire.view(-1).view(torch.int16)
+    for s in range(0, m.numel(), PIECE):
+        idx, nc = _quantize_ef(m[s:s + PIECE], None if c is None else c[s:s + PIECE],
+                               levels, vmin, vmax)
+        idx = idx.to(torch.int32)
+        w[s:s + PIECE] = idx if levels <= 255 else torch.where(idx >= 2**15, idx - 2**16, idx)
+        if nc is not None:
+            new_cache.view(-1)[s:s + PIECE] = nc
+    return wire, new_cache
 
 
 def wire_dtype(levels: int) -> torch.dtype:
-    """Level-index dtype of :func:`quantize_ef_ref`'s wire."""
+    """Level-index dtype of :func:`quantize_ef_ref`'s wire: uint8 for
+    L ≤ 255, uint16 for L ≤ 65535; larger L has no such wire."""
+    if not 1 <= levels <= 65535:
+        raise ValueError(f"levels={levels}: the wire is uint8 or uint16")
     return torch.uint8 if levels <= 255 else torch.uint16
 
 

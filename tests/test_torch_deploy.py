@@ -211,26 +211,27 @@ def test_lm_loss_without_remat_is_the_same():
 
 
 def test_quantize_ef_in_pieces_equals_the_whole_leaf(monkeypatch):
-    """The unfused uplink's quantizer forms z + c in float32 a piece at a
-    time: with pieces of 1000 values over a (2, 3, 1001) leaf, its level
-    ints and new cache equal the whole-leaf formula bit for bit, in float32
-    and bf16, with and without a cache, and z and c stay as they were."""
-    from repro_torch.core import deploy
+    """The round's quantizer off the card (``ops.quantize_ef``: the plain
+    ``ref.quantize_ef_ref``) forms z + c in float32 a piece at a time: with
+    pieces of 1000 values over a (2, 3, 1001) leaf, its level ints and new
+    cache equal the whole-leaf formula bit for bit, in float32 and bf16,
+    with and without a cache, and z and c stay as they were."""
     from repro_torch.core.compression import quantize_decode, quantize_encode
-    monkeypatch.setattr(deploy, "PIECE", 1000)
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ref, "PIECE", 1000)
     gen = torch.Generator().manual_seed(0)
     q = dict(levels=255, vmin=-1.0, vmax=1.0)
     for dtype in (torch.float32, torch.bfloat16):
         z = (torch.randn((2, 3, 1001), generator=gen) * 0.7).to(dtype)
         c = (torch.randn(z.shape, generator=gen) * 0.01).to(dtype)
         z0, c0 = z.clone(), c.clone()
-        w, nc = deploy._quantize_ef(z, c, q)
+        w, nc = ops.quantize_ef(z, c, **q)
         m = z.to(torch.float32) + c
         want = quantize_encode(m, **q)
         m -= quantize_decode(want, **q)
         assert torch.equal(w, want) and w.dtype == torch.uint8
         assert torch.equal(nc, m.to(dtype)) and nc.dtype == dtype
-        w0, none = deploy._quantize_ef(z, None, q)
+        w0, none = ops.quantize_ef(z, None, **q)
         assert none is None and torch.equal(w0, quantize_encode(z.to(torch.float32), **q))
         assert torch.equal(z, z0) and torch.equal(c, c0)
 
@@ -505,7 +506,6 @@ def test_bf16_round_split_from_jax(quant):
     """
     from repro.core import compression as jc
     from repro.kernels.compress_pipeline import quant_pipeline as jax_quant_pipeline
-    from repro_torch.core.deploy import _quantize_ef
     from repro_torch.kernels.ref import unpack_bits_ref
     levels, vmin, vmax = quant["levels"], quant["vmin"], quant["vmax"]
     delta = (vmax - vmin) / levels
@@ -527,10 +527,10 @@ def test_bf16_round_split_from_jax(quant):
     split = worst = 0
     n_bf16 = 0
     for z, c in zip(jax.tree_util.tree_leaves(s1_j.z), jax.tree_util.tree_leaves(state.c_up)):
-        w_t, nc_t = _quantize_ef(_bf16(z) if z.dtype == jnp.bfloat16 else
-                                 torch.from_numpy(np.array(z)),
-                                 _bf16(c) if c.dtype == jnp.bfloat16 else
-                                 torch.from_numpy(np.array(c)), alg_t.quant)
+        w_t, nc_t = ops.quantize_ef(_bf16(z) if z.dtype == jnp.bfloat16 else
+                                    torch.from_numpy(np.array(z)),
+                                    _bf16(c) if c.dtype == jnp.bfloat16 else
+                                    torch.from_numpy(np.array(c)), **alg_t.quant)
         w32, nc32 = jax_unfused(z.astype(jnp.float32) + c.astype(jnp.float32))
         np.testing.assert_array_equal(w_t.numpy(), np.asarray(w32))
         np.testing.assert_array_equal(nc_t.float().numpy(),
