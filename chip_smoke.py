@@ -23,7 +23,10 @@ into ``build/``, then, each phase failing the run:
    msg and cache, with no cache, on views one element off at odd tails,
    and on 2**31 + 4097 bf16 values; pack_bits (redesigned) from uint8,
    uint16, int32 and bool values where they lie, at widths up to and past
-   theirs, one element off, and on that leaf's uint8 wire; sign_pipeline
+   theirs, one element off, and on that leaf's uint8 wire; quant_pipeline
+   on that leaf (its words pack_bits', its cache quantize_ef's) and
+   unpack_bits of its words (the uint8 wire widened), one launch each, n
+   past 2**31; sign_pipeline
    at 100, 70,001, 2**24, 1 and 32,769
    values with exact zeros and -0.0, and on msg and cache views off 16
    bytes (its 4-byte load path) (words equal, scale rtol 1e-6, new cache
@@ -169,8 +172,9 @@ into ``build/``, then, each phase failing the run:
     peak memory, and one more round whose c_up, ŷ and c_down equal the old
     route's (the plain quantizer, ``ref.quantize_ef_ref``, called
     directly) bit for bit on the largest leaf of each dtype; then one round
-    with pack_wire=True (17b): one quant_pipeline and one unpack_bits
-    launch per leaf of at least 32768 values and quantize_ef for the rest
+    with pack_wire=True (17b): one quant_pipeline launch per leaf of at
+    least 32768 values and one unpack_bits per run of 2**25 values of it
+    (``deploy.PIECE``), quantize_ef for the rest
     and the downlink, the state against the old route as in 17a, and the
     fused uplink equal bit for bit to the unfused one (quantize_ef and
     pack_bits) leaf by leaf (words, gathered values, means, caches); a
@@ -231,6 +235,15 @@ into ``build/``, then, each phase failing the run:
     stablelm-1.6b's decode_32k (single and multi pod) and train_4k
     (unrolled, one repeat), each record's keys, chips, agents, positive
     counts and bottleneck checked.
+21. runs gemma3-27b, granite-20b, qwen2-vl-7b and musicgen-large: served
+    at full width and depth in bf16, held at a cut depth in float32
+    against plain attention, trained through DeployFedLT at a cut depth
+    (CATALOG_TRAIN), granite-20b and gemma3-27b then with one packed round
+    each, checked as 17b (gemma3's tied table with two agents is one leaf
+    of 2.82e9 values, past 2**31; its ms, peak memory and launches beside
+    the unpacked rounds' peak), gemma3's float32 gradient through the
+    kernels at one unit, the attention kernels at the new head groups and
+    window, and the quickstart and serve_lm examples.
 22. runs the JAX package's configurations that no other phase runs:
     (22a) h2o-danube-3-4b served with the int8 KV cache at 4 x 8192 + 32
     steps beside the bf16 cache (prefill logits equal bit for bit, the
@@ -766,7 +779,8 @@ def check_quantize_ef(rng, err: dict) -> None:
 #: quantize_ef's element types (msg and cache each)
 EF_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: a bf16 leaf past the C int range: gemma3-27b's tied table with two
-#: agents is 2.82e9 values; this is ~15 GB of msg, cache, wire and new cache
+#: agents is 2.82e9 values; check_huge_leaf holds ~22 GB at its peak (msg,
+#: cache, wire, two new caches and quant_pipeline's words)
 EF_HUGE_N = 2**31 + 4097
 
 
@@ -837,12 +851,16 @@ def check_quantize_ef_widths(rng, err: dict) -> None:
 
 
 def check_huge_leaf(err: dict) -> None:
-    """quantize_ef on a bf16 leaf of EF_HUGE_N values (past the C int
-    range), with a bf16 cache and with none, and pack_bits of its uint8
-    wire, against their plain versions a piece at a time: one launch
-    each, bit for bit."""
+    """The wire kernels that take 64-bit n on a bf16 leaf of EF_HUGE_N
+    values (past the C int range), one launch each, a piece at a time:
+    quantize_ef with a bf16 cache and with none against its plain version,
+    bit for bit; quant_pipeline on the same msg and cache, its new cache
+    bit for bit quantize_ef's; pack_bits of quantize_ef's uint8 wire
+    against its plain version and quant_pipeline's words, word for word;
+    and unpack_bits of those words, equal to the uint8 wire widened."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pack_bits import _TILE_VALS, pack_bits
+    from repro_torch.kernels.compress_pipeline import quant_pipeline
+    from repro_torch.kernels.pack_bits import _TILE_VALS, n_tiles, pack_bits, unpack_bits
     from repro_torch.kernels.quantize_ef import quantize_ef
     free_card()
     gen = torch.Generator(device=DEV).manual_seed(29)
@@ -867,7 +885,13 @@ def check_huge_leaf(err: dict) -> None:
               f"quantize_ef on {EF_HUGE_N} bf16 values, from value {s}: the wire, the "
               "new cache or the no-cache wire differs from its plain version")
         del w_p, nc_p, w0_p
-    del msg, cache, newc, wire0
+    del wire0
+    (words_q, newc_q), made = launched(lambda: quant_pipeline(msg, cache, **kw))
+    check(made == {"quant_pipeline": 1} and words_q.numel() == n_tiles(EF_HUGE_N) * 8 * 1024,
+          f"quant_pipeline on {EF_HUGE_N} values launched {made}")
+    check(same_bits_big(newc_q, newc), f"quant_pipeline on {EF_HUGE_N} bf16 values: its "
+          "new cache differs from quantize_ef's")
+    del msg, cache, newc, newc_q
     words, made = launched(lambda: pack_bits(wire, 8))
     check(made == {"pack_bits": 1}, f"pack_bits on {EF_HUGE_N} values launched {made}")
     piece = 2048 * _TILE_VALS
@@ -877,10 +901,20 @@ def check_huge_leaf(err: dict) -> None:
               f"pack_bits on {EF_HUGE_N} uint8 values, from value {s}: differs from its "
               "plain version")
         del w_ref
+    check(same_bits_big(words_q, words), f"quant_pipeline on {EF_HUGE_N} bf16 values: its "
+          "words differ from pack_bits of quantize_ef's wire")
+    del words_q
+    vals, made = launched(lambda: unpack_bits(words, 8, EF_HUGE_N))
+    check(made == {"unpack_bits": 1}, f"unpack_bits of {EF_HUGE_N} values launched {made}")
+    check(vals.numel() == EF_HUGE_N and same_ints(vals, wire),
+          f"unpack_bits of {EF_HUGE_N} values differs from the uint8 wire they packed")
     print(f"[kernels] quantize_ef on {EF_HUGE_N} bf16 values (past 2**31), with a bf16 "
           f"cache and with none, L=255: one launch each, {TOL}; pack_bits of its uint8 "
-          f"wire at b=8: one launch, words equal the plain version's word for word")
-    del wire, words
+          f"wire at b=8: one launch, words equal the plain version's word for word; "
+          f"quant_pipeline on the same msg and cache: one launch, words equal pack_bits' "
+          f"word for word, new cache quantize_ef's bit for bit; unpack_bits of the "
+          f"words at n={EF_HUGE_N}: one launch, values equal the uint8 wire")
+    del wire, words, vals
     free_card()
 
 
@@ -2299,18 +2333,21 @@ def quant_launches(alg, agents: int) -> dict:
     quantize_ef (no cache) per leaf; the uplink one quantize_ef per leaf,
     but a leaf of at least one tile of values with its agent axis, with
     ``pack_wire``, takes one quant_pipeline (fused) or quantize_ef and one
-    pack_bits (unfused), and one unpack_bits."""
+    pack_bits (unfused), and one unpack_bits per run of ``deploy.PIECE``
+    values (the decode's pieces)."""
+    from repro_torch.core import deploy
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels.pack_bits import _TILE_VALS
     from repro_torch.models.transformer import init_params
     if not alg.compress:
         return {}
     sizes = [agents * t.numel() for t in tree_leaves(init_params(alg.cfg, device="meta"))]
-    tiles = sum(n >= _TILE_VALS for n in sizes) if alg.pack_wire else 0
-    fused = tiles if alg.fuse_pipeline else 0
+    packed = [n for n in sizes if n >= _TILE_VALS] if alg.pack_wire else []
+    fused = len(packed) if alg.fuse_pipeline else 0
     out = {"quantize_ef": 2 * len(sizes) - fused}
-    if tiles:
-        out.update({"quant_pipeline" if fused else "pack_bits": tiles, "unpack_bits": tiles})
+    if packed:
+        out.update({"quant_pipeline" if fused else "pack_bits": len(packed),
+                    "unpack_bits": sum(-(-n // deploy.PIECE) for n in packed)})
     return out
 
 
@@ -2434,6 +2471,20 @@ def same_ints(a: torch.Tensor, b: torch.Tensor, piece: int = 2**26) -> bool:
         for s in range(0, a.numel(), piece))
 
 
+def same_unpacked(words, ints, bits: int, tiles: int = 2048) -> bool:
+    """unpack_bits of ``words`` equal to the integer values ``ints``, a run
+    of ``tiles`` tiles (2**26 values, one launch) at a time, so no uint32
+    copy of a whole leaf is made: the words are tile-major, so a run's
+    words are one slice."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pack_bits import LANES, R, _TILE_VALS
+    flat, n = ints.reshape(-1), ints.numel()
+    step, piece = tiles * bits * R * LANES, tiles * _TILE_VALS
+    return all(same_ints(ops.unpack_bits(words[w:w + step], bits, min(piece, n - s)),
+                         flat[s:s + piece])
+               for w, s in zip(range(0, words.numel(), step), range(0, n, piece)))
+
+
 def check_leaf_plain(z, c, ints, words_q, nc_q, words_p, q: dict, bits: int) -> None:
     """quant_pipeline's words and new cache and pack_bits' words for one
     leaf against their plain versions (ref.quant_pipeline_ref,
@@ -2465,9 +2516,10 @@ def phase_train_packed(state, launches: dict) -> dict:
 
 def packed_round(state, launches: dict, cfg) -> tuple:
     """One round of ``cfg`` with ``pack_wire=True`` from ``state``: one
-    quant_pipeline and one unpack_bits launch per leaf of at least one
-    tile (bf16 weights and float32 norms alike), one quantize_ef per
-    smaller leaf and one per leaf on the downlink (quant_launches), beside
+    quant_pipeline launch per leaf of at least one tile (bf16 weights and
+    float32 norms alike) and one unpack_bits per run of ``deploy.PIECE``
+    values of it, one quantize_ef per smaller leaf and one per leaf on the
+    downlink (quant_launches), beside
     the attention layers', and a finite loss.  Returns (the packed
     DeployFedLT, the new state, the round's summary, whose "held" is
     hold_quant_leaves of ``state`` for check_packed_round)."""
@@ -2507,7 +2559,10 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
     gathered values, their agent mean and the new EF cache equal bit for
     bit, and the round's cache the fused one's; and on the largest leaf,
     quant_pipeline and pack_bits against their plain versions word for
-    word.  Returns the summary, completed."""
+    word.  Whole leaves are compared a piece at a time and each tensor is
+    dropped once compared, so a leaf past 2**31 values (gemma3-27b's
+    table) fits beside the two states.  Returns the summary, completed."""
+    from repro_torch.core import deploy
     from repro_torch.core.pytree import tree_leaves
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.pack_bits import _TILE_VALS
@@ -2524,24 +2579,28 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
         what = f"packed uplink of a {tuple(z.shape)} {z.dtype} leaf"
         ints, nc_plain = ref.quantize_ef_ref(z, c, **q)
         words_f, nc_q = ops.quant_pipeline(z, c, **q)
+        check(same_bits_big(nc_q, nc_plain), f"{what}: quant_pipeline's new cache "
+              "differs from the plain quantizer's")
+        del nc_plain
         words_u = ops.pack_bits(ints, bits)
-        check(same_ints(ops.unpack_bits(words_f, bits, z.numel()), ints)
-              and same_ints(ops.unpack_bits(words_u, bits, z.numel()), ints),
+        check(same_unpacked(words_f, ints, bits) and same_unpacked(words_u, ints, bits),
               f"{what}: unpack_bits of quant_pipeline's or pack_bits' words differs "
               "from the plain level ints")
-        check(same_bits(nc_q, nc_plain), f"{what}: quant_pipeline's new cache differs "
-              "from the plain quantizer's")
         if z.numel() == largest:
             check_leaf_plain(z, c, ints, words_f, nc_q, words_u, q, bits)
-        del ints, nc_plain, nc_q
-        (g_f, nc_f), (g_u, nc_u) = alg.uplink_leaf(z, c), unfused.uplink_leaf(z, c)
-        check(same_bits(words_f, words_u) and same_bits(g_f, g_u)
-              and same_bits(nc_f, nc_u) and same_bits(nc_f, c_new)
-              and same_bits(g_f.mean(dim=0), g_u.mean(dim=0)),
-              f"{what}: fused and unfused words, gathered values, means or caches differ")
+        check(same_bits_big(words_f, words_u), f"{what}: fused and unfused words differ")
+        del ints, nc_q, words_f, words_u
+        g_f, nc_f = alg.uplink_leaf(z, c)
+        check(same_bits_big(nc_f, c_new), f"{what}: the round's new cache differs from "
+              "the fused uplink's")
+        g_u, nc_u = unfused.uplink_leaf(z, c)
+        check(same_bits_big(nc_f, nc_u), f"{what}: fused and unfused caches differ")
+        del nc_f, nc_u
+        check(same_bits_big(g_f, g_u) and same_bits_big(g_f.mean(dim=0), g_u.mean(dim=0)),
+              f"{what}: fused and unfused gathered values or means differ")
         n_vals += z.numel()
         dtypes[str(z.dtype)[6:]] = dtypes.get(str(z.dtype)[6:], 0) + 1
-        del g_f, nc_f, g_u, nc_u, words_f, words_u
+        del g_f, g_u
     # the fused uplink kernel alone on the largest leaf (bf16, with the agent
     # axis): 4 B read and 2 B written per value and b/8 B of words
     z, c = max(((z, c) for z, c in zip(tree_leaves(new.z), tree_leaves(c_up))),
@@ -2557,7 +2616,8 @@ def check_packed_round(alg, new, c_up, res: dict) -> dict:
                plain_route_leaves=plain)
     print(f"[train] {alg.cfg.name} packed wire (levels {alg.levels}, {bits}-bit words), "
           f"one round: {out['ms']:.1f} ms, launches {out['launches']}: one quant_pipeline "
-          f"and one unpack_bits per leaf of >= {_TILE_VALS} values ({out['tile_leaves']} "
+          f"per leaf of >= {_TILE_VALS} values and one unpack_bits per run of "
+          f"{deploy.PIECE} values of it ({out['tile_leaves']} "
           f"leaves, {dtypes} by dtype, {n_vals} values, the largest {largest}); leaf by leaf, "
           f"unpack_bits of both routes' words equal to the plain level ints and "
           f"quant_pipeline's cache to the plain one, bit for bit; fused and unfused "
@@ -3167,12 +3227,15 @@ CATALOG_CHECK = {"gemma3-27b": dict(n_layers=6, scan_repeats=1, tail=()),
 #: holds ~34 B a parameter: stablelm's 45.66 GiB for 1.439 B): (arch, depth
 #: changes, γ); granite-20b at 3 of 52 layers, then a packed round (as 17b),
 #: qwen2-vl-7b at 3 of 28 on the VLM batch, musicgen-large at 32 of 48,
-#: gemma3-27b at its first layer (local; its 262,144-token table is 1.41 B)
+#: gemma3-27b at its first layer (local; its 262,144-token table is 1.41 B,
+#: with two agents one leaf of 2.82e9 values), then a packed round (as 17b)
 CATALOG_TRAIN = (("granite-20b", dict(n_layers=3, scan_repeats=3), 0.02),
                  ("qwen2-vl-7b", dict(n_layers=3, scan_repeats=3), 0.02),
                  ("musicgen-large", dict(n_layers=32, scan_repeats=32), 0.02),
                  ("gemma3-27b", dict(n_layers=1, scan_unit=("attn_local",),
                                      scan_repeats=1, tail=()), 0.02))
+#: the archs of CATALOG_TRAIN that end with a packed round
+CATALOG_PACKED = ("granite-20b", "gemma3-27b")
 #: the attention kernels at the training path's shape of the archs whose
 #: heads or window no other phase runs (GQA groups 2, 48 and 7; gemma3's
 #: window 1024 and its global layers): TRAIN_BATCH x TRAIN_SEQ
@@ -3407,7 +3470,8 @@ def phase_catalog(launches: dict, errors: dict) -> dict:
     """21: serve gemma3-27b, granite-20b, qwen2-vl-7b and musicgen-large at
     full width and depth in bf16 and hold them at a cut depth in float32
     (kernel vs plain attention), train each through DeployFedLT at a cut
-    depth (one packed granite round), gemma3's float32 gradient through
+    depth (one packed round each of granite and gemma3, whose tied table
+    passes 2**31 values), gemma3's float32 gradient through
     the kernels at one unit, the attention kernels at the new head groups
     and window, and the quickstart and serve_lm examples.  Counts are
     zeroed before each run."""
@@ -3420,8 +3484,14 @@ def phase_catalog(launches: dict, errors: dict) -> dict:
         out["f32"][arch] = check_family_f32(arch, launches, CATALOG_CHECK[arch])
         lap(f"21 {arch}")
     for arch, changes, gamma in CATALOG_TRAIN:
-        out["train"][arch] = train_family(arch, changes, gamma, launches,
-                                          packed=arch == "granite-20b")
+        out["train"][arch] = rec = train_family(arch, changes, gamma, launches,
+                                                packed=arch in CATALOG_PACKED)
+        if arch in CATALOG_PACKED:
+            p = rec["packed"]
+            print(f"[catalog] {arch} packed round: {p['ms']:.1f} ms, peak "
+                  f"{p['peak_bytes'] / 2**30:.2f} GiB (max_memory_allocated) beside its "
+                  f"unpacked rounds' {rec['peak_bytes'] / 2**30:.2f} GiB, largest leaf "
+                  f"{p['largest_leaf']} values, launches {p['launches']}")
         free_card()
         lap(f"21 train {arch}")
     # the global layer and its RoPE table train only here: one unit of the

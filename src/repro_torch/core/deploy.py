@@ -14,8 +14,8 @@ Algorithm 2 runs inside the round:
      indices of each leaf of at least one kernel tile (32768 values) are
      bit-packed into b-bit uint32 wire words, by one ``quant_pipeline``
      launch (``fuse_pipeline=True``) or by ``quantize_ef`` and one
-     ``pack_bits`` launch, and unpacked with ``unpack_bits`` on the
-     coordinator side
+     ``pack_bits`` launch, and unpacked on the coordinator side a piece
+     of ``PIECE`` values at a time, one ``unpack_bits`` launch each
   4. ȳ = mean_A decode(wire);  y = c_down + ȳ
   5. ŷ = decode(Q(y));  c_down = y − ŷ                      (downlink EF):
      Q(y) is ``quantize_ef`` with no cache, one launch per leaf
@@ -65,10 +65,10 @@ from torch.profiler import record_function
 
 from ..device import DTensor, is_dtensor
 from ..kernels import ops
-from ..kernels.pack_bits import _TILE_VALS
-from ..kernels.ref import wire_dtype
+from ..kernels.pack_bits import LANES, R, _TILE_VALS
+from ..kernels.ref import as_int64, wire_dtype
 from ..models.transformer import init_params, lm_loss
-from .compression import PIECE, quantize_decode, wire_index_bits
+from .compression import PIECE, decode_levels, quantize_decode, wire_index_bits
 from .pytree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -81,6 +81,27 @@ def _revert_caches(nc, z, c, agents) -> None:
         dst, zf, cf = nc[i].view(-1), z[i].reshape(-1), c[i].reshape(-1)
         for s in range(0, dst.numel(), PIECE):
             dst[s:s + PIECE] = zf[s:s + PIECE] + cf[s:s + PIECE]
+
+
+def _decode_packed(blocks, shape, bits: int, dtype, q: dict):
+    """The packed uplink's coordinator side: each block of words (one per
+    agent rank, ``shape`` values each) decoded into its slice of one
+    output of ``(len(blocks)·shape[0], …)`` in ``dtype``, with one
+    ``unpack_bits`` launch per run of ``PIECE`` values, so no uint32 copy
+    of a whole leaf is made.  ``PIECE`` is whole tiles, and the words are
+    tile-major, so a run's words are one contiguous, tile-aligned slice."""
+    tiles, rest = divmod(PIECE, _TILE_VALS)
+    assert rest == 0, f"PIECE={PIECE} is not a whole number of {_TILE_VALS}-value tiles"
+    n, step = shape.numel(), tiles * bits * R * LANES
+    out = torch.empty((len(blocks) * shape[0],) + tuple(shape[1:]), dtype=dtype,
+                      device=blocks[0].device)
+    dst = out.view(-1)
+    for b, words in enumerate(blocks):
+        for w, s in zip(range(0, words.numel(), step), range(0, n, PIECE)):
+            m = min(PIECE, n - s)
+            idx = ops.unpack_bits(words[w:w + step], bits, m)
+            dst[b * n + s:b * n + s + m] = decode_levels(as_int64(idx), **q)
+    return out
 
 
 def emit_round_series(step: int, metrics: dict) -> None:
@@ -185,10 +206,11 @@ class DeployFedLT:
         ``pack_wire``, a leaf of at least one tile takes one
         ``quant_pipeline`` launch (``fuse_pipeline``) or the quantizer and
         one ``pack_bits`` launch, then one ``unpack_bits`` per block of
-        words; smaller leaves and ``pack_wire=False`` gather the plain level
-        ints.  In the sharded round z and c are DTensors: this rank's shard
-        is quantized and ``gather`` concatenates every agent rank's integer
-        wire along dim 0 (the packed words as one block per rank)."""
+        words and run of ``PIECE`` values (``_decode_packed``); smaller
+        leaves and ``pack_wire=False`` gather the plain level ints.  In the
+        sharded round z and c are DTensors: this rank's shard is quantized
+        and ``gather`` concatenates every agent rank's integer wire along
+        dim 0 (the packed words as one block per rank)."""
         q, bits = self.quant, self.wire_word_bits
         zl, cl = _local(z), _local(c)
         if self.pack_wire and z.numel() >= _TILE_VALS:
@@ -201,9 +223,7 @@ class DeployFedLT:
                 del w
             blocks = [words] if gather is None else gather(words[None]).unbind(0)
             del words
-            idx = [ops.unpack_bits(b, bits, zl.numel()).reshape(zl.shape) for b in blocks]
-            idx = idx[0] if len(idx) == 1 else torch.cat(idx)
-            return quantize_decode(idx, dtype=z.dtype, **q), newc
+            return _decode_packed(blocks, zl.shape, bits, z.dtype, q), newc
         w, newc = ops.quantize_ef(zl, cl, **q)
         return quantize_decode(w if gather is None else gather(w), dtype=z.dtype, **q), newc
 

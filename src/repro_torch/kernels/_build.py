@@ -44,12 +44,12 @@ KERNELS = {
     # vals, words, n (64-bit), bits, tiles, the values' width in bytes (1,
     # 2 or 4)
     "pack_bits": ("pack_bits.cu", "repro_pack_bits", (_P, _P, _L, _I, _I, _I)),
-    # words, vals, n, bits, tiles
-    "unpack_bits": ("pack_bits.cu", "repro_unpack_bits", (_P, _P, _I, _I, _I)),
-    # msg, cache, words, new_cache, n, bits, tiles, levels, vmin, vmax,
-    # delta, 1/delta, bf16 (msg and cache bf16, else float32)
+    # words, vals, n (64-bit), bits, tiles
+    "unpack_bits": ("pack_bits.cu", "repro_unpack_bits", (_P, _P, _L, _I, _I)),
+    # msg, cache, words, new_cache, n (64-bit), bits, tiles, levels, vmin,
+    # vmax, delta, 1/delta, bf16 (msg and cache bf16, else float32)
     "quant_pipeline": ("quant_pipeline.cu", "repro_quant_pipeline",
-                       (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I)),
+                       (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _I)),
     # msg, cache (null for none), wire, new_cache (null with no cache), n
     # (64-bit), levels, vmin, vmax, delta, 1/delta, msg's and cache's types
     # (0 float32, 1 bf16, 2 fp16)

@@ -80,7 +80,6 @@ def quant_pipeline(msg, cache, *, levels: int = 255, vmin: float = -1.0,
         raise ValueError(f"levels={levels} exceeds the kernel's int range")
     msg, cache = msg.contiguous(), cache.contiguous()
     n = msg.numel()
-    check_cuda_size(n)
     tiles = n_tiles(n)
     words = torch.empty(tiles * bits * R * LANES, dtype=torch.uint32,
                         device=msg.device)

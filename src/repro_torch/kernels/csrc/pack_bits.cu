@@ -270,7 +270,7 @@ unpack_bits_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ va
 }
 
 template <int MAXB>
-void launch_unpack(const uint32_t* words, uint32_t* vals, int n, int bits, int tiles,
+void launch_unpack(const uint32_t* words, uint32_t* vals, long long n, int bits, int tiles,
                    bool vec, cudaStream_t stream) {
   if (vec)
     unpack_bits_kernel<MAXB, true><<<tiles, repro::THREADS, 0, stream>>>(words, vals, n, bits);
@@ -295,9 +295,9 @@ extern "C" int repro_pack_bits(const void* vals, void* words, long long n, int b
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: tiles * bits * 1024 uint32; vals: the first n values, written,
-// 16-byte aligned.  One block of 256 threads per tile.
-extern "C" int repro_unpack_bits(const void* words, void* vals, int n, int bits,
+// words: tiles * bits * 1024 uint32; vals: the first n values (n 64-bit),
+// written, 16-byte aligned.  One block of 256 threads per tile.
+extern "C" int repro_unpack_bits(const void* words, void* vals, long long n, int bits,
                                  int tiles, void* stream) {
   static_assert(TILE_COLS == 4 * repro::THREADS, "a thread per four columns");
   const auto* w = static_cast<const uint32_t*>(words);

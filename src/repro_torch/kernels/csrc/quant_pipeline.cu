@@ -24,7 +24,8 @@
 // shape, (100, 100) values at b = 4 in one tile, it moves about 136 KB, some
 // 0.04 us at 3.35 TB/s, so a launch is bound by launch latency.  On the
 // training path's packed round (DeployFedLT, pack_wire) it takes each leaf
-// of a bf16 model with its agent axis, up to 5.5e8 values.
+// of a bf16 model with its agent axis, 5.5e8 values for stablelm-1.6b's
+// largest and 2.82e9 (past 2**31: n is 64-bit) for gemma3-27b's tied table.
 #include <cuda_bf16.h>
 
 #include "bitplanes.cuh"
@@ -74,8 +75,8 @@ __global__ void quant_pipeline_kernel(const T* __restrict__ msg,
 }
 
 template <typename T>
-cudaError_t launch(const void* msg, const void* cache, void* words, void* new_cache, int n,
-                   int bits, int tiles, int levels, float vmin, float vmax, float delta,
+cudaError_t launch(const void* msg, const void* cache, void* words, void* new_cache,
+                   long long n, int bits, int tiles, int levels, float vmin, float vmax, float delta,
                    float recip, cudaStream_t stream) {
   quant_pipeline_kernel<T><<<repro::blocks_for(tiles), repro::THREADS, 0, stream>>>(
       static_cast<const T*>(msg), static_cast<const T*>(cache),
@@ -85,11 +86,12 @@ cudaError_t launch(const void* msg, const void* cache, void* words, void* new_ca
   return cudaGetLastError();
 }
 
-// msg, cache, new_cache: n values of float32 (bf16 = 0) or bf16 (bf16 = 1);
-// words: tiles * bits * 1024 uint32, all written.  delta: the float32
+// msg, cache, new_cache: n values of float32 (bf16 = 0) or bf16 (bf16 = 1),
+// n 64-bit (a leaf may pass 2**31 values; tiles stays int: 2**31 tiles are
+// 7e13 values); words: tiles * bits * 1024 uint32, all written.  delta: the float32
 // rounding of (vmax - vmin) / levels; recip: 1.0f / delta in float32.
 extern "C" int repro_quant_pipeline(const void* msg, const void* cache,
-                                    void* words, void* new_cache, int n,
+                                    void* words, void* new_cache, long long n,
                                     int bits, int tiles, int levels, float vmin,
                                     float vmax, float delta, float recip, int bf16,
                                     void* stream) {

@@ -59,8 +59,11 @@ def n_tiles(n: int) -> int:
 
 
 def check_cuda_size(n: int) -> None:
-    """The kernels whose C entry points take ``int`` sizes (all but
-    pack_bits and quantize_ef) refuse 2**31 values or more."""
+    """Refuse 2**31 values or more in a kernel whose C entry point takes
+    an ``int`` size: sign_pipeline and erasure_mask.  No path reaches
+    either past 2**31 (erasure_mask runs at the cohort transport's word
+    counts, sign_pipeline on no model path), and erasure_mask's segment
+    hash is 32-bit by the wire's layout.  The others take 64-bit n."""
     if n >= 2**31:
         raise ValueError(f"{n} values exceed the kernels' int sizes")
 
@@ -123,7 +126,6 @@ def unpack_bits(words, bits: int, n: int):
         return unpack_bits_ref(words, bits, n)
     if words.dtype != torch.uint32:
         raise TypeError(f"words must be uint32, got {words.dtype}")
-    check_cuda_size(max(n, words.numel()))
     words = words.reshape(-1).contiguous()
     vals = torch.empty(n, dtype=torch.uint32, device=words.device)
     if n == 0:

@@ -33,6 +33,7 @@ from repro.data.synthetic import make_batch as jax_make_batch
 from repro.models import transformer as jtf
 from repro.models.config import ModelConfig as JaxConfig
 from repro_torch import convert
+from repro_torch.core import deploy
 from repro_torch.core.deploy import DeployFedLT
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.kernels import ops
@@ -289,8 +290,8 @@ def _check_round(alg_kw, s0_j, s1_j, s1_t, m_j, m_t, survivors) -> int:
     return flips
 
 
-def _counting(monkeypatch):
-    calls = {"quant_pipeline": 0, "pack_bits": 0, "unpack_bits": 0}
+def _counting(monkeypatch, names=("quant_pipeline", "pack_bits", "unpack_bits")):
+    calls = dict.fromkeys(names, 0)
     for name in calls:
         fn = getattr(ops, name)
 
@@ -314,16 +315,39 @@ ROUND_CASES = [
     ("survivors-packed-unfused", dict(QUANT, pack_wire=True, fuse_pipeline=False),
      [True, False]),
 ]
+# the packed routes with the uplink's decode piece cut to one tile: each
+# tile-sized leaf (two tiles with its agent axis) decodes in two pieces
+PIECE_CASES = [(name + "-piece1", alg_kw, survivors, _TILE_VALS)
+               for name, alg_kw, survivors in ROUND_CASES if alg_kw.get("pack_wire")]
 
 
-@pytest.mark.parametrize("name,alg_kw,survivors", ROUND_CASES,
-                         ids=[c[0] for c in ROUND_CASES])
-def test_round_step_matches_jax(name, alg_kw, survivors, monkeypatch):
+def _one_thread(fn):
+    """``fn()`` with torch's CPU ops on one thread (then as before)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bit patterns (float32 read through int32)."""
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("name,alg_kw,survivors,piece",
+                         [c + (None,) for c in ROUND_CASES] + PIECE_CASES,
+                         ids=[c[0] for c in ROUND_CASES + PIECE_CASES])
+def test_round_step_matches_jax(name, alg_kw, survivors, piece, monkeypatch):
     """Two rounds of DeployFedLT.round_step, each from the JAX state carried
     into the port, against jax.jit(round_step); with pack_wire, the three
-    tile-sized leaves take one quant_pipeline and one unpack_bits each
-    (fused) or one pack_bits and one unpack_bits each (unfused), and the
-    other eight gather plain ints."""
+    tile-sized leaves take one quant_pipeline (fused) or one pack_bits
+    (unfused) each and one unpack_bits a leaf and run of ``deploy.PIECE``
+    values, and the other eight gather plain ints.  With ``piece``,
+    ``deploy.PIECE`` is cut to it and each round is also held bit for bit
+    to the same round at the default piece (both on one thread, so local
+    training sums in one order)."""
     kw = dict(n_epochs=2, gamma=0.05, rho=10.0, **alg_kw)
     alg_j, alg_t = JaxDeploy(cfg=CFG_J, **kw), DeployFedLT(cfg=CFG_T, **kw)
     surv_j = None if survivors is None else jnp.asarray(survivors)
@@ -332,20 +356,33 @@ def test_round_step_matches_jax(name, alg_kw, survivors, monkeypatch):
     sizes = [x.size for x in jax.tree_util.tree_leaves(state.x)]
     assert sum(n >= _TILE_VALS for n in sizes) == 3 and len(sizes) == 11
     calls = _counting(monkeypatch)
+    pieces = sum(-(-n // (piece or deploy.PIECE)) for n in sizes if n >= _TILE_VALS)
+    assert pieces == (6 if piece else 3)
+    port_round = lambda: alg_t.round_step(
+        convert.deploy_state_from_jax(np_tree(state), "cpu"), _port_batch(batch),
+        survivors=survivors)
     flips = 0
     for k in range(2):
         batch = _jax_batch(10 + k)
         s1_j, m_j = step(state, batch)
-        before = dict(calls)
-        s1_t, m_t = alg_t.round_step(convert.deploy_state_from_jax(np_tree(state), "cpu"),
-                                     _port_batch(batch), survivors=survivors)
-        made = {n: calls[n] - before[n] for n in calls}
+        if piece:
+            whole, m_whole = _one_thread(port_round)
+        with pytest.MonkeyPatch.context() as mp:
+            if piece:
+                mp.setattr(deploy, "PIECE", piece)
+            before = dict(calls)
+            s1_t, m_t = _one_thread(port_round) if piece else port_round()
+            made = {n: calls[n] - before[n] for n in calls}
+        if piece:
+            assert all(_same_bits(a, b) for a, b in zip(tree_leaves(tuple(whole)[:5]),
+                                                        tree_leaves(tuple(s1_t)[:5])))
+            assert float(m_whole["loss"]) == float(m_t["loss"])
         if not alg_kw.get("pack_wire"):
             assert made == {"quant_pipeline": 0, "pack_bits": 0, "unpack_bits": 0}
         elif alg_kw.get("fuse_pipeline", True):
-            assert made == {"quant_pipeline": 3, "pack_bits": 0, "unpack_bits": 3}
+            assert made == {"quant_pipeline": 3, "pack_bits": 0, "unpack_bits": pieces}
         else:
-            assert made == {"quant_pipeline": 0, "pack_bits": 3, "unpack_bits": 3}
+            assert made == {"quant_pipeline": 0, "pack_bits": 3, "unpack_bits": pieces}
         flips += _check_round(alg_kw, np_tree(state), np_tree(s1_j), s1_t, m_j, m_t,
                               survivors)
         state = s1_j
@@ -420,6 +457,67 @@ def test_round_step_agent_replicate_spec_equals_plain_round(tmp_path):
                 assert torch.equal(a, b.full_tensor())
             assert float(m_got["loss"]) == float(m_want["loss"])
             assert m_got["wire_nbytes_per_agent"] == m_want["wire_nbytes_per_agent"]
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_round_step_agent_replicate_spec_in_pieces(tmp_path, fuse):
+    """The packed round with the uplink's decode piece cut to one tile, on
+    plain tensors with ``agent_replicate_spec`` and on a DTensor state over
+    a 1-rank gloo mesh (the gathered words decoded a run of tiles at a
+    time), equals the round at the default piece bit for bit, with one
+    unpack_bits launch per tile-sized leaf and tile."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import AbstractMesh, process_group
+
+    batch = _port_batch(_jax_batch(22))
+    alg = DeployFedLT(cfg=CFG_T, **QUANT, pack_wire=True, fuse_pipeline=fuse)
+    state = alg.init(2, generator=torch.Generator().manual_seed(3), device="cpu")
+    tiles = sum(x.numel() // _TILE_VALS for x in tree_leaves(state.x))
+    assert tiles == 6
+    want, m_want = _one_thread(lambda: alg.round_step(state, batch))
+    _, rep = _rep_spec(state, AbstractMesh((1,), ("data",)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(deploy, "PIECE", _TILE_VALS)
+        calls = _counting(mp)
+        plain, _ = _one_thread(lambda: alg.round_step(state, batch, agent_replicate_spec=rep))
+        assert calls["unpack_bits"] == tiles
+        with process_group(str(tmp_path / "rendezvous")):
+            mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+            sharded, rep = _one_rank_state(state, mesh)
+            got, m_got = _one_thread(
+                lambda: alg.round_step(sharded, batch, agent_replicate_spec=rep))
+            got = [b.full_tensor() for b in tree_leaves(tuple(got)[:5])]
+        assert calls["unpack_bits"] == 2 * tiles
+    for a, b, c in zip(tree_leaves(tuple(want)[:5]), tree_leaves(tuple(plain)[:5]), got):
+        assert _same_bits(a, b) and _same_bits(a, c)
+    assert float(m_got["loss"]) == float(m_want["loss"])
+
+
+@pytest.mark.parametrize("piece", [None, _TILE_VALS], ids=["default-piece", "piece1"])
+@pytest.mark.parametrize("alg_kw", [dict(pack_wire=True), dict(
+    pack_wire=True, fuse_pipeline=False), dict()], ids=["fused", "unfused", "unpacked"])
+def test_chip_smoke_quant_launches_are_the_rounds_calls(alg_kw, piece, monkeypatch):
+    """chip_smoke.py's quant_launches, which every training round on the
+    card is held to, derives from the model's leaves the wire's calls a
+    round makes: quantize_ef, quant_pipeline or pack_bits, and unpack_bits
+    per run of ``deploy.PIECE`` values."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    if piece:
+        monkeypatch.setattr(deploy, "PIECE", piece)
+    alg = DeployFedLT(cfg=CFG_T, **QUANT, **alg_kw)
+    state = alg.init(2, generator=torch.Generator().manual_seed(4), device="cpu")
+    calls = _counting(monkeypatch, ("quantize_ef", "quant_pipeline", "pack_bits",
+                                    "unpack_bits"))
+    alg.round_step(state, _port_batch(_jax_batch(23)))
+    want = smoke.quant_launches(alg, 2)
+    assert {k: v for k, v in calls.items() if v} == want
+    assert want.get("unpack_bits", 0) == (6 if piece else 3) * bool(alg_kw)
 
 
 def test_round_step_leaves_its_input_state_alone():

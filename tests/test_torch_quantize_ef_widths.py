@@ -201,7 +201,7 @@ def test_pack_bits_reads_narrow_ints_where_they_lie(monkeypatch):
     """Off the CPU pack_bits hands the kernel uint8, bool, uint16, int32
     and uint32 values as they are (no int32 copy), with their width;
     int8 and int16 widen to int32 (their negatives keep their sign bits);
-    and n may pass 2**31."""
+    and n may pass 2**31, in unpack_bits of its words too."""
     seen = []
     monkeypatch.setattr(_build, "meta_hook", lambda name, args: seen.append(args))
     for dtype, width in ((torch.uint8, 1), (torch.bool, 1), (torch.uint16, 2),
@@ -214,10 +214,10 @@ def test_pack_bits_reads_narrow_ints_where_they_lie(monkeypatch):
         assert args[5] == width and args[2] == x.numel()
         assert (args[0].untyped_storage() is x.untyped_storage()) == (dtype not in (
             torch.int8, torch.int16)), dtype
-    ops.pack_bits(_meta(2**31 + 4097, dtype=torch.uint8), 8)
+    words = ops.pack_bits(_meta(2**31 + 4097, dtype=torch.uint8), 8)
     assert seen.pop()[2] == 2**31 + 4097
-    with pytest.raises(ValueError, match="int sizes"):
-        ops.unpack_bits(_meta(tpb.n_tiles(2**31) * 8 * 1024, dtype=torch.uint32), 8, 2**31)
+    ops.unpack_bits(words, 8, 2**31 + 4097)
+    assert seen.pop()[2:] == (2**31 + 4097, 8, tpb.n_tiles(2**31 + 4097))
 
 
 # -- pack_bits from narrow ints against the JAX kernel -------------------------
